@@ -1,0 +1,20 @@
+from .featurize import Featurizer, pad_batch, stack_examples
+from .labels import load_multimodal_labels
+from .pipeline import PipelineStats, PrefetchIterator, batches_from_files, iter_batches
+from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, RawExample, parse_line
+
+__all__ = [
+    "Featurizer",
+    "MAX_BOXES",
+    "MAX_LABEL_TOKENS",
+    "MAX_QUERY_LEN_AB",
+    "PipelineStats",
+    "PrefetchIterator",
+    "RawExample",
+    "batches_from_files",
+    "iter_batches",
+    "load_multimodal_labels",
+    "pad_batch",
+    "parse_line",
+    "stack_examples",
+]

@@ -1,0 +1,85 @@
+"""Featurization of decoded TSV rows into fixed-shape numpy arrays.
+
+Only the ImageBERT-A layout (``imagebert_lds``) is ported so far: 20 query
+ids + 10 box feature tokens + 10 label tokens, segment ids over the 20 text
+positions, and **no** padding masks (``pixelmodel.py:189-195`` builds an
+all-ones mask). The B/C and LXMERT layouts follow with their models.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+
+from ..tokenization import FullTokenizer
+from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, RawExample, pad_1d, pad_rows
+
+
+class Featurizer:
+    """Tokenizes queries and box-label texts into the model layouts."""
+
+    def __init__(self, tokenizer: FullTokenizer, label_texts: dict[str, str]):
+        self.tokenizer = tokenizer
+        self.label_texts = label_texts
+        self._label_ids_cache: dict[int, list[int]] = {}
+
+    def label_token_ids(self, class_label: int) -> list[int]:
+        """WordPiece ids of a box label's text (no [CLS]/[SEP])."""
+        ids = self._label_ids_cache.get(class_label)
+        if ids is None:
+            text = self.label_texts[str(class_label)]
+            ids = self.tokenizer.convert_tokens_to_ids(self.tokenizer.tokenize(text))
+            self._label_ids_cache[class_label] = ids
+        return ids
+
+    def _label_id_grid(self, ex: RawExample) -> np.ndarray:
+        """-> label ids [10, 8] int32, zero-padded per box and over boxes."""
+        ids = np.zeros((MAX_BOXES, MAX_LABEL_TOKENS), dtype=np.int32)
+        for i, cl in enumerate(ex.class_labels[:MAX_BOXES]):
+            tok = self.label_token_ids(int(cl))
+            n = min(len(tok), MAX_LABEL_TOKENS)
+            ids[i, :n] = tok[:n]
+        return ids
+
+    def imagebert_a(self, ex: RawExample, label: int = 0) -> dict[str, np.ndarray]:
+        q_ids = self.tokenizer.encode_query(ex.query)
+        return {
+            "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_AB).astype(np.int32),
+            "segment_ids": np.zeros((MAX_QUERY_LEN_AB,), dtype=np.int32),
+            "boxes": pad_rows(ex.boxes_5(), MAX_BOXES).astype(np.float32),
+            "features": pad_rows(ex.features, MAX_BOXES).astype(np.float32),
+            "label_ids": self._label_id_grid(ex),
+            "labels": np.int32(label),
+            "product_id": np.int64(ex.product_id),
+            "query_id": np.int64(ex.query_id),
+        }
+
+    def for_model(self, name: str) -> Callable[[RawExample], dict[str, np.ndarray]]:
+        if name != "imagebert_a":
+            raise NotImplementedError(
+                f"featurizer layout {name!r} is not yet ported, see ROADMAP.md"
+            )
+        return self.imagebert_a
+
+
+def stack_examples(examples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    keys = examples[0].keys()
+    return {k: np.stack([e[k] for e in examples], axis=0) for k in keys}
+
+
+def pad_batch(batch: dict[str, np.ndarray], batch_size: int) -> dict[str, np.ndarray]:
+    """Pad a ragged tail batch to the fixed batch size with a 'valid' mask, so
+    every batch has one shape (the reference dropped the tail instead:
+    ``run_pretraining_predict_score.py:577-578``)."""
+    n = next(iter(batch.values())).shape[0]
+    valid = np.zeros((batch_size,), dtype=np.bool_)
+    valid[:n] = True
+    if n == batch_size:
+        return {**batch, "valid": valid}
+    out = {}
+    for k, v in batch.items():
+        pad_shape = (batch_size - n,) + v.shape[1:]
+        out[k] = np.concatenate([v, np.zeros(pad_shape, dtype=v.dtype)], axis=0)
+    out["valid"] = valid
+    return out

@@ -1,0 +1,216 @@
+"""Shared transformer core: the port of the JAX package's ``models/core.py``.
+
+* ``BertConfig`` (mirrors ``assets/user_data/bert_config.json``),
+* ``Precision``: the compute dtype plus the float32 matmul policy,
+* ``dense`` and ``layer_norm`` (eps 1e-12, float32 internals),
+* the post-LN encoder, a loop over ``[L]``-stacked layer parameters whose
+  blocks are the fused attention and FFN blocks of ``ops/``,
+* embedding and pooler pieces, and initialisers (truncated normal,
+  stddev=initializer_range, as ``pixelmodel.py:418-420``).
+
+Parameters are a nested dict of tensors in the JAX package's tree layout,
+except that each layer's query/key/value are fused once, at load time, into
+one ``attention/qkv`` [H, 3H] kernel (``checkpoint/npz.py``). Matmul inputs
+are rounded to ``Precision.compute_dtype`` and multiplied in float32;
+LayerNorm, softmax and all head math stay float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from ..ops.attention_block import attention_block as attention_block_op
+from ..ops.attention_block import attention_block_plain
+from ..ops.ffn_block import ffn_block as ffn_block_op
+from ..ops.ffn_block import ffn_block_plain
+from ..ops.kernels import layernorm_plain
+
+Params = dict[str, Any]
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 21128
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+
+    @classmethod
+    def from_json_file(cls, path) -> "BertConfig":
+        with open(path, "r", encoding="utf-8") as f:
+            raw = json.load(f)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in fields})
+
+    def replace(self, **kw) -> "BertConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class Precision:
+    """Compute dtype of the matmul inputs and of the residual stream.
+
+    ``f32()`` is the strict-parity mode: it also turns TF32 off for float32
+    matmuls and convolutions, the counterpart of the JAX package forcing
+    ``Precision.HIGHEST`` (``models/core.py`` :77-96). ``bf16()`` is the
+    mode of the CUDA kernels."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def f32(cls) -> "Precision":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        return cls(torch.float32)
+
+    @classmethod
+    def bf16(cls) -> "Precision":
+        return cls(torch.bfloat16)
+
+
+class Blocks(NamedTuple):
+    """The two per-layer block functions the encoder calls."""
+
+    attention: Callable[..., torch.Tensor]
+    ffn: Callable[..., torch.Tensor]
+
+
+# the wrappers: plain versions on CPU tensors, the CUDA kernels on CUDA tensors
+KERNEL_BLOCKS = Blocks(attention_block_op, ffn_block_op)
+# the oracles, on any device (chip_smoke.py holds the kernels against them)
+PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain)
+
+GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
+
+
+# --------------------------------------------------------------------------
+# initialisers
+# --------------------------------------------------------------------------
+
+
+def trunc_normal(shape, stddev: float, gen: torch.Generator) -> torch.Tensor:
+    """tf.truncated_normal_initializer: normal truncated at 2 sigma."""
+    t = torch.empty(shape, dtype=torch.float32)
+    return torch.nn.init.trunc_normal_(t, std=stddev, a=-2 * stddev, b=2 * stddev, generator=gen)
+
+
+def dense_init(d_in: int, d_out: int, stddev: float, gen: torch.Generator, lead=()) -> Params:
+    return {
+        "kernel": trunc_normal((*lead, d_in, d_out), stddev, gen),
+        "bias": torch.zeros((*lead, d_out)),
+    }
+
+
+def layer_norm_init(dim: int, lead=()) -> Params:
+    return {"gamma": torch.ones((*lead, dim)), "beta": torch.zeros((*lead, dim))}
+
+
+def encoder_init(cfg: BertConfig, gen: torch.Generator) -> Params:
+    """Stacked layer params, every leaf with a leading [L] axis."""
+    lead = (cfg.num_hidden_layers,)
+    h, i, std = cfg.hidden_size, cfg.intermediate_size, cfg.initializer_range
+    return {
+        "attention": {
+            "qkv": dense_init(h, 3 * h, std, gen, lead),
+            "output": {"dense": dense_init(h, h, std, gen, lead), "LayerNorm": layer_norm_init(h, lead)},
+        },
+        "ffn": {
+            "intermediate": dense_init(h, i, std, gen, lead),
+            "output": {"dense": dense_init(i, h, std, gen, lead), "LayerNorm": layer_norm_init(h, lead)},
+        },
+    }
+
+
+def embeddings_init(cfg: BertConfig, gen: torch.Generator) -> Params:
+    std = cfg.initializer_range
+    return {
+        "word_embeddings": trunc_normal((cfg.vocab_size, cfg.hidden_size), std, gen),
+        "token_type_embeddings": trunc_normal((cfg.type_vocab_size, cfg.hidden_size), std, gen),
+        "position_embeddings": trunc_normal((cfg.max_position_embeddings, cfg.hidden_size), std, gen),
+        "LayerNorm": layer_norm_init(cfg.hidden_size),
+    }
+
+
+# --------------------------------------------------------------------------
+# primitives
+# --------------------------------------------------------------------------
+
+
+def dense(p: Params, x: torch.Tensor, prec: Precision) -> torch.Tensor:
+    """f32 (x @ kernel + bias), with x and kernel rounded to the compute
+    dtype first (the JAX dot with preferred_element_type=float32)."""
+    dt = prec.compute_dtype
+    y = torch.matmul(x.to(dt).float(), p["kernel"].to(dt).float())
+    return y + p["bias"].float()
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12, out_dtype=None) -> torch.Tensor:
+    """LayerNorm with float32 internals; optionally emits a narrower dtype."""
+    return layernorm_plain(x, p["gamma"], p["beta"], eps, out_dtype)
+
+
+# --------------------------------------------------------------------------
+# blocks and encoder
+# --------------------------------------------------------------------------
+
+
+def attention_block(p: Params, x, bias, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS):
+    """Post-LN self-attention block of one layer (no dropout: inference)."""
+    out = p["output"]
+    return blocks.attention(
+        x, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
+        out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
+    )
+
+
+def ffn_block(p: Params, x, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS):
+    """Post-LN feed-forward block of one layer (no dropout: inference)."""
+    act_name = cfg.hidden_act
+    if act_name not in GELU_APPROXIMATE:
+        raise NotImplementedError(f"activation {act_name!r} is not yet ported, see ROADMAP.md")
+    out = p["output"]
+    return blocks.ffn(
+        x, p["intermediate"]["kernel"], p["intermediate"]["bias"], out["dense"]["kernel"],
+        out["dense"]["bias"], out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"],
+        approximate_gelu=GELU_APPROXIMATE[act_name],
+    )
+
+
+def layer_slice(tree: Params, i: int) -> Params:
+    """Layer i of a tree of [L]-stacked leaves."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def num_layers(p: Params) -> int:
+    return p["attention"]["qkv"]["kernel"].shape[0]
+
+
+def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
+            blocks: Blocks = KERNEL_BLOCKS) -> torch.Tensor:
+    """The post-LN stack; the f32 embedding output is cast to the compute
+    dtype on entry (the JAX package's ``models/core.py`` :673)."""
+    x = x.to(prec.compute_dtype)
+    for i in range(num_layers(p)):
+        layer = layer_slice(p, i)
+        x = attention_block(layer["attention"], x, bias, cfg, blocks)
+        x = ffn_block(layer["ffn"], x, cfg, blocks)
+    return x
+
+
+def pooler(p: Params, seq: torch.Tensor, prec: Precision) -> torch.Tensor:
+    """tanh(dense(first token)) -- pixelmodel.py:262-270."""
+    return torch.tanh(dense(p["dense"], seq[:, 0, :], prec))
+

@@ -1,0 +1,103 @@
+"""ImageBERT-A: single-stream 40-token scorer (reference ``imagebert_lds``).
+
+Sequence layout: [20 query wordpieces | 10 RoI-feature tokens | 10 label
+tokens]. Query tokens get word+type+position embeddings then LayerNorm;
+RoI features pass a 2048->768 linear (``pixelmodel.py:439-442``); label
+tokens are mixed 8->1 by the reshape quirk below. The three parts are
+concatenated AFTER that postprocessing (``pixelmodel.py:601``), in float32,
+so image and label tokens carry no position/type embedding and skip the
+embedding LayerNorm. The attention mask is all-ones over all 40 positions:
+padding is deliberately not masked (``pixelmodel.py:189-195``), so the
+encoder runs with no bias. Head: binary NSP softmax, score = probs[:, 1].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..data.tsv import MAX_BOXES, MAX_QUERY_LEN_AB
+from . import heads
+from .core import (
+    KERNEL_BLOCKS,
+    BertConfig,
+    Blocks,
+    Params,
+    Precision,
+    dense,
+    dense_init,
+    embeddings_init,
+    encoder,
+    encoder_init,
+    layer_norm,
+    pooler,
+    trunc_normal,
+)
+
+TEXT_LEN = MAX_QUERY_LEN_AB  # 20
+SEQ_LEN = TEXT_LEN + 2 * MAX_BOXES  # 40
+FEATURE_DIM = 2048
+# the batch entries the model reads; the engine moves only these to the device
+INPUT_KEYS = ("input_ids", "segment_ids", "features", "label_ids")
+
+
+def init_params(cfg: BertConfig, gen: torch.Generator) -> Params:
+    """Random parameters in the port's layout, drawn from ``gen``."""
+    emb = embeddings_init(cfg, gen)
+    # the 8->1 label mixing vector, named word_embeddings_labelembedding in TF
+    emb["word_embeddings_labelembedding"] = trunc_normal((8, 1), cfg.initializer_range, gen)
+    return {
+        "bert": {
+            "embeddings": emb,
+            "encoder": encoder_init(cfg, gen),
+            "pooler": {"dense": dense_init(cfg.hidden_size, cfg.hidden_size, cfg.initializer_range, gen)},
+        },
+        "featureemb": dense_init(FEATURE_DIM, cfg.hidden_size, cfg.initializer_range, gen),
+        "cls": {"seq_relationship": heads.nsp_head_init(cfg, gen)},
+    }
+
+
+def _label_mix(emb_table: torch.Tensor, mix: torch.Tensor, label_ids: torch.Tensor) -> torch.Tensor:
+    """The reshape4D quirk: [B,10,8] ids -> [B,10,768] mixed embeddings.
+
+    TF's ``reshape(-1, 8) @ mix`` groups 8 *consecutive hidden dims* (C
+    order): out[b,n, t*96+g] = sum_j e[b,n,t, g*8+j] * mix[j]. Computed as
+    the JAX package computes it (``models/imagebert_a.py`` :67-86): one f32
+    contraction of each token's H dims with kron(I_96, mix) [H, 96].
+    """
+    e = emb_table[label_ids].float()  # [B, 10, 8, H]
+    b, n, t, h = e.shape
+    g = h // t  # 96 groups of 8 consecutive dims per token
+    mix_mat = torch.kron(torch.eye(g, dtype=e.dtype, device=e.device), mix.float())  # [H, g]
+    mixed = torch.einsum("bnth,hg->bntg", e, mix_mat)
+    return mixed.reshape(b, MAX_BOXES, h)
+
+
+def embed(p: Params, batch: dict, cfg: BertConfig, prec: Precision) -> torch.Tensor:
+    """-> [B, 40, H] float32 transformer input."""
+    emb = p["bert"]["embeddings"]
+    table = emb["word_embeddings"]
+    text = table[batch["input_ids"].long()]  # [B, 20, H]
+    text = text + emb["token_type_embeddings"][batch["segment_ids"].long()]
+    text = text + emb["position_embeddings"][:TEXT_LEN][None]
+    text = layer_norm(emb["LayerNorm"], text)
+    feat = dense(p["featureemb"], batch["features"], prec)  # [B, 10, H]
+    label = _label_mix(table, emb["word_embeddings_labelembedding"], batch["label_ids"].long())
+    return torch.cat([text.float(), feat.float(), label.float()], dim=1)
+
+
+def apply(p: Params, batch: dict, cfg: BertConfig, prec: Precision | None = None,
+          blocks: Blocks = KERNEL_BLOCKS) -> dict:
+    """Inference forward pass (dropout off, as the reference zeroes it when
+    not training: pixelmodel.py:178-180). ``blocks`` picks the per-layer
+    block functions: the kernel wrappers, or the plain oracles."""
+    prec = prec if prec is not None else Precision.f32()
+    x = embed(p, batch, cfg, prec)
+    seq = encoder(p["bert"]["encoder"], x, None, cfg, prec, blocks=blocks)
+    pooled = pooler(p["bert"]["pooler"], seq, prec)
+    probs = heads.nsp_probs(p["cls"]["seq_relationship"], pooled)
+    return {"sequence": seq, "pooled": pooled, "probs": probs, "score": probs[:, 1]}
+
+
+def score(p: Params, batch: dict, cfg: BertConfig, prec: Precision | None = None,
+          blocks: Blocks = KERNEL_BLOCKS) -> torch.Tensor:
+    return apply(p, batch, cfg, prec, blocks)["score"]

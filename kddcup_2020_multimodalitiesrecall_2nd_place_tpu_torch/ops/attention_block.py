@@ -1,0 +1,74 @@
+"""Fused post-LN self-attention block, the port of ``attention_block_pallas``
+(JAX package ``ops/pallas_attention.py:479``):
+
+    y = LN(x + concat_h softmax(Q_h K_h^T / sqrt(Dh) + bias) V_h @ Wo + bo)
+
+with Q, K, V from one [H, 3H] product. On the card it is four launches of
+the hand-written kernels in ``kernels.py``:
+
+1. ``gemm`` (bias epilogue): qkv = bf16(x @ Wqkv + bqkv)          [B*S, 3H]
+2. ``attn_core``: exact per-head softmax, probs and ctx -> bf16    [B*S, H]
+3. ``gemm`` (residual epilogue): y = ctx @ Wo + bo + x, in f32    [B*S, H]
+4. ``layernorm``: LN(y) -> bf16                                    [B*S, H]
+
+Bound on H100 at ImageBERT-A's shapes (S=40, H=768, N=12): operations,
+193.7 MFLOP a pair, 98% of them in the two projections; the block moves
+~130 KB a pair at a single-pass minimum, far below the ~295 bytes-per-FLOP
+balance point. The design puts both projections on the tensor cores and
+keeps the small S=40 attention in shared memory, one CTA per (pair, head).
+Unlike the TPU kernel, the qkv/ctx/y intermediates make one round trip
+through device memory each; fusing them away is later work (PERF.md).
+
+On a CPU tensor every step runs its kernel's plain version, so the CPU
+tests exercise the same composition; ``attention_block_plain`` is the
+independent oracle (the JAX package's unfused XLA path, ``models/core.py``
+:331-360) that the tests and ``chip_smoke.py`` hold the block against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .attention import merge_heads, mha, split_heads
+from .kernels import attn_core, gemm, layernorm, layernorm_plain
+
+
+def key_bias_rows(bias: torch.Tensor | None, b: int, s: int) -> torch.Tensor | None:
+    """None, [B, S] or [B, 1, 1, S] additive key mask -> f32 [B, S] rows."""
+    if bias is None:
+        return None
+    if bias.shape not in ((b, s), (b, 1, 1, s)):
+        raise ValueError(
+            f"attention_block takes a key-mask bias [B, S] or [B, 1, 1, S], got {tuple(bias.shape)}"
+        )
+    return bias.reshape(b, s).float().contiguous()
+
+
+def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bias=None,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """x [B, S, H] (bf16 on CUDA) -> [B, S, H] in x's dtype."""
+    b, s, h = x.shape
+    x2d = x.reshape(b * s, h)
+    qkv = gemm(x2d, wqkv, bqkv, "bias")
+    ctx = attn_core(qkv, key_bias_rows(bias, b, s), b, s, num_heads)
+    y = gemm(ctx, wo, bo, "residual", residual=x2d)
+    out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
+    if x.is_cuda:
+        attention_block.launches += 1
+    return out.reshape(b, s, h)
+
+
+attention_block.launches = 0
+
+
+def attention_block_plain(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bias=None,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """The same block in plain PyTorch, on any device, in x's dtype."""
+    dt = x.dtype
+    qkv = (torch.matmul(x.float(), wqkv.to(dt).float()) + bqkv.float()).to(dt)
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    if bias is not None:
+        bias = key_bias_rows(bias, x.shape[0], x.shape[1])[:, None, None, :]
+    ctx = merge_heads(mha(q, k, v, bias))
+    y = torch.matmul(ctx.float(), wo.to(dt).float()) + bo.float() + x.float()
+    return layernorm_plain(y, gamma, beta, eps, out_dtype=dt)

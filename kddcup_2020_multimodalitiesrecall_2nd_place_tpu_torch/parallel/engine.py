@@ -1,0 +1,129 @@
+"""The scoring engine: streams TSV pairs through one model on one device.
+
+Fixed batch shape (the tail padded, with a ``valid`` mask), parameters
+resident on the device, and one batch in flight: batch N+1 is launched
+before batch N's scores are copied back, so the host pipeline (a prefetch
+thread parsing and featurizing ahead), the device and the copy overlap.
+
+Device policy: the engine runs on ``cuda`` unless the caller passes
+``device="cpu"``; with no GPU and no explicit ``cpu`` it raises, and it
+never moves to the CPU on its own. On CUDA the encoder blocks are always the
+hand-written kernels, which take bf16 activations (the JAX engine likewise
+takes its Pallas kernels only when not in f32, ``parallel/engine.py`` :79-85),
+so f32 on CUDA raises until it is ported. On the CPU the plain versions run
+in f32 or bf16.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ..checkpoint.npz import cast_matmul_weights, tree_to
+from ..data import Featurizer, PipelineStats, batches_from_files
+from ..models import ModelSpec, Precision
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` means CUDA. Raises rather than running elsewhere than asked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was asked for (the default) but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain versions on the CPU"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def default_precision(device: torch.device) -> Precision:
+    return Precision.bf16() if device.type == "cuda" else Precision.f32()
+
+
+@dataclass
+class ScoringStats:
+    pairs: int = 0
+    batches: int = 0
+    seconds: float = 0.0
+    pipeline: PipelineStats = field(default_factory=PipelineStats)
+
+    @property
+    def pairs_per_second(self) -> float:
+        return self.pairs / self.seconds if self.seconds > 0 else 0.0
+
+
+class ScoringEngine:
+    """Pairwise scorer for one model on one device."""
+
+    def __init__(self, model: ModelSpec, params, device=None, precision: Precision | None = None):
+        self.model = model
+        self.device = resolve_device(device)
+        self.precision = precision if precision is not None else default_precision(self.device)
+        if self.device.type == "cuda" and self.precision.compute_dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"{self.precision.compute_dtype} scoring on CUDA is not yet ported (the kernels "
+                "take bf16), see ROADMAP.md; use --precision bf16, or f32 on the CPU"
+            )
+        self.params = tree_to(cast_matmul_weights(params, self.precision.compute_dtype), self.device)
+
+    def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        return {
+            k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
+            for k in self.model.input_keys
+        }
+
+    @torch.inference_mode()
+    def score_batch(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
+        """-> f32 scores [B] on the device (not yet synchronised)."""
+        feats = self.to_device(batch)
+        return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
+
+    def score_stream(
+        self, batches: Iterable[dict], stats: ScoringStats | None = None
+    ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """-> (query_ids, product_ids, scores) per batch, valid rows only."""
+        stats = stats if stats is not None else ScoringStats()
+        pending = None  # (qid, pid, valid, device_scores)
+        for batch in batches:
+            scores = self.score_batch(batch)
+            if pending is not None:
+                yield self._finish(pending, stats)
+            pending = (batch["query_id"], batch["product_id"], batch["valid"], scores)
+        if pending is not None:
+            yield self._finish(pending, stats)
+
+    @staticmethod
+    def _finish(pending, stats: ScoringStats):
+        qid, pid, valid, scores = pending
+        scores = scores.float().cpu().numpy()[valid]  # waits for this batch only
+        stats.pairs += int(valid.sum())
+        stats.batches += 1
+        return qid[valid], pid[valid], scores
+
+    def score_files(
+        self, paths, featurizer: Featurizer, batch_size: int, stats: ScoringStats | None = None
+    ) -> dict[str, dict[str, float]]:
+        """Full scorer run: files -> {query_id: {product_id: score}}."""
+        stats = stats if stats is not None else ScoringStats()
+        fz = featurizer.for_model(self.model.featurizer_layout)
+        batches = batches_from_files(paths, fz, batch_size, stats=stats.pipeline)
+        result: dict[str, dict[str, float]] = {}
+        t0 = time.perf_counter()
+        for qids, pids, scores in self.score_stream(batches, stats):
+            for q, p, s in zip(qids, pids, scores):
+                result.setdefault(str(q), {})[str(p)] = float(s)
+        stats.seconds = time.perf_counter() - t0
+        return result
+
+
+def write_scores_tsv(result: dict[str, dict[str, float]], path) -> None:
+    """qid\\tpid\\tscore rows (the ImageBERT score-file format)."""
+    with open(path, "w", encoding="utf-8") as f:
+        for qid, row in result.items():
+            for pid, s in row.items():
+                f.write(f"{qid}\t{pid}\t{s}\n")

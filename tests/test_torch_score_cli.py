@@ -1,0 +1,116 @@
+"""The port's scoring CLI and engine: the same score file as the JAX
+``scripts/score.py`` from the same npz params (f32 on the CPU), the device
+policy, and the rule that the port never imports JAX."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch import PACKAGE_ROOT
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import save_npz
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli import score as port_cli
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.synthetic import (
+    SYNTHETIC_LABELS,
+    make_eval_tsv,
+)
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine, resolve_device
+from torch_parity import JAX_PKG, TINY, TORCH_PKG, jax_imagebert_a_params
+
+REPO = Path(__file__).resolve().parents[1]
+N_ROWS = 37
+
+
+def _read_scores(path):
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        q, p, s = line.split("\t")
+        out[(q, p)] = float(s)
+    return out
+
+
+def _json_lines(stdout):
+    return [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+
+
+def test_score_cli_matches_jax_script(tmp_path, monkeypatch, capsys):
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import get_model as jax_get_model
+
+    lines, answers = make_eval_tsv(N_ROWS, seed=7, planted=0.0)
+    (tmp_path / "pairs.tsv").write_text("\n".join(lines) + "\n")
+    (tmp_path / "labels.txt").write_text("".join(f"{k}\t{v}\n" for k, v in SYNTHETIC_LABELS.items()))
+    (tmp_path / "answers.json").write_text(json.dumps(answers))
+    cfg = jax_get_model("imagebert_a", overrides=TINY).config
+    save_npz(tmp_path / "a.npz", jax_imagebert_a_params(cfg, seed=8))
+    common = [
+        "--model", "imagebert_a", "--tsv", str(tmp_path / "pairs.tsv"),
+        "--labels", str(tmp_path / "labels.txt"), "--checkpoint", str(tmp_path / "a.npz"),
+        "--batch-size", "16", "--precision", "f32", "--answers", str(tmp_path / "answers.json"),
+        "--expect-pairs", str(N_ROWS),
+    ]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "JAX_PLATFORM_NAME": "cpu",
+           "KMR_CONFIG_OVERRIDES": json.dumps(TINY)}
+    ref = subprocess.run(
+        [sys.executable, "scripts/score.py", *common, "--out", str(tmp_path / "jax.tsv")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert ref.returncode == 0, ref.stderr[-3000:]
+
+    monkeypatch.setenv("KMR_CONFIG_OVERRIDES", json.dumps(TINY))
+    port_cli.main([*common, "--device", "cpu", "--out", str(tmp_path / "port.tsv")])
+    port_out = _json_lines(capsys.readouterr().out)
+
+    want, got = _read_scores(tmp_path / "jax.tsv"), _read_scores(tmp_path / "port.tsv")
+    assert got.keys() == want.keys() and len(got) == N_ROWS
+    keys = sorted(want)
+    np.testing.assert_allclose([got[k] for k in keys], [want[k] for k in keys], atol=1e-4, rtol=0)
+    ref_ndcg = _json_lines(ref.stdout)[0]["ndcg_at_5"]
+    assert port_out[0]["ndcg_at_5"] == ref_ndcg
+    assert port_out[1]["pairs"] == N_ROWS and port_out[1]["device"] == "cpu"
+
+
+def test_device_policy(monkeypatch):
+    spec = get_model("imagebert_a", overrides=TINY)
+    params = spec.init_params(0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScoringEngine(spec, params)
+    assert ScoringEngine(spec, params, device="cpu").precision.compute_dtype == torch.float32
+    # f32 on CUDA is refused outright, never swapped for the plain path
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ScoringEngine(spec, params, device="cuda", precision=Precision.f32())
+
+
+def test_port_never_imports_jax():
+    """Importing every module of the port (and chip_smoke.py) loads no jax and
+    nothing of the JAX package; no source file names either."""
+    modules = []
+    for path in sorted(PACKAGE_ROOT.rglob("*.py")):
+        parts = path.relative_to(PACKAGE_ROOT).with_suffix("").parts
+        modules.append(".".join((TORCH_PKG, *parts[: -1 if parts[-1] == "__init__" else None])))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
+        f"{JAX_PKG!r} + '.')) or m == {JAX_PKG!r}]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    for path in [*PACKAGE_ROOT.rglob("*.py"), REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert f"{JAX_PKG}." not in text.replace(f"{JAX_PKG}_torch", ""), path
