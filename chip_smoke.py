@@ -9,11 +9,22 @@
    kernel checked again and timed at the main path's batch (B=512), beside
    its bound, its plain version and one PyTorch library call of the same
    function (a yardstick the port never calls).
-3. Full-width scoring: a 2048-row synthetic TSV scored end to end through
-   ``ScoringEngine`` (12 x 768, bf16, batch 512, random weights from seed 0),
-   with every launch counter read around that run alone; the scores are held
-   against the plain path on the card (max |d score| <= SCORE_BAND) and
-   against the f32 plain path on the CPU for a few pairs.
+   The same for LXMERT's kernels at its shapes (lang F=23, visn T=10, seeded
+   key masks with some all-masked rows): the cross and dual attention cores,
+   the cross block in both directions, the dual block, and the self-attention
+   and erf-GELU FFN blocks at S=23 and S=10.
+3. Full-width scoring, two models, each a 2048-row synthetic TSV scored end
+   to end through ``ScoringEngine`` (bf16, batch 512, random weights from
+   seed 0): ImageBERT-A (12 x 768), then LXMERT (9/5/5 x 768) on its default
+   route and again with ``KMR_DUAL_CROSS=1``. Every launch counter is set to 0
+   just before each of the three runs and read just after it, and must show
+   exactly the launches that path makes. ImageBERT-A's scores are held
+   against the plain path on the card (max |d score| <= SCORE_BAND); LXMERT's,
+   whose head makes them more sensitive, against the f32 truth on the card
+   (plain blocks in f32), where both its bf16 paths must lie within
+   SCORE_BAND, and against the plain path within LX_PAIR_BAND; its two routes
+   against each other within SCORE_BAND; each model against its f32 plain
+   path on the CPU for a few pairs.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -24,7 +35,9 @@ report (ptxas registers, shared memory, spills) goes to
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,12 +54,20 @@ PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 CHECK_B, MAIN_B, S, H, N, I = 256, 512, 40, 768, 12, 3072
+LX_F, LX_T = 23, 10  # LXMERT's lang and visn stream lengths
+LX_DEPTHS = (9, 5, 5)  # l_layers, r_layers, x_layers
 # bf16 outputs: |d| <= CARD_ATOL + CARD_RTOL * |plain| elementwise, i.e. two bf16 ulps of the
 # plain value (2^-6 relative) above a 1.6e-2 floor: kernel and plain version round the same
 # intermediates, but their long sums run in another order, which can flip one bf16 rounding
 CARD_ATOL, CARD_RTOL = 1.6e-2, 2.0**-6
 F32_OUT_BAND = 1e-3  # f32 outputs of the residual epilogue (summation order only), abs
 SCORE_BAND = 1e-2  # kernel path vs plain path, scores on the card
+# LXMERT: its logit_fc head (a LayerNorm before the 2-way dense) spreads random-init scores
+# over ~[0.40, 0.78], where ImageBERT-A's NSP head keeps them in ~[0.42, 0.46], so one bf16
+# rounding flipped in any of its 58 blocks moves a score ~5x further. Each bf16 path (kernels,
+# plain) is held to the f32 truth on the card within SCORE_BAND; two such paths then lie
+# within 2 * SCORE_BAND of each other, the band of the kernel-vs-plain check there
+LX_PAIR_BAND = 2 * SCORE_BAND
 CPU_SCORE_BAND = 5e-2  # bf16 kernels vs the f32 plain path on the CPU
 N_ROWS, SEED = 2048, 0
 
@@ -89,6 +110,32 @@ def bound_ms(bytes_moved: float, flops: float, peak_flops: float) -> tuple[float
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def launch_counters() -> tuple:
+    """Every wrapper with a launch counter: the kernels, then the blocks."""
+    from importlib import import_module
+
+    k = import_module(f"{PKG}.ops.kernels")
+    blocks = [
+        getattr(import_module(f"{PKG}.ops.{mod}"), mod)
+        for mod in ("attention_block", "ffn_block", "cross_attention_block", "dual_cross_attention_block")
+    ]
+    return (*k.WRAPPERS, *blocks)
+
+
+@contextlib.contextmanager
+def dual_cross(on: bool):
+    """KMR_DUAL_CROSS=1 inside the block when ``on``, unset inside otherwise
+    and after it either way."""
+    if on:
+        os.environ["KMR_DUAL_CROSS"] = "1"
+    else:
+        os.environ.pop("KMR_DUAL_CROSS", None)
+    try:
+        yield
+    finally:
+        os.environ.pop("KMR_DUAL_CROSS", None)
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -104,6 +151,8 @@ class Smoke:
     def check(self, name: str, kernel_name: str, got, want, atol: float, rtol: float = 0.0) -> None:
         torch = self.torch
         torch.cuda.synchronize()
+        if isinstance(got, tuple):  # the two streams' outputs of a dual launch
+            got, want = (torch.cat([t.float().flatten() for t in ts]) for ts in (got, want))
         got, want = got.float(), want.float()
         ok = got.shape == want.shape and bool(torch.isfinite(got).all())
         d = (got - want).abs() if ok else None
@@ -172,6 +221,26 @@ class Smoke:
                        fb.ffn_block(x, *fw, approximate_gelu=approx),
                        fb.ffn_block_plain(x, *fw, approximate_gelu=approx), CARD_ATOL, CARD_RTOL)
 
+    def time_row(self, rows, name, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak,
+                 atol=CARD_ATOL, rtol=CARD_RTOL) -> None:
+        """Check kernel_fn against plain_fn once more, then time the kernel,
+        its plain version and the library call into rows[name], beside the
+        bound derived from nbytes and flops."""
+        torch = self.torch
+        self.check(f"{name} [B={MAIN_B}]", key, kernel_fn(), plain_fn(), atol, rtol)
+        bms, by = bound_ms(nbytes, flops, peak)
+        r = {
+            "ms": cuda_ms(torch, kernel_fn),
+            "plain_ms": cuda_ms(torch, plain_fn, iters=5),
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": cuda_ms(torch, library_fn) if library_fn else None,
+        }
+        rows[name] = r
+        lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "n/a"
+        log(f"time {name}: ms={r['ms']:.4f} bound_ms={bms:.4f} ({by}) plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={lib} achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
+
     def time_kernels(self, w) -> dict[str, dict]:
         """Kernel / plain / library / bound times at the main path's batch, each
         kernel's output also held against its plain version at that batch."""
@@ -189,28 +258,13 @@ class Smoke:
         hmid = k.gemm(x2d, w["w1"], w["b1"], "gelu_tanh")
         rows = {}
 
-        def row(name, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak, atol=CARD_ATOL, rtol=CARD_RTOL):
-            self.check(f"{name} [B={b}]", key, kernel_fn(), plain_fn(), atol, rtol)
-            bms, by = bound_ms(nbytes, flops, peak)
-            r = {
-                "ms": cuda_ms(torch, kernel_fn),
-                "plain_ms": cuda_ms(torch, plain_fn, iters=5),
-                "bound_ms": bms,
-                "bound_by": by,
-                "library_ms": cuda_ms(torch, library_fn) if library_fn else None,
-            }
-            rows[name] = r
-            lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "n/a"
-            log(f"time {name}: ms={r['ms']:.4f} bound_ms={bms:.4f} ({by}) plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={lib} achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
-
         def gemm_site(name, a, wt, bias, epi, res=None):
             mm, kk = a.shape
             nn = wt.shape[1]
             out_bytes = mm * nn * (4 if epi == "residual" else 2)
             nbytes = mm * kk * 2 + kk * nn * 2 + nn * 4 + out_bytes + (mm * nn * 2 if res is not None else 0)
             band = (F32_OUT_BAND, 0.0) if epi == "residual" else (CARD_ATOL, CARD_RTOL)
-            row(name, "gemm_bf16", lambda: k.gemm(a, wt, bias, epi, res),
+            self.time_row(rows, name, "gemm_bf16", lambda: k.gemm(a, wt, bias, epi, res),
                 lambda: k.gemm_plain(a, wt, bias, epi, res),
                 lambda: torch.matmul(a, wt), nbytes, 2.0 * mm * nn * kk, PEAK_BF16_FLOPS, *band)
 
@@ -221,21 +275,162 @@ class Smoke:
         gemm_site("gemm_bf16 ffn-down", hmid, w["w2"], w["b2"], "residual", x2d)
 
         q, kk_, v = (t.reshape(b, S, N, 64).transpose(1, 2).contiguous() for t in qkv.split(H, dim=1))
-        row("attn_core", "attn_core", lambda: k.attn_core(qkv, None, b, S, N), lambda: k.attn_core_plain(qkv, None, b, S, N),
+        self.time_row(rows, "attn_core", "attn_core", lambda: k.attn_core(qkv, None, b, S, N), lambda: k.attn_core_plain(qkv, None, b, S, N),
             lambda: F.scaled_dot_product_attention(q, kk_, v), m * 3 * H * 2 + m * H * 2,
             4.0 * b * N * S * S * 64, PEAK_BF16_FLOPS)
         y = self.randn(m, H)
-        row("layernorm", "layernorm", lambda: k.layernorm(y, w["gamma"], w["beta"]),
+        self.time_row(rows, "layernorm", "layernorm", lambda: k.layernorm(y, w["gamma"], w["beta"]),
             lambda: k.layernorm_plain(y, w["gamma"], w["beta"], out_dtype=torch.bfloat16),
             lambda: F.layer_norm(y, (H,), w["gamma"], w["beta"], 1e-12),
             m * H * 4 + 2 * H * 4 + m * H * 2, 8.0 * m * H, PEAK_F32_FLOPS)
         aw = [w[n] for n in ("wqkv", "bqkv", "wo", "bo", "gamma", "beta")]
         fw = [w[n] for n in ("w1", "b1", "w2", "b2", "gamma", "beta")]
-        row("attention_block", "attention_block", lambda: ab.attention_block(x, *aw, N), lambda: ab.attention_block_plain(x, *aw, N),
+        self.time_row(rows, "attention_block", "attention_block", lambda: ab.attention_block(x, *aw, N), lambda: ab.attention_block_plain(x, *aw, N),
             None, 2 * m * H * 2 + nbytes_of(aw),
             2.0 * m * H * 3 * H + 4.0 * b * N * S * S * 64 + 2.0 * m * H * H, PEAK_BF16_FLOPS)
-        row("ffn_block", "ffn_block", lambda: fb.ffn_block(x, *fw), lambda: fb.ffn_block_plain(x, *fw), None,
+        self.time_row(rows, "ffn_block", "ffn_block", lambda: fb.ffn_block(x, *fw), lambda: fb.ffn_block_plain(x, *fw), None,
             2 * m * H * 2 + nbytes_of(fw), 4.0 * m * H * I, PEAK_BF16_FLOPS)
+        return rows
+
+    # ---- phase 2, LXMERT: its kernels at its shapes ---------------------------
+
+    def lxmert_case(self, w, b: int):
+        """lang [b, 23, H] and visn [b, 10, H] bf16 streams, their key-mask
+        biases (lang lengths 3..23; visn box counts 0..10, pair 0 with none, so
+        every visn key of that pair is masked), the cross block's weights
+        (Wq, bq, Wkv, bkv, Wo, bo, gamma, beta) and the dual block's (fused Wqkv)."""
+        from importlib import import_module
+
+        torch = self.torch
+        att = import_module(f"{PKG}.ops.attention")
+        lang = self.randn(b, LX_F, H, dtype=torch.bfloat16)
+        visn = self.randn(b, LX_T, H, dtype=torch.bfloat16)
+        nq = torch.randint(3, LX_F + 1, (b,), generator=self.gen)
+        nb = torch.randint(0, LX_T + 1, (b,), generator=self.gen)
+        nb[0] = 0
+        lb = att.mask_to_bias((torch.arange(LX_F)[None] < nq[:, None]).float()).to(self.dev)
+        vb = att.mask_to_bias((torch.arange(LX_T)[None] < nb[:, None]).float()).to(self.dev)
+        cw = [w["wqkv"][:, :H].contiguous(), w["bqkv"][:H].contiguous(), w["wqkv"][:, H:].contiguous(),
+              w["bqkv"][H:].contiguous(), w["wo"], w["bo"], w["gamma"], w["beta"]]
+        dw = [w[n] for n in ("wqkv", "bqkv", "wo", "bo", "gamma", "beta")]
+        return lang, visn, lb, vb, cw, dw
+
+    def check_lxmert_kernels(self, w) -> None:
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        ab = import_module(f"{PKG}.ops.attention_block")
+        fb = import_module(f"{PKG}.ops.ffn_block")
+        cb = import_module(f"{PKG}.ops.cross_attention_block")
+        db = import_module(f"{PKG}.ops.dual_cross_attention_block")
+        b = CHECK_B
+        lang, visn, lb, vb, cw, dw = self.lxmert_case(w, b)
+        lqkv = k.gemm(lang.reshape(b * LX_F, H), w["wqkv"], w["bqkv"], "bias")
+        vqkv = k.gemm(visn.reshape(b * LX_T, H), w["wqkv"], w["bqkv"], "bias")
+        band = (CARD_ATOL, CARD_RTOL)
+        for label, q, kv, bias, sq, sk in (
+            ("lang<-visn", lqkv[:, :H].contiguous(), vqkv[:, H:].contiguous(), vb, LX_F, LX_T),
+            ("visn<-lang", vqkv[:, :H].contiguous(), lqkv[:, H:].contiguous(), lb, LX_T, LX_F),
+        ):
+            self.check(f"attn_core_cross [{label}]", "attn_core_cross", k.attn_core_cross(q, kv, bias, b, sq, sk, N),
+                       k.attn_core_cross_plain(q, kv, bias, b, sq, sk, N), *band)
+        pairs = zip(("lang<-visn", "visn<-lang"), k.attn_core_dual(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N),
+                    k.attn_core_dual_plain(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N))
+        for label, got, want in pairs:
+            self.check(f"attn_core_dual [{label}]", "attn_core_dual", got, want, *band)
+        for label, x, ctx, bias in (("lang<-visn", lang, visn, vb), ("visn<-lang", visn, lang, lb)):
+            self.check(f"cross_attention_block [{label}]", "cross_attention_block",
+                       cb.cross_attention_block(x, ctx, *cw, N, bias),
+                       cb.cross_attention_block_plain(x, ctx, *cw, N, bias), *band)
+        pairs = zip(("lang", "visn"), db.dual_cross_attention_block(lang, visn, *dw, N, lb, vb),
+                    db.dual_cross_attention_block_plain(lang, visn, *dw, N, lb, vb))
+        for label, got, want in pairs:
+            self.check(f"dual_cross_attention_block [{label}]", "dual_cross_attention_block", got, want, *band)
+        fw = [w[n] for n in ("w1", "b1", "w2", "b2", "gamma", "beta")]
+        for label, x, bias in ((f"S={LX_F}", lang, lb), (f"S={LX_T}", visn, vb)):
+            self.check(f"attention_block [{label}, key mask]", "attention_block", ab.attention_block(x, *dw, N, bias),
+                       ab.attention_block_plain(x, *dw, N, bias), *band)
+            self.check(f"ffn_block [gelu erf, {label}]", "ffn_block", fb.ffn_block(x, *fw, approximate_gelu=False),
+                       fb.ffn_block_plain(x, *fw, approximate_gelu=False), *band)
+
+    def time_lxmert_kernels(self, w) -> dict[str, dict]:
+        """The new launches at the main path's batch: kernel / plain / library /
+        bound, each output held against its plain version once more."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        ab = import_module(f"{PKG}.ops.attention_block")
+        fb = import_module(f"{PKG}.ops.ffn_block")
+        cb = import_module(f"{PKG}.ops.cross_attention_block")
+        db = import_module(f"{PKG}.ops.dual_cross_attention_block")
+        torch = self.torch
+        F = torch.nn.functional
+        b = MAIN_B
+        lang, visn, lb, vb, cw, dw = self.lxmert_case(w, b)
+        rows = {}
+        # the self-attention and FFN blocks at LXMERT's lengths, for the model's time breakdown
+        fw = [w[n] for n in ("w1", "b1", "w2", "b2", "gamma", "beta")]
+        for s, x, bias in ((LX_F, lang, lb), (LX_T, visn, vb)):
+            m = b * s
+            self.time_row(rows, f"attention_block S={s}", "attention_block",
+                          lambda x=x, bias=bias: ab.attention_block(x, *dw, N, bias),
+                          lambda x=x, bias=bias: ab.attention_block_plain(x, *dw, N, bias), None,
+                          2 * m * H * 2 + nbytes_of((bias, *dw)),
+                          2.0 * m * H * 3 * H + 4.0 * b * N * s * s * 64 + 2.0 * m * H * H, PEAK_BF16_FLOPS)
+            self.time_row(rows, f"ffn_block S={s}", "ffn_block",
+                          lambda x=x: fb.ffn_block(x, *fw, approximate_gelu=False),
+                          lambda x=x: fb.ffn_block_plain(x, *fw, approximate_gelu=False), None,
+                          2 * m * H * 2 + nbytes_of(fw), 4.0 * m * H * I, PEAK_BF16_FLOPS)
+        lqkv = k.gemm(lang.reshape(b * LX_F, H), w["wqkv"], w["bqkv"], "bias")
+        vqkv = k.gemm(visn.reshape(b * LX_T, H), w["wqkv"], w["bqkv"], "bias")
+        dirs = {  # q rows, kv rows, the key stream's bias, Sq, Sk, query stream, key stream
+            "lang<-visn": (lqkv[:, :H].contiguous(), vqkv[:, H:].contiguous(), vb, LX_F, LX_T, lang, visn),
+            "visn<-lang": (vqkv[:, :H].contiguous(), lqkv[:, H:].contiguous(), lb, LX_T, LX_F, visn, lang),
+        }
+        sdpa = {}
+        for label, (q, kv, bias, sq, sk, x, ctx) in dirs.items():
+            # the library yardstick: SDPA with Sq != Sk and the key mask, [B, N, S, 64]
+            qh = q.reshape(b, sq, N, 64).transpose(1, 2).contiguous()
+            kh, vh = (t.reshape(b, sk, N, 64).transpose(1, 2).contiguous() for t in kv.split(H, dim=1))
+            mask = bias.to(torch.bfloat16)[:, None, None, :]
+            sdpa[label] = lambda qh=qh, kh=kh, vh=vh, mask=mask: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+            self.time_row(rows, f"attn_core_cross {label}", "attn_core_cross",
+                          lambda q=q, kv=kv, bias=bias, sq=sq, sk=sk: k.attn_core_cross(q, kv, bias, b, sq, sk, N),
+                          lambda q=q, kv=kv, bias=bias, sq=sq, sk=sk: k.attn_core_cross_plain(q, kv, bias, b, sq, sk, N),
+                          sdpa[label], nbytes_of((q, kv, bias)) + b * sq * H * 2, 4.0 * b * N * sq * sk * 64,
+                          PEAK_BF16_FLOPS)
+            x2d, c2d, y = x.reshape(b * sq, H), ctx.reshape(b * sk, H), self.randn(b * sq, H)
+
+            def lib(x2d=x2d, c2d=c2d, q=q, y=y, s=sdpa[label]):  # the five launches' library calls
+                torch.matmul(x2d, cw[0]), torch.matmul(c2d, cw[2]), s(), torch.matmul(q, cw[4])
+                return F.layer_norm(y, (H,), cw[6], cw[7], 1e-12)
+
+            self.time_row(rows, f"cross_attention_block {label}", "cross_attention_block",
+                          lambda x=x, ctx=ctx, bias=bias: cb.cross_attention_block(x, ctx, *cw, N, bias),
+                          lambda x=x, ctx=ctx, bias=bias: cb.cross_attention_block_plain(x, ctx, *cw, N, bias),
+                          lib, nbytes_of((x, ctx, bias, *cw)) + b * sq * H * 2,
+                          2.0 * b * sq * H * H + 2.0 * b * sk * H * 2 * H + 4.0 * b * N * sq * sk * 64
+                          + 2.0 * b * sq * H * H, PEAK_BF16_FLOPS)
+        both = tuple(sdpa.values())
+        dual_flops = 2.0 * 4.0 * b * N * LX_F * LX_T * 64
+        self.time_row(rows, "attn_core_dual", "attn_core_dual",
+                      lambda: k.attn_core_dual(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N),
+                      lambda: k.attn_core_dual_plain(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N),
+                      lambda: [s() for s in both], nbytes_of((lqkv, vqkv, lb, vb)) + b * (LX_F + LX_T) * H * 2,
+                      dual_flops, PEAK_BF16_FLOPS)
+        streams = [(lang.reshape(b * LX_F, H), lqkv[:, :H].contiguous(), self.randn(b * LX_F, H)),
+                   (visn.reshape(b * LX_T, H), vqkv[:, :H].contiguous(), self.randn(b * LX_T, H))]
+
+        def dual_lib():  # the seven launches' library calls: per stream QKV, out-proj, LN; both SDPAs
+            for (x2d, ctx2d, y), s in zip(streams, both):
+                torch.matmul(x2d, dw[0]), s(), torch.matmul(ctx2d, dw[2]), F.layer_norm(y, (H,), dw[4], dw[5], 1e-12)
+
+        self.time_row(rows, "dual_cross_attention_block", "dual_cross_attention_block",
+                      lambda: db.dual_cross_attention_block(lang, visn, *dw, N, lb, vb),
+                      lambda: db.dual_cross_attention_block_plain(lang, visn, *dw, N, lb, vb),
+                      dual_lib, nbytes_of((lang, visn, lb, vb, *dw)) + b * (LX_F + LX_T) * H * 2,
+                      2.0 * b * (LX_F + LX_T) * H * 3 * H + dual_flops + 2.0 * b * (LX_F + LX_T) * H * H,
+                      PEAK_BF16_FLOPS)
         return rows
 
     # ---- phase 3: the main path ----------------------------------------------
@@ -253,9 +448,6 @@ class Smoke:
         imagebert_a = import_module(f"{PKG}.models.imagebert_a")
         engine_mod = import_module(f"{PKG}.parallel.engine")
         tok = import_module(f"{PKG}.tokenization")
-        k = import_module(f"{PKG}.ops.kernels")
-        ab = import_module(f"{PKG}.ops.attention_block")
-        fb = import_module(f"{PKG}.ops.ffn_block")
 
         work = pkg.BUILD_DIR / "smoke"
         work.mkdir(parents=True, exist_ok=True)
@@ -279,7 +471,7 @@ class Smoke:
         engine.score_batch(batches[0])  # warm-up: CUDA context, library handles, allocator
         torch.cuda.synchronize()
 
-        counted = (*k.WRAPPERS, ab.attention_block, fb.ffn_block)
+        counted = launch_counters()
         for w in counted:
             w.launches = 0
         stats = engine_mod.ScoringStats()
@@ -336,6 +528,126 @@ class Smoke:
                  "max_abs_score_err_vs_cpu_f32": d_cpu, "identical_rankings": [same_rank, n_q]}
         return launches, stats.batches, rates
 
+    def score_lxmert(self) -> tuple[dict[str, dict], int, dict]:
+        """LXMERT at full width through ScoringEngine, on its default route
+        and with KMR_DUAL_CROSS=1; the launch counters around each run."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        models = import_module(f"{PKG}.models")
+        lxmert = import_module(f"{PKG}.models.lxmert")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        tok = import_module(f"{PKG}.tokenization")
+
+        work = pkg.BUILD_DIR / "smoke"
+        work.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        tsv = work / "pairs_lxmert.tsv"
+        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=SEED)) + "\n")
+        labels = work / "labels.txt"
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        spec = models.get_model("lxmert")
+        cfg = spec.config
+        shape = (cfg.bert.hidden_size, cfg.bert.num_attention_heads, cfg.l_layers, cfg.r_layers, cfg.x_layers)
+        if shape != (H, N, *LX_DEPTHS):
+            raise RuntimeError(f"not the full-width LXMERT config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
+        params = spec.init_params(SEED)
+        engine = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=models.Precision.bf16())
+        featurizer = data.Featurizer(tok.FullTokenizer.hf_style(pkg.VOCAB_PATH),
+                                     data.load_multimodal_labels(labels))
+        log(f"setup: {N_ROWS}-row TSV and LXMERT {LX_DEPTHS}x{H} params in {time.perf_counter() - t0:.1f} s")
+
+        batches = list(data.batches_from_files([tsv], featurizer.lxmert, MAIN_B))
+        os.environ.pop("KMR_DUAL_CROSS", None)
+        engine.score_batch(batches[0])  # warm-up
+        torch.cuda.synchronize()
+
+        launches, results, rates = {}, {}, {}
+        counted = launch_counters()
+        for route, dual in (("lxmert", False), ("lxmert_dual_cross", True)):
+            with dual_cross(dual):
+                for w in counted:
+                    w.launches = 0
+                stats = engine_mod.ScoringStats()
+                results[route] = engine.score_files([tsv], featurizer, MAIN_B, stats=stats)
+                torch.cuda.synchronize()
+                launches[route] = {w.__name__: w.launches for w in counted}
+            log(f"main path {route}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
+                f"{stats.pairs_per_second:.1f} pairs/s end to end (host parse + featurize included)")
+            log(f"launches {route}: {json.dumps(launches[route])}")
+            if stats.pairs != N_ROWS:
+                raise RuntimeError(f"{route} scored {stats.pairs} pairs, expected {N_ROWS}")
+            rates[route] = {"pairs": stats.pairs, "seconds": stats.seconds,
+                            "pairs_per_second": stats.pairs_per_second}
+
+        staged = [engine.to_device(bt) for bt in batches]
+
+        def run_all(blocks):
+            return [lxmert.score(engine.params, bt, cfg, engine.precision, blocks) for bt in staged]
+
+        n_pad = len(batches) * MAIN_B
+        scores = {}
+        with torch.inference_mode():
+            for route, dual in (("lxmert", False), ("lxmert_dual_cross", True)):
+                with dual_cross(dual):
+                    dev_ms = cuda_ms(torch, lambda: run_all(models.KERNEL_BLOCKS), iters=3, warmup=1)
+                    scores[route] = torch.cat(run_all(models.KERNEL_BLOCKS)).float().cpu()
+                rates[route].update(device_ms=dev_ms, device_pairs=n_pad,
+                                    device_pairs_per_second=n_pad / dev_ms * 1e3)
+                log(f"device {route}: model alone {dev_ms:.3f} ms for {n_pad} padded pairs = "
+                    f"{n_pad / dev_ms * 1e3:.1f} pairs/s")
+            plain_dev_ms = cuda_ms(torch, lambda: run_all(models.PLAIN_BLOCKS), iters=1, warmup=1)
+            plain = torch.cat(run_all(models.PLAIN_BLOCKS)).float().cpu()
+            # the f32 truth on the card: plain blocks, f32 weights and activations
+            params32 = import_module(f"{PKG}.checkpoint").tree_to(params, self.dev)
+            ref32 = torch.cat([lxmert.score(params32, bt, cfg, models.Precision.f32(), models.PLAIN_BLOCKS)
+                               for bt in staged]).float().cpu()
+            del params32
+        valid = torch.from_numpy(np.concatenate([bt["valid"] for bt in batches]))
+        kern, dual, plain, ref32 = (scores["lxmert"][valid], scores["lxmert_dual_cross"][valid], plain[valid],
+                                    ref32[valid])
+        spread = {}
+        for label, a, b_ in (("kernel-plain", kern, plain), ("kernel-f32", kern, ref32), ("plain-f32", plain, ref32)):
+            d = (a - b_).abs()
+            spread[label] = {"max": d.max().item(), "mean": d.mean().item(),
+                             "p99": d.quantile(0.99).item(), "p50": d.quantile(0.5).item()}
+        log(f"scores lxmert |d| spread (f32 = plain blocks in f32 on the card): {json.dumps(spread)}")
+        if not bool(torch.isfinite(kern).all()) or kern.shape != (N_ROWS,) or not bool(torch.isfinite(dual).all()):
+            raise RuntimeError("LXMERT kernel-path scores are not finite or of the wrong shape")
+        d_score, d_route = spread["kernel-plain"]["max"], (dual - kern).abs().max().item()
+        d_truth = max(spread["kernel-f32"]["max"], spread["plain-f32"]["max"])
+        d_engine = max(
+            (torch.tensor([results[route][str(q)][str(p)] for bt in batches
+                           for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]) - s).abs().max().item()
+            for route, s in (("lxmert", kern), ("lxmert_dual_cross", dual))
+        )
+        same_rank, n_q = self.ranking_agreement(batches, kern, plain)
+        log(f"scores lxmert: range [{kern.min().item():.5f}, {kern.max().item():.5f}], max |d| of each bf16 "
+            f"path vs the f32 truth on the card = {d_truth:.6g} (band {SCORE_BAND:g}), kernel vs plain = "
+            f"{d_score:.6g} (band {LX_PAIR_BAND:g}; plain path {plain_dev_ms:.3f} ms), dual-cross route vs "
+            f"default = {d_route:.6g} (band {SCORE_BAND:g}), engine vs staged = {d_engine:.3g}, identical "
+            f"per-query ranking in {same_rank}/{n_q} queries")
+        if d_truth > SCORE_BAND or d_score > LX_PAIR_BAND or d_route > SCORE_BAND or d_engine > 1e-6:
+            raise RuntimeError("LXMERT scores disagree with the f32 truth, the plain path or across routes")
+
+        small = {key: val[:8].cpu() for key, val in staged[0].items()}
+        with torch.inference_mode():
+            ref = lxmert.score(params, small, cfg, models.Precision.f32())
+        d_cpu = (kern[:8] - ref).abs().max().item()
+        log(f"scores lxmert: max |d| bf16 kernels vs f32 plain on the CPU, 8 pairs = {d_cpu:.6g} "
+            f"(band {CPU_SCORE_BAND:g})")
+        if not d_cpu <= CPU_SCORE_BAND:
+            raise RuntimeError("LXMERT kernel-path scores disagree with the f32 CPU reference")
+        rates["lxmert"].update(plain_device_ms=plain_dev_ms, max_abs_score_err=d_score, score_spread=spread,
+                               max_abs_score_err_dual_vs_default=d_route, max_abs_score_err_vs_cpu_f32=d_cpu,
+                               identical_rankings=[same_rank, n_q])
+        return launches, len(batches), rates
+
     @staticmethod
     def ranking_agreement(batches, kern, plain) -> tuple[int, int]:
         keys = [(q, p) for bt in batches for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]
@@ -349,40 +661,91 @@ class Smoke:
         return same, len(by_q)
 
 
+PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
+PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
 KERNELS = [
-    # name, source, TPU kernel it replaces, the rows of time_kernels() that make up one layer's launches
+    # name, source, TPU kernel it replaces, the rows of time_kernels() / time_lxmert_kernels()
+    # that make up one layer's launches, and which layer that is
     ("attention_block", f"{PKG}/ops/attention_block.py", f"{TPU_PKG_DIR}/ops/pallas_attention.py:479",
-     ["attention_block"]),
-    ("ffn_block", f"{PKG}/ops/ffn_block.py", f"{TPU_PKG_DIR}/ops/pallas_ffn.py:79", ["ffn_block"]),
+     ["attention_block"], PER_A),
+    ("ffn_block", f"{PKG}/ops/ffn_block.py", f"{TPU_PKG_DIR}/ops/pallas_ffn.py:79", ["ffn_block"], PER_A),
+    ("cross_attention_block", f"{PKG}/ops/cross_attention_block.py", f"{TPU_PKG_DIR}/ops/pallas_attention.py:713",
+     ["cross_attention_block lang<-visn", "cross_attention_block visn<-lang"], PER_X),
+    ("dual_cross_attention_block", f"{PKG}/ops/dual_cross_attention_block.py",
+     f"{TPU_PKG_DIR}/ops/pallas_attention.py:912", ["dual_cross_attention_block"], PER_X),
     ("gemm_bf16", f"{PKG}/csrc/gemm_bf16.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:200",
-     ["gemm_bf16 qkv", "gemm_bf16 out-proj", "gemm_bf16 ffn-up", "gemm_bf16 ffn-down"]),
-    ("attn_core", f"{PKG}/csrc/attn_core.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:327", ["attn_core"]),
+     ["gemm_bf16 qkv", "gemm_bf16 out-proj", "gemm_bf16 ffn-up", "gemm_bf16 ffn-down"], PER_A),
+    ("attn_core", f"{PKG}/csrc/attn_core.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:327", ["attn_core"], PER_A),
+    ("attn_core_cross", f"{PKG}/csrc/attn_core.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:615",
+     ["attn_core_cross lang<-visn", "attn_core_cross visn<-lang"], PER_X),
+    ("attn_core_dual", f"{PKG}/csrc/attn_core.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:858",
+     ["attn_core_dual"], PER_X),
     ("layernorm", f"{PKG}/csrc/layernorm.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:237",
-     ["layernorm", "layernorm"]),
+     ["layernorm", "layernorm"], PER_A),
 ]
 LAUNCH_KEY = {"gemm_bf16": "gemm"}
 
 
-def kernel_line(times: dict, launches: dict, errors: dict) -> dict:
+def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
+    """``launches``: path -> counter name -> launches in that path's run;
+    each kernel's ``launches`` is its sum over the paths."""
     out = []
-    for name, source, replaces, rows in KERNELS:
+    for name, source, replaces, rows, per in KERNELS:
         rs = [times[r] for r in rows]
         lib = [r["library_ms"] for r in rs]
+        by_path = {path: counts[LAUNCH_KEY.get(name, name)] for path, counts in launches.items()}
         out.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[LAUNCH_KEY.get(name, name)],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errors[name],
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "operations" if any(r["bound_by"] == "operations" for r in rs) else "bytes",
             "library_ms": None if None in lib else sum(lib),
-            "per": f"{len(rows)} launch(es) of one layer at B={MAIN_B}, S={S}",
+            "per": f"{len(rows)} launch(es) of {per}",
         })
     return {"kernels": out}
+
+
+def lxmert_breakdown(times: dict, rates: dict, n_batches: int) -> dict:
+    """One 512-pair LXMERT batch on the device (default route): the blocks, from
+    their launches timed alone at the model's shapes, and the rest of the
+    measured model time (embeddings, visual encoder, pooler, head, gaps)."""
+    l_, x_ = LX_DEPTHS[0], LX_DEPTHS[2]
+    lang_layers, visn_layers = l_ + x_, LX_DEPTHS[1] + x_
+    out = {
+        "self_attention_blocks": lang_layers * times[f"attention_block S={LX_F}"]["ms"]
+        + visn_layers * times[f"attention_block S={LX_T}"]["ms"],
+        "ffn_blocks": lang_layers * times[f"ffn_block S={LX_F}"]["ms"] + visn_layers * times[f"ffn_block S={LX_T}"]["ms"],
+        "cross_attention_blocks": x_ * (times["cross_attention_block lang<-visn"]["ms"]
+                                        + times["cross_attention_block visn<-lang"]["ms"]),
+    }
+    model = rates["lxmert"]["device_ms"] / n_batches
+    out["rest"] = model - sum(out.values())
+    out["model"] = model
+    return out
+
+
+def expected_launches(n: int, per_batch: dict) -> dict:
+    """Every counter's expected launches over n batches; unnamed counters 0."""
+    return {w.__name__: n * per_batch.get(w.__name__, 0) for w in launch_counters()}
+
+
+# launches per scored batch: 12 layers of ImageBERT-A; LXMERT's 9 + 5 self-attention
+# layers, 5 x-layers of 2 self-attention and 2 FFN blocks, and the x-layers' two
+# cross directions as 2 cross blocks (5 launches each) or 1 dual block (7 launches)
+PER_BATCH = {
+    "imagebert_a": {"attention_block": 12, "ffn_block": 12, "gemm": 48, "attn_core": 12, "layernorm": 24},
+    "lxmert": {"attention_block": 24, "ffn_block": 24, "cross_attention_block": 10, "gemm": 24 * 4 + 10 * 3,
+               "attn_core": 24, "attn_core_cross": 10, "layernorm": 48 + 10},
+    "lxmert_dual_cross": {"attention_block": 24, "ffn_block": 24, "dual_cross_attention_block": 5,
+                          "gemm": 24 * 4 + 5 * 4, "attn_core": 24, "attn_core_dual": 5, "layernorm": 48 + 10},
+}
 
 
 def main() -> int:
@@ -414,18 +777,31 @@ def main() -> int:
         smoke = Smoke(torch)
         weights = smoke.layer_weights()
         smoke.check_kernels(weights)
+        smoke.check_lxmert_kernels(weights)
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         times = smoke.time_kernels(weights)
+        times.update(smoke.time_lxmert_kernels(weights))
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         launches, n_batches, rates = smoke.score_main_path()
-        expected = {"attention_block": 12 * n_batches, "ffn_block": 12 * n_batches,
-                    "gemm": 48 * n_batches, "attn_core": 12 * n_batches, "layernorm": 24 * n_batches}
+        expected = expected_launches(n_batches, PER_BATCH["imagebert_a"])
         if launches != expected or n_batches == 0:
             raise RuntimeError(f"main path launches {launches}, expected {expected}")
         log(json.dumps({"end_to_end": rates}))
-        log(json.dumps(kernel_line(times, launches, smoke.errors)))
+        lx_launches, lx_batches, lx_rates = smoke.score_lxmert()
+        for route, counts in lx_launches.items():
+            expected = expected_launches(lx_batches, PER_BATCH[route])
+            if counts != expected or lx_batches == 0:
+                raise RuntimeError(f"{route} launches {counts}, expected {expected}")
+        log(json.dumps({"end_to_end_lxmert": lx_rates}))
+        log(json.dumps({"lxmert_device_ms_per_batch": lxmert_breakdown(times, lx_rates, lx_batches)}))
+        all_launches = {"imagebert_a": launches, **lx_launches}
+        line = kernel_line(times, all_launches, smoke.errors)
+        unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
+        if unlaunched:
+            raise RuntimeError(f"kernels never launched on a driven path: {unlaunched}")
+        log(json.dumps(line))
         log(f"nvidia-smi: {nvidia_smi()}")
     except Exception:  # any phase failing fails the run, with its traceback
         traceback.print_exc()

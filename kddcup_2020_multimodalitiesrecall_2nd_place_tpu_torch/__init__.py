@@ -6,8 +6,9 @@ port imports ``torch`` and ``numpy`` only; every TPU kernel of the ported
 path is a hand-written CUDA kernel for Hopper (``csrc/``), with a plain
 PyTorch version beside it (``ops/``).
 
-Ported so far: ImageBERT-A scoring (tokenizer, data layer, model, scoring
-engine, ``cli/score.py``). ROADMAP.md lists what is still to come.
+Ported so far: ImageBERT-A and LXMERT scoring (tokenizers, data layer,
+models, scoring engine, ``cli/score.py``). ROADMAP.md lists what is still
+to come.
 """
 
 __version__ = "0.1.0"

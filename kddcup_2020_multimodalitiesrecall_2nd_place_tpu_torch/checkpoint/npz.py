@@ -3,13 +3,14 @@
 * ``flatten_tree`` / ``unflatten_tree`` / ``load_npz``: the port's own copy
   of the flat ``a/b/c``-keyed npz interchange of the JAX package
   (``checkpoint/orbax_io.py`` :37-64).
-* ``params_from_jax``: a tree of numpy arrays in the JAX layout -> float32
-  torch tensors, with each layer's query/key/value fused ONCE into
-  ``attention/qkv`` [H, 3H] (the JAX package concatenates them on every call,
-  ``models/core.py`` :293-299).
-* ``cast_matmul_weights``: one cast of every matmul kernel to the compute
-  dtype (bf16 for the CUDA kernels); biases, LayerNorm, embedding tables and
-  the head stay float32.
+* ``params_from_jax``: an ImageBERT-A or LXMERT tree of numpy arrays in the
+  JAX layout -> float32 torch tensors, with each attention's query/key/value
+  fused ONCE (``models/core.py:attention_forms``; the JAX package
+  concatenates them on every call, ``models/core.py`` :293-299, :315-316,
+  :400-401).
+* ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
+  list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
+  embedding tables and the heads' f32 weights stay float32.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.core import Params
+from ..models.core import Params, attention_forms
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -58,45 +59,37 @@ def _to_torch(tree):
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 
-def _fuse_qkv(att: dict) -> dict:
-    """query/key/value dense params -> one ``qkv`` dense, over the last axis."""
-    parts = [att[n] for n in ("query", "key", "value")]
-    fused = {
-        "kernel": torch.cat([p["kernel"] for p in parts], dim=-1),
-        "bias": torch.cat([p["bias"] for p in parts], dim=-1),
-    }
-    return {"qkv": fused, **{k: v for k, v in att.items() if k not in ("query", "key", "value")}}
-
-
 def params_from_jax(tree: dict) -> Params:
-    """JAX ImageBERT-A param tree (numpy leaves) -> the port's float32 params.
+    """JAX ImageBERT-A or LXMERT param tree (numpy leaves) -> the port's
+    float32 params; an LXMERT tree is told by its ``x_layers``.
 
-    Leaves the JAX apply never reads for scoring (the MLM head) are dropped."""
+    Leaves the JAX apply never reads for scoring (the MLM and NSP heads of
+    LXMERT and its AM head's ``logit_W``, ImageBERT-A's MLM head) are dropped."""
     params = _to_torch(tree)
     enc = params["bert"]["encoder"]
-    enc["attention"] = _fuse_qkv(enc["attention"])
+    if "x_layers" in enc:
+        for stack in ("layer", "r_layers"):
+            enc[stack]["attention"] = attention_forms(enc[stack]["attention"])
+        xs = enc["x_layers"]
+        # one module serves both cross directions: the cross route reads
+        # query and kv, the dual route qkv
+        xs["visual_attention"] = attention_forms(xs["visual_attention"], cross=True)
+        for name in ("lang_self_att", "visn_self_att"):
+            xs[name] = attention_forms(xs[name])
+        return {"bert": params["bert"], "logit_fc": params["logit_fc"]}
+    enc["attention"] = attention_forms(enc["attention"])
     params["cls"] = {"seq_relationship": params["cls"]["seq_relationship"]}
     return params
 
 
-MATMUL_KERNELS = (
-    ("bert", "encoder", "attention", "qkv"),
-    ("bert", "encoder", "attention", "output", "dense"),
-    ("bert", "encoder", "ffn", "intermediate"),
-    ("bert", "encoder", "ffn", "output", "dense"),
-    ("bert", "pooler", "dense"),
-    ("featureemb",),
-)
-
-
-def cast_matmul_weights(params: Params, dtype: torch.dtype) -> Params:
-    """A copy of ``params`` whose matmul kernels are ``dtype``; every other
-    leaf is shared with the input."""
+def cast_matmul_weights(params: Params, dtype: torch.dtype, paths) -> Params:
+    """A copy of ``params`` whose matmul kernels, at ``paths`` (a model's
+    ``MATMUL_KERNELS``), are ``dtype``; every other leaf is shared with the input."""
     def copy(tree):
         return {k: copy(v) if isinstance(v, dict) else v for k, v in tree.items()}
 
     out = copy(params)
-    for path in MATMUL_KERNELS:
+    for path in paths:
         node = out
         for key in path:
             node = node[key]

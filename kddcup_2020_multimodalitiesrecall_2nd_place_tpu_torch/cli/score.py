@@ -1,6 +1,8 @@
 """Score query-product TSV pairs with one model of the ensemble (the port of
-the JAX package's ``scripts/score.py``, same flags for ``--model imagebert_a``,
-same ``qid\\tpid\\tscore`` output).
+the JAX package's ``scripts/score.py``, same flags for ``--model imagebert_a``
+and ``--model lxmert``, same output: ``qid\\tpid\\tscore`` rows for
+ImageBERT-A; for LXMERT, which tokenizes HF-style, a ``query-id,product-id,score``
+CSV). ``KMR_DUAL_CROSS=1`` runs LXMERT's two cross directions as one dual block.
 
 Runs on the card by default (bf16, through the CUDA kernels); ``--device
 cpu`` runs the plain versions (f32 by default). Example:
@@ -24,7 +26,7 @@ from ..checkpoint import load_npz, params_from_jax
 from ..data import Featurizer, load_multimodal_labels
 from ..eval import evaluate_scores, load_answers
 from ..models import Precision, get_model
-from ..parallel import ScoringEngine, ScoringStats, resolve_device, write_scores_tsv
+from ..parallel import ScoringEngine, ScoringStats, resolve_device, write_scores_csv, write_scores_tsv
 from ..tokenization import FullTokenizer
 
 
@@ -69,7 +71,8 @@ def main(argv: list[str] | None = None) -> None:
 
     device = resolve_device(args.device)
     spec = get_model(args.model, overrides=json.loads(args.config_overrides) if args.config_overrides else None)
-    featurizer = Featurizer(FullTokenizer.google_style(VOCAB_PATH), load_multimodal_labels(args.labels))
+    tok = FullTokenizer.hf_style(VOCAB_PATH) if args.model == "lxmert" else FullTokenizer.google_style(VOCAB_PATH)
+    featurizer = Featurizer(tok, load_multimodal_labels(args.labels))
     params = load_params(args.checkpoint, spec)
     prec = None if args.precision is None else (Precision.f32() if args.precision == "f32" else Precision.bf16())
     engine = ScoringEngine(spec, params, device=device, precision=prec)
@@ -82,7 +85,8 @@ def main(argv: list[str] | None = None) -> None:
             file=sys.stderr,
         )
         raise SystemExit(3)
-    write_scores_tsv(result, args.out)
+    writer = write_scores_csv if args.model == "lxmert" else write_scores_tsv
+    writer(result, args.out)
     if args.answers:
         ndcg = evaluate_scores(result, load_answers(args.answers))
         print(json.dumps({"ndcg_at_5": round(ndcg, 6)}))

@@ -1,13 +1,14 @@
 from .featurize import Featurizer, pad_batch, stack_examples
 from .labels import load_multimodal_labels
 from .pipeline import PipelineStats, PrefetchIterator, batches_from_files, iter_batches
-from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, RawExample, parse_line
+from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, MAX_QUERY_LEN_L, RawExample, parse_line
 
 __all__ = [
     "Featurizer",
     "MAX_BOXES",
     "MAX_LABEL_TOKENS",
     "MAX_QUERY_LEN_AB",
+    "MAX_QUERY_LEN_L",
     "PipelineStats",
     "PrefetchIterator",
     "RawExample",

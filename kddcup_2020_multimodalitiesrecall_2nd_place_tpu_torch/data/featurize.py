@@ -1,9 +1,16 @@
 """Featurization of decoded TSV rows into fixed-shape numpy arrays.
 
-Only the ImageBERT-A layout (``imagebert_lds``) is ported so far: 20 query
-ids + 10 box feature tokens + 10 label tokens, segment ids over the 20 text
-positions, and **no** padding masks (``pixelmodel.py:189-195`` builds an
-all-ones mask). The B/C and LXMERT layouts follow with their models.
+Two layouts are ported, both identical to the JAX package's
+``data/featurize.py``:
+
+* ImageBERT-A (``imagebert_lds``): 20 query ids + 10 box feature tokens +
+  10 label tokens, segment ids over the 20 text positions, and **no**
+  padding masks (``pixelmodel.py:189-195`` builds an all-ones mask).
+* LXMERT: 23 query ids (+mask), 10x8 label ids (+mask), 4-dim normalised
+  boxes, features and a feature mask (``tasks/kdd_data.py:88-108``,
+  ``utils.py:23-59``); its queries go through the HF-style tokenizer.
+
+The ImageBERT-B/C layout follows with its models.
 """
 
 from __future__ import annotations
@@ -13,7 +20,16 @@ from typing import Callable
 import numpy as np
 
 from ..tokenization import FullTokenizer
-from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, RawExample, pad_1d, pad_rows
+from .tsv import (
+    MAX_BOXES,
+    MAX_LABEL_TOKENS,
+    MAX_QUERY_LEN_AB,
+    MAX_QUERY_LEN_L,
+    RawExample,
+    pad_1d,
+    pad_rows,
+    row_mask,
+)
 
 
 class Featurizer:
@@ -33,14 +49,19 @@ class Featurizer:
             self._label_ids_cache[class_label] = ids
         return ids
 
-    def _label_id_grid(self, ex: RawExample) -> np.ndarray:
-        """-> label ids [10, 8] int32, zero-padded per box and over boxes."""
+    def _label_id_grid(self, ex: RawExample) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """-> (ids [10, 8] i32 zero-padded per box and over boxes, mask [10, 8]
+        i32, lens [10] i32 uncapped, like len_class_labels in the reference)."""
         ids = np.zeros((MAX_BOXES, MAX_LABEL_TOKENS), dtype=np.int32)
+        mask = np.zeros((MAX_BOXES, MAX_LABEL_TOKENS), dtype=np.int32)
+        lens = np.zeros((MAX_BOXES,), dtype=np.int32)
         for i, cl in enumerate(ex.class_labels[:MAX_BOXES]):
             tok = self.label_token_ids(int(cl))
             n = min(len(tok), MAX_LABEL_TOKENS)
             ids[i, :n] = tok[:n]
-        return ids
+            mask[i, :n] = 1
+            lens[i] = len(tok)
+        return ids, mask, lens
 
     def imagebert_a(self, ex: RawExample, label: int = 0) -> dict[str, np.ndarray]:
         q_ids = self.tokenizer.encode_query(ex.query)
@@ -49,18 +70,35 @@ class Featurizer:
             "segment_ids": np.zeros((MAX_QUERY_LEN_AB,), dtype=np.int32),
             "boxes": pad_rows(ex.boxes_5(), MAX_BOXES).astype(np.float32),
             "features": pad_rows(ex.features, MAX_BOXES).astype(np.float32),
-            "label_ids": self._label_id_grid(ex),
+            "label_ids": self._label_id_grid(ex)[0],
+            "labels": np.int32(label),
+            "product_id": np.int64(ex.product_id),
+            "query_id": np.int64(ex.query_id),
+        }
+
+    def lxmert(self, ex: RawExample, label: int = 1) -> dict[str, np.ndarray]:
+        q_ids = self.tokenizer.encode_query(ex.query)
+        label_ids, label_mask, _ = self._label_id_grid(ex)
+        return {
+            "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_L).astype(np.int32),
+            "input_mask": row_mask(min(len(q_ids), MAX_QUERY_LEN_L), MAX_QUERY_LEN_L),
+            "label_ids": label_ids,
+            "label_mask": label_mask,
+            "boxes": pad_rows(ex.boxes_normalized(), MAX_BOXES).astype(np.float32),
+            "features": pad_rows(ex.features, MAX_BOXES).astype(np.float32),
+            "feats_mask": row_mask(min(ex.num_boxes, MAX_BOXES), MAX_BOXES).astype(np.float32),
             "labels": np.int32(label),
             "product_id": np.int64(ex.product_id),
             "query_id": np.int64(ex.query_id),
         }
 
     def for_model(self, name: str) -> Callable[[RawExample], dict[str, np.ndarray]]:
-        if name != "imagebert_a":
+        layouts = {"imagebert_a": self.imagebert_a, "lxmert": self.lxmert}
+        if name not in layouts:
             raise NotImplementedError(
                 f"featurizer layout {name!r} is not yet ported, see ROADMAP.md"
             )
-        return self.imagebert_a
+        return layouts[name]
 
 
 def stack_examples(examples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 MAX_QUERY_LEN_AB = 20  # [CLS] + pieces + [SEP], truncated (imagebert A/B/C)
+MAX_QUERY_LEN_L = 23  # lxmert (tasks/kdd_data.py:14)
 MAX_BOXES = 10
 MAX_LABEL_TOKENS = 8
 
@@ -96,6 +97,11 @@ def pad_1d(ids, maxlen: int, pad_value: int = 0) -> np.ndarray:
     """seq_padding semantics: pad right with pad_value or truncate to maxlen."""
     ids = list(ids[:maxlen])
     return np.asarray(ids + [pad_value] * (maxlen - len(ids)))
+
+
+def row_mask(n: int, maxlen: int) -> np.ndarray:
+    """int32 [maxlen]: 1 at the first n positions, 0 after."""
+    return (np.arange(maxlen) < n).astype(np.int32)
 
 
 def pad_rows(rows: np.ndarray, maxlen: int, pad_value: float = 0.0) -> np.ndarray:

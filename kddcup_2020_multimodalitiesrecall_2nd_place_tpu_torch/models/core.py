@@ -5,12 +5,16 @@
 * ``dense`` and ``layer_norm`` (eps 1e-12, float32 internals),
 * the post-LN encoder, a loop over ``[L]``-stacked layer parameters whose
   blocks are the fused attention and FFN blocks of ``ops/``,
+* the cross-attention block and the pair of shared-weight cross directions
+  of an LXMERT x-layer,
 * embedding and pooler pieces, and initialisers (truncated normal,
   stddev=initializer_range, as ``pixelmodel.py:418-420``).
 
 Parameters are a nested dict of tensors in the JAX package's tree layout,
-except that each layer's query/key/value are fused once, at load time, into
-one ``attention/qkv`` [H, 3H] kernel (``checkpoint/npz.py``). Matmul inputs
+except that each attention's query/key/value are fused once, at load time
+(``attention_forms``), into one ``qkv`` [H, 3H] kernel, and a cross
+attention also keeps ``query`` [H, H] and ``kv`` [H, 2H]: the kernels take
+contiguous weights, and a column slice of ``qkv`` is not one. Matmul inputs
 are rounded to ``Precision.compute_dtype`` and multiplied in float32;
 LayerNorm, softmax and all head math stay float32.
 """
@@ -24,8 +28,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+import os
+
 from ..ops.attention_block import attention_block as attention_block_op
 from ..ops.attention_block import attention_block_plain
+from ..ops.cross_attention_block import cross_attention_block as cross_attention_block_op
+from ..ops.cross_attention_block import cross_attention_block_plain
+from ..ops.dual_cross_attention_block import dual_cross_attention_block as dual_cross_attention_block_op
+from ..ops.dual_cross_attention_block import dual_cross_attention_block_plain
 from ..ops.ffn_block import ffn_block as ffn_block_op
 from ..ops.ffn_block import ffn_block_plain
 from ..ops.kernels import layernorm_plain
@@ -82,16 +92,20 @@ class Precision:
 
 
 class Blocks(NamedTuple):
-    """The two per-layer block functions the encoder calls."""
+    """The block functions the models call."""
 
     attention: Callable[..., torch.Tensor]
     ffn: Callable[..., torch.Tensor]
+    cross: Callable[..., torch.Tensor]
+    dual: Callable[..., tuple[torch.Tensor, torch.Tensor]]
 
 
 # the wrappers: plain versions on CPU tensors, the CUDA kernels on CUDA tensors
-KERNEL_BLOCKS = Blocks(attention_block_op, ffn_block_op)
+KERNEL_BLOCKS = Blocks(attention_block_op, ffn_block_op, cross_attention_block_op,
+                       dual_cross_attention_block_op)
 # the oracles, on any device (chip_smoke.py holds the kernels against them)
-PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain)
+PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain, cross_attention_block_plain,
+                      dual_cross_attention_block_plain)
 
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
 
@@ -118,9 +132,22 @@ def layer_norm_init(dim: int, lead=()) -> Params:
     return {"gamma": torch.ones((*lead, dim)), "beta": torch.zeros((*lead, dim))}
 
 
-def encoder_init(cfg: BertConfig, gen: torch.Generator) -> Params:
+def attention_forms(att: Params, cross: bool = False) -> Params:
+    """query/key/value dense params (last axis = outputs) -> the fused forms
+    the blocks read: ``qkv`` [.., H, 3H]; with ``cross``, also ``query``
+    [.., H, H] and ``kv`` [.., H, 2H]. Other entries (``output``) are kept."""
+    parts = [att[n] for n in ("query", "key", "value")]
+    out = {k: v for k, v in att.items() if k not in ("query", "key", "value")}
+    out["qkv"] = {n: torch.cat([p[n] for p in parts], dim=-1) for n in ("kernel", "bias")}
+    if cross:
+        out["query"] = parts[0]
+        out["kv"] = {n: torch.cat([p[n] for p in parts[1:]], dim=-1) for n in ("kernel", "bias")}
+    return out
+
+
+def encoder_init(cfg: BertConfig, gen: torch.Generator, num_layers: int | None = None) -> Params:
     """Stacked layer params, every leaf with a leading [L] axis."""
-    lead = (cfg.num_hidden_layers,)
+    lead = (num_layers or cfg.num_hidden_layers,)
     h, i, std = cfg.hidden_size, cfg.intermediate_size, cfg.initializer_range
     return {
         "attention": {
@@ -176,9 +203,40 @@ def attention_block(p: Params, x, bias, cfg: BertConfig, blocks: Blocks = KERNEL
     )
 
 
-def ffn_block(p: Params, x, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS):
-    """Post-LN feed-forward block of one layer (no dropout: inference)."""
-    act_name = cfg.hidden_act
+def cross_attention_block(p: Params, x, ctx, bias, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS):
+    """Post-LN cross-attention block: x attends to ctx, ``bias`` masks ctx's keys."""
+    out = p["output"]
+    return blocks.cross(
+        x, ctx, p["query"]["kernel"], p["query"]["bias"], p["kv"]["kernel"], p["kv"]["bias"],
+        out["dense"]["kernel"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
+        out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
+    )
+
+
+def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: BertConfig,
+                                blocks: Blocks = KERNEL_BLOCKS):
+    """Both shared-weight cross directions of an LXMERT x-layer
+    (``lxmert/src/lxrt/modeling.py:460-464``): lang <- visn under the visn key
+    mask and visn <- lang under the lang key mask, both from the pre-cross
+    streams. ``KMR_DUAL_CROSS=1`` runs them as one dual block (one attention
+    launch for both directions), as the JAX package's ``models/core.py``
+    :388-417 does on its kernel backend; the default is two cross blocks."""
+    if os.environ.get("KMR_DUAL_CROSS", "0") == "1" and (lang_bias is None) == (visn_bias is None):
+        out = p["output"]
+        return blocks.dual(
+            l, v, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
+            out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads,
+            lang_bias, visn_bias,
+        )
+    return (cross_attention_block(p, l, v, visn_bias, cfg, blocks),
+            cross_attention_block(p, v, l, lang_bias, cfg, blocks))
+
+
+def ffn_block(p: Params, x, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS, act: str | None = None):
+    """Post-LN feed-forward block of one layer (no dropout: inference).
+    ``act`` overrides ``cfg.hidden_act`` (LXMERT runs ``gelu_erf`` under a
+    config that says ``gelu``, as the JAX package's ``models/core.py`` :440-448)."""
+    act_name = act or cfg.hidden_act
     if act_name not in GELU_APPROXIMATE:
         raise NotImplementedError(f"activation {act_name!r} is not yet ported, see ROADMAP.md")
     out = p["output"]
@@ -199,14 +257,14 @@ def num_layers(p: Params) -> int:
 
 
 def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
-            blocks: Blocks = KERNEL_BLOCKS) -> torch.Tensor:
+            blocks: Blocks = KERNEL_BLOCKS, act: str | None = None) -> torch.Tensor:
     """The post-LN stack; the f32 embedding output is cast to the compute
     dtype on entry (the JAX package's ``models/core.py`` :673)."""
     x = x.to(prec.compute_dtype)
     for i in range(num_layers(p)):
         layer = layer_slice(p, i)
         x = attention_block(layer["attention"], x, bias, cfg, blocks)
-        x = ffn_block(layer["ffn"], x, cfg, blocks)
+        x = ffn_block(layer["ffn"], x, cfg, blocks, act)
     return x
 
 

@@ -38,6 +38,16 @@ SEQ_LEN = TEXT_LEN + 2 * MAX_BOXES  # 40
 FEATURE_DIM = 2048
 # the batch entries the model reads; the engine moves only these to the device
 INPUT_KEYS = ("input_ids", "segment_ids", "features", "label_ids")
+# every matmul kernel of the tree, cast once to the compute dtype (checkpoint/npz.py);
+# the NSP head's output_weights stay f32, as the JAX head runs at HIGHEST precision
+MATMUL_KERNELS = (
+    ("bert", "encoder", "attention", "qkv"),
+    ("bert", "encoder", "attention", "output", "dense"),
+    ("bert", "encoder", "ffn", "intermediate"),
+    ("bert", "encoder", "ffn", "output", "dense"),
+    ("bert", "pooler", "dense"),
+    ("featureemb",),
+)
 
 
 def init_params(cfg: BertConfig, gen: torch.Generator) -> Params:

@@ -1,4 +1,4 @@
-"""Model registry. Only ImageBERT-A is ported so far; the other scorers of
+"""Model registry. ImageBERT-A and LXMERT are ported; the other scorers of
 the ensemble (``code/main.py:59``) raise until their slice lands."""
 
 from __future__ import annotations
@@ -11,11 +11,12 @@ from typing import Any, Callable
 import torch
 
 from .. import BERT_CONFIG_PATH
-from . import imagebert_a
+from . import imagebert_a, lxmert
 from .core import BertConfig, Params
 
-PORTED = ("imagebert_a",)
-NOT_YET_PORTED = ("imagebert_b", "imagebert_c", "lxmert", "two_tower")
+PORTED = ("imagebert_a", "lxmert")
+NOT_YET_PORTED = ("imagebert_b", "imagebert_c", "two_tower")
+LXMERT_DEPTHS = ("l_layers", "x_layers", "r_layers")
 
 
 @dataclass(frozen=True)
@@ -26,6 +27,7 @@ class ModelSpec:
     apply: Callable[..., dict]
     featurizer_layout: str  # which Featurizer method builds its batches
     input_keys: tuple[str, ...]
+    matmul_kernels: tuple[tuple[str, ...], ...]  # the param paths cast to the compute dtype
 
     def init_params(self, seed: int = 0) -> Params:
         return self.init(torch.Generator().manual_seed(seed))
@@ -42,14 +44,29 @@ def _bert_config() -> BertConfig:
 
 
 def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
-    """``overrides``: BertConfig fields to change for this one spec."""
+    """``overrides``: BertConfig fields to change for this one spec; for
+    LXMERT, ``l_layers`` / ``x_layers`` / ``r_layers`` set the stack depths
+    (the JAX package's ``models/registry.py`` :68-74)."""
     if name in NOT_YET_PORTED:
         raise NotImplementedError(f"model {name!r} is not yet ported, see ROADMAP.md")
     if name not in PORTED:
         raise ValueError(f"unknown model {name!r}")
+    overrides = dict(overrides or {})
+    depths = {k: overrides.pop(k) for k in LXMERT_DEPTHS if k in overrides}
     cfg = _bert_config()
     if overrides:
         cfg = cfg.replace(**overrides)
+    if name == "lxmert":
+        lcfg = lxmert.LxmertConfig(bert=cfg, **depths)
+        return ModelSpec(
+            name,
+            lcfg,
+            init=lambda gen: lxmert.init_params(lcfg, gen),
+            apply=lxmert.apply,
+            featurizer_layout="lxmert",
+            input_keys=lxmert.INPUT_KEYS,
+            matmul_kernels=lxmert.MATMUL_KERNELS,
+        )
     return ModelSpec(
         name,
         cfg,
@@ -57,4 +74,5 @@ def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
         apply=imagebert_a.apply,
         featurizer_layout="imagebert_a",
         input_keys=imagebert_a.INPUT_KEYS,
+        matmul_kernels=imagebert_a.MATMUL_KERNELS,
     )

@@ -121,8 +121,9 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t, offset: int = 0) -> ctypes.c_void_p:
+    """Address of element ``offset`` of tensor ``t``'s storage view."""
+    return ctypes.c_void_p(t.data_ptr() + offset * t.element_size())
 
 
 def stream_of(t) -> ctypes.c_void_p:

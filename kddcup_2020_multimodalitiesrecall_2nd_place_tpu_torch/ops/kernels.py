@@ -1,13 +1,17 @@
 """Wrappers over the hand-written CUDA kernels of ``csrc/``, each with its
 plain PyTorch version and a launch counter.
 
-The two fused blocks (``attention_block.py``, ``ffn_block.py``) are built
+The fused blocks (``attention_block.py``, ``ffn_block.py``,
+``cross_attention_block.py``, ``dual_cross_attention_block.py``) are built
 from these three kernels:
 
 * ``gemm``       ``csrc/gemm_bf16.cu``: bf16 ``A @ W + b`` with a fused
                  epilogue (bf16 out, GELU then bf16, or + residual in f32).
 * ``attn_core``  ``csrc/attn_core.cu``: per-head softmax(QK^T/8 + key bias)V
-                 read from the fused [B*S, 3H] QKV buffer.
+                 read from the fused [B*S, 3H] QKV buffer; its two other entry
+                 points are ``attn_core_cross`` (Q [B*Sq, H] against a fused
+                 K/V [B*Sk, 2H]) and ``attn_core_dual`` (both directions of an
+                 LXMERT x-layer from the two streams' QKV buffers, one launch).
 * ``layernorm``  ``csrc/layernorm.cu``: f32 row LayerNorm, bf16 out.
 
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
@@ -98,43 +102,126 @@ gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# attn_core: per-head attention on the fused QKV buffer
+# attn_core: per-head attention; self, cross and dual-cross entry points
 # ---------------------------------------------------------------------------
+
+
+def attn_core_cross_plain(q, kv, key_bias, b: int, sq: int, sk: int, num_heads: int) -> torch.Tensor:
+    """q [B*Sq, H], kv [B*Sk, 2H] (keys then values) -> ctx [B*Sq, H] in q's
+    dtype; key_bias [B, Sk] or None."""
+    h = q.shape[1]
+    qh = split_heads(q.reshape(b, sq, h), num_heads)
+    k, v = (split_heads(t.reshape(b, sk, h), num_heads) for t in kv.split(h, dim=1))
+    bias = None if key_bias is None else key_bias.reshape(b, 1, 1, sk)
+    return merge_heads(mha(qh, k, v, bias)).reshape(b * sq, h)
 
 
 def attn_core_plain(qkv, key_bias, b: int, s: int, num_heads: int) -> torch.Tensor:
     """qkv [B*S, 3H] -> ctx [B*S, H] in qkv's dtype; key_bias [B, S] or None."""
     h = qkv.shape[1] // 3
-    q, k, v = (split_heads(t.reshape(b, s, h), num_heads) for t in qkv.split(h, dim=1))
-    bias = None if key_bias is None else key_bias.reshape(b, 1, 1, s)
-    return merge_heads(mha(q, k, v, bias)).reshape(b * s, h)
+    return attn_core_cross_plain(qkv[:, :h], qkv[:, h:], key_bias, b, s, s, num_heads)
+
+
+def attn_core_dual_plain(lqkv, vqkv, lang_bias, visn_bias, b: int, f: int, t: int,
+                         num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """lqkv [B*F, 3H], vqkv [B*T, 3H] -> (lang <- visn ctx [B*F, H] under the
+    visn key mask, visn <- lang ctx [B*T, H] under the lang key mask)."""
+    h = lqkv.shape[1] // 3
+    return (attn_core_cross_plain(lqkv[:, :h], vqkv[:, h:], visn_bias, b, f, t, num_heads),
+            attn_core_cross_plain(vqkv[:, :h], lqkv[:, h:], lang_bias, b, t, f, num_heads))
+
+
+def _attn_checks(h: int, num_heads: int, b: int, lengths) -> None:
+    lib = _build.load("attn_core")
+    _require(h == num_heads * lib.kmr_attn_head_dim(),
+             f"attn_core takes head dim {lib.kmr_attn_head_dim()}, got {h // num_heads}")
+    for s in lengths:
+        _require(1 <= s <= lib.kmr_attn_max_seq(), f"attn_core takes S <= {lib.kmr_attn_max_seq()}, got {s}")
+    _require(1 <= b <= 65535, f"attn_core takes 1..65535 pairs per launch, got {b}")
+
+
+def _rows(t, name: str, shape: tuple[int, int]) -> None:
+    _check_operand(t, name, torch.bfloat16, t.device)
+    _require(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
+
+
+def _key_bias_ptr(key_bias, name: str, b: int, s: int, device):
+    if key_bias is None:
+        return None
+    _check_operand(key_bias, name, torch.float32, device)
+    _require(tuple(key_bias.shape) == (b, s), f"{name} shape {tuple(key_bias.shape)} != ({b}, {s})")
+    return _build.ptr(key_bias)
 
 
 def attn_core(qkv, key_bias, b: int, s: int, num_heads: int) -> torch.Tensor:
     """qkv [B*S, 3H] bf16, key_bias [B, S] f32 or None -> ctx [B*S, H] bf16."""
     if not qkv.is_cuda:
         return attn_core_plain(qkv, key_bias, b, s, num_heads)
-    lib = _build.load("attn_core")
     h = qkv.shape[1] // 3
-    _require(qkv.shape == (b * s, 3 * h), f"qkv shape {tuple(qkv.shape)} != ({b * s}, {3 * h})")
-    _require(h == num_heads * lib.kmr_attn_head_dim(),
-             f"attn_core takes head dim {lib.kmr_attn_head_dim()}, got {h // num_heads}")
-    _require(1 <= s <= lib.kmr_attn_max_seq(), f"attn_core takes S <= {lib.kmr_attn_max_seq()}, got {s}")
-    _require(1 <= b <= 65535, f"attn_core takes 1..65535 pairs per launch, got {b}")
-    _check_operand(qkv, "qkv", torch.bfloat16, qkv.device)
-    if key_bias is not None:
-        _check_operand(key_bias, "key_bias", torch.float32, qkv.device)
-        _require(tuple(key_bias.shape) == (b, s), f"key_bias shape {tuple(key_bias.shape)} != ({b}, {s})")
+    _attn_checks(h, num_heads, b, (s,))
+    _rows(qkv, "qkv", (b * s, 3 * h))
+    bias = _key_bias_ptr(key_bias, "key_bias", b, s, qkv.device)
     ctx = torch.empty(b * s, h, dtype=torch.bfloat16, device=qkv.device)
     fn = _build.bind("attn_core", "kmr_attn_core", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(_build.ptr(qkv), _build.ptr(key_bias) if key_bias is not None else None,
-            _build.ptr(ctx), b, s, h, num_heads, _build.stream_of(qkv))
+    rc = fn(_build.ptr(qkv), bias, _build.ptr(ctx), b, s, h, num_heads, _build.stream_of(qkv))
     _build.check(rc, "attn_core")
     attn_core.launches += 1
     return ctx
 
 
 attn_core.launches = 0
+
+
+def attn_core_cross(q, kv, key_bias, b: int, sq: int, sk: int, num_heads: int) -> torch.Tensor:
+    """q [B*Sq, H] bf16, kv [B*Sk, 2H] bf16, key_bias [B, Sk] f32 or None
+    -> ctx [B*Sq, H] bf16."""
+    if not q.is_cuda:
+        return attn_core_cross_plain(q, kv, key_bias, b, sq, sk, num_heads)
+    h = q.shape[1]
+    _attn_checks(h, num_heads, b, (sq, sk))
+    _rows(q, "q", (b * sq, h))
+    _rows(kv, "kv", (b * sk, 2 * h))
+    bias = _key_bias_ptr(key_bias, "key_bias", b, sk, q.device)
+    ctx = torch.empty(b * sq, h, dtype=torch.bfloat16, device=q.device)
+    fn = _build.bind("attn_core", "kmr_attn_cross",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    # k at column 0 and v at column H of the [B*Sk, 2H] buffer, both at row stride 2H
+    rc = fn(_build.ptr(q), _build.ptr(kv), _build.ptr(kv, h), bias, _build.ptr(ctx),
+            h, 2 * h, b, sq, sk, h, num_heads, _build.stream_of(q))
+    _build.check(rc, "attn_core")
+    attn_core_cross.launches += 1
+    return ctx
+
+
+attn_core_cross.launches = 0
+
+
+def attn_core_dual(lqkv, vqkv, lang_bias, visn_bias, b: int, f: int, t: int,
+                   num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """lqkv [B*F, 3H] and vqkv [B*T, 3H] bf16, lang_bias [B, F] and visn_bias
+    [B, T] f32 (both or neither) -> (ctx_l [B*F, H], ctx_v [B*T, H]) bf16,
+    both directions in one launch."""
+    _require((lang_bias is None) == (visn_bias is None), "attn_core_dual takes both key masks or neither")
+    if not lqkv.is_cuda:
+        return attn_core_dual_plain(lqkv, vqkv, lang_bias, visn_bias, b, f, t, num_heads)
+    h = lqkv.shape[1] // 3
+    _attn_checks(h, num_heads, b, (f, t))
+    _rows(lqkv, "lqkv", (b * f, 3 * h))
+    _rows(vqkv, "vqkv", (b * t, 3 * h))
+    _require(vqkv.device == lqkv.device, "lqkv and vqkv must be on one device")
+    lbias = _key_bias_ptr(lang_bias, "lang_bias", b, f, lqkv.device)
+    vbias = _key_bias_ptr(visn_bias, "visn_bias", b, t, lqkv.device)
+    ctx_l = torch.empty(b * f, h, dtype=torch.bfloat16, device=lqkv.device)
+    ctx_v = torch.empty(b * t, h, dtype=torch.bfloat16, device=lqkv.device)
+    fn = _build.bind("attn_core", "kmr_attn_dual", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(_build.ptr(lqkv), _build.ptr(vqkv), lbias, vbias, _build.ptr(ctx_l), _build.ptr(ctx_v),
+            b, f, t, h, num_heads, _build.stream_of(lqkv))
+    _build.check(rc, "attn_core")
+    attn_core_dual.launches += 1
+    return ctx_l, ctx_v
+
+
+attn_core_dual.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -177,4 +264,4 @@ def layernorm(y, gamma, beta, eps: float = 1e-12, out_dtype=torch.bfloat16) -> t
 
 layernorm.launches = 0
 
-WRAPPERS = (gemm, attn_core, layernorm)
+WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm)

@@ -69,7 +69,9 @@ class ScoringEngine:
                 f"{self.precision.compute_dtype} scoring on CUDA is not yet ported (the kernels "
                 "take bf16), see ROADMAP.md; use --precision bf16, or f32 on the CPU"
             )
-        self.params = tree_to(cast_matmul_weights(params, self.precision.compute_dtype), self.device)
+        self.params = tree_to(
+            cast_matmul_weights(params, self.precision.compute_dtype, model.matmul_kernels), self.device
+        )
 
     def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return {
@@ -127,3 +129,13 @@ def write_scores_tsv(result: dict[str, dict[str, float]], path) -> None:
         for qid, row in result.items():
             for pid, s in row.items():
                 f.write(f"{qid}\t{pid}\t{s}\n")
+
+
+def write_scores_csv(result: dict[str, dict[str, float]], path) -> None:
+    """The LXMERT score-file format: a ``query-id,product-id,score`` header,
+    then qid,pid,score rows (the JAX package's ``parallel/engine.py`` :258-264)."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("query-id,product-id,score\n")
+        for qid, row in result.items():
+            for pid, s in row.items():
+                f.write(f"{qid},{pid},{s}\n")

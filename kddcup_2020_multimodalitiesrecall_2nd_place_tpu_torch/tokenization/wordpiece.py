@@ -23,6 +23,8 @@ import unicodedata
 from functools import lru_cache
 from typing import Iterable, Sequence
 
+_NEVER_SPLIT_HF = ("[UNK]", "[SEP]", "[PAD]", "[CLS]", "[MASK]")
+
 
 def load_vocab(vocab_file) -> dict[str, int]:
     """Load a BERT vocab file: one token per line, id = line index."""
@@ -199,6 +201,12 @@ class FullTokenizer:
         """Matches imagebert_lds/imagebert_zk tokenization.py defaults."""
         return cls(vocab_file, do_lower_case, never_split=(),
                    max_input_chars_per_word=200)
+
+    @classmethod
+    def hf_style(cls, vocab_file, do_lower_case: bool = True) -> "FullTokenizer":
+        """Matches lxmert/src/lxrt/tokenization.py defaults."""
+        return cls(vocab_file, do_lower_case, never_split=_NEVER_SPLIT_HF,
+                   max_input_chars_per_word=100)
 
     def _tokenize_uncached(self, text: str) -> tuple[str, ...]:
         pieces: list[str] = []

@@ -21,6 +21,14 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention_block i
     attention_block,
     attention_block_plain,
 )
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.cross_attention_block import (
+    cross_attention_block,
+    cross_attention_block_plain,
+)
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.dual_cross_attention_block import (
+    dual_cross_attention_block,
+    dual_cross_attention_block_plain,
+)
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from torch_parity import attn_inputs, cuda, ffn_inputs  # noqa: F401  (cuda: fixture)
 
@@ -98,3 +106,101 @@ def test_cuda_tensors_launch_or_raise(cuda):
     attention_block(x2d.reshape(8, 40, 768), *wt, 12)
     torch.cuda.synchronize()
     assert attention_block.launches == before + 1
+
+
+# LXMERT's x-layer shapes: lang F=23, visn T=10, H=768, 12 heads
+LENGTHS = [(23, 10), (10, 23)]
+LENGTH_IDS = ["lang<-visn", "visn<-lang"]
+MASKS = ["no-mask", "mask", "all-masked-row"]
+
+
+def _cross_case(device, seed, f, t, masks, b=8, h=768):
+    """x [b, f, H] and ctx [b, t, H] bf16, the cross weights (wq, bq, wkv, bkv,
+    wo, bo, gamma, beta), and the two streams' key-mask biases: None, ragged
+    (at least one live key a row), or ragged with pair 0's keys all masked."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, f, h, generator=g).to(device, torch.bfloat16)
+    ctx = torch.randn(b, t, h, generator=g).to(device, torch.bfloat16)
+    ws = []
+    for name, shape in (("wq", (h, h)), ("bq", (h,)), ("wkv", (h, 2 * h)), ("bkv", (2 * h,)),
+                        ("wo", (h, h)), ("bo", (h,)), ("gamma", (h,)), ("beta", (h,))):
+        noise = torch.randn(*shape, generator=g)
+        if name == "gamma":
+            ws.append((1.0 + 0.1 * noise).to(device))
+        elif name.startswith("w"):
+            ws.append((0.8 / shape[0] ** 0.5 * noise).to(device, torch.bfloat16))
+        else:
+            ws.append((0.05 * noise).to(device))
+    biases = [None, None]
+    if masks != "no-mask":
+        biases = []
+        for s in (f, t):
+            m = (torch.rand(b, s, generator=g) > 0.3).float()
+            m[:, 0] = 1.0
+            if masks == "all-masked-row":
+                m[0] = 0.0
+            biases.append(mask_to_bias(m).to(device))
+    return x, ctx, ws, biases
+
+
+def _fused(ws):
+    wq, bq, wkv, bkv, *rest = ws
+    return [torch.cat([wq, wkv], dim=1), torch.cat([bq, bkv]), *rest]
+
+
+@pytest.mark.parametrize("masks", MASKS)
+@pytest.mark.parametrize("f,t", LENGTHS, ids=LENGTH_IDS)
+def test_cuda_attn_core_cross_and_dual_match_plain(cuda, f, t, masks):
+    g = torch.Generator(device="cpu").manual_seed(8)
+    b, h = 8, 768
+    lqkv, vqkv = (torch.randn(b * s, 3 * h, generator=g).to(cuda, torch.bfloat16) for s in (f, t))
+    _, _, _, (lb, vb) = _cross_case(cuda, 9, f, t, masks)
+    q, kv = lqkv[:, :h].contiguous(), vqkv[:, h:].contiguous()
+    got = kernels.attn_core_cross(q, kv, vb, b, f, t, 12)
+    assert within_band(got, kernels.attn_core_cross_plain(q, kv, vb, b, f, t, 12))
+    for g_, w_ in zip(kernels.attn_core_dual(lqkv, vqkv, lb, vb, b, f, t, 12),
+                      kernels.attn_core_dual_plain(lqkv, vqkv, lb, vb, b, f, t, 12)):
+        assert within_band(g_, w_)
+
+
+def test_cuda_attn_core_self_is_the_cross_case(cuda):
+    """The self-attention entry point equals the cross one on the same buffer, bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    qkv = torch.randn(8 * 40, 3 * 768, generator=g).to(cuda, torch.bfloat16)
+    got = kernels.attn_core(qkv, None, 8, 40, 12)
+    want = kernels.attn_core_cross(qkv[:, :768].contiguous(), qkv[:, 768:].contiguous(), None, 8, 40, 40, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("masks", MASKS)
+@pytest.mark.parametrize("f,t", LENGTHS, ids=LENGTH_IDS)
+def test_cuda_cross_blocks_match_plain(cuda, f, t, masks):
+    x, ctx, ws, (lb, vb) = _cross_case(cuda, 11, f, t, masks)
+    got = cross_attention_block(x, ctx, *ws, 12, vb)
+    assert within_band(got, cross_attention_block_plain(x, ctx, *ws, 12, vb))
+    got_l, got_v = dual_cross_attention_block(x, ctx, *_fused(ws), 12, lb, vb)
+    want_l, want_v = dual_cross_attention_block_plain(x, ctx, *_fused(ws), 12, lb, vb)
+    assert within_band(got_l, want_l) and within_band(got_v, want_v)
+
+
+def test_cuda_cross_tensors_launch_or_raise(cuda):
+    """CUDA tensors the new wrappers do not take raise, and never run the plain version."""
+    x, ctx, ws, (lb, vb) = _cross_case(cuda, 12, 23, 10, "mask")
+    counted = (kernels.attn_core_cross, kernels.attn_core_dual, cross_attention_block, dual_cross_attention_block)
+    before = [w.launches for w in counted]
+    with pytest.raises(ValueError, match="dtype"):
+        cross_attention_block(x.float(), ctx.float(), *ws, 12, vb)  # f32 activations
+    with pytest.raises(ValueError, match="expected cuda"):
+        dual_cross_attention_block(x, ctx, *_fused(ws), 12, lb.cpu(), vb)  # a key mask left on the CPU
+    with pytest.raises(ValueError, match="S <="):
+        long = torch.zeros(8 * 65, 768, device=cuda, dtype=torch.bfloat16)
+        kernels.attn_core_cross(long, torch.zeros(8 * 10, 1536, device=cuda, dtype=torch.bfloat16), None,
+                                8, 65, 10, 12)
+    with pytest.raises(ValueError, match="kv shape"):
+        kernels.attn_core_cross(x.reshape(-1, 768), ctx.reshape(-1, 768), vb, 8, 23, 10, 12)
+    assert [w.launches for w in counted] == before
+    cross_attention_block(x, ctx, *ws, 12, vb)
+    dual_cross_attention_block(x, ctx, *_fused(ws), 12, lb, vb)
+    torch.cuda.synchronize()
+    assert [w.launches for w in counted] == [n + 1 for n in before]

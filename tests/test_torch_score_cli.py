@@ -1,6 +1,7 @@
 """The port's scoring CLI and engine: the same score file as the JAX
-``scripts/score.py`` from the same npz params (f32 on the CPU), the device
-policy, and the rule that the port never imports JAX."""
+``scripts/score.py`` from the same npz params (f32 on the CPU), for
+ImageBERT-A (qid\\tpid\\tscore rows) and LXMERT (a query-id,product-id,score
+CSV), the device policy, and the rule that the port never imports JAX."""
 
 import json
 import os
@@ -21,7 +22,7 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.synthetic import
 )
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine, resolve_device
-from torch_parity import JAX_PKG, TINY, TORCH_PKG, jax_imagebert_a_params
+from torch_parity import JAX_PKG, TINY, TORCH_PKG, jax_imagebert_a_params, numpy_like
 
 REPO = Path(__file__).resolve().parents[1]
 N_ROWS = 37
@@ -31,6 +32,16 @@ def _read_scores(path):
     out = {}
     for line in Path(path).read_text().splitlines():
         q, p, s = line.split("\t")
+        out[(q, p)] = float(s)
+    return out
+
+
+def _read_csv_scores(path):
+    lines = Path(path).read_text().splitlines()
+    assert lines[0] == "query-id,product-id,score"
+    out = {}
+    for line in lines[1:]:
+        q, p, s = line.split(",")
         out[(q, p)] = float(s)
     return out
 
@@ -72,6 +83,46 @@ def test_score_cli_matches_jax_script(tmp_path, monkeypatch, capsys):
     np.testing.assert_allclose([got[k] for k in keys], [want[k] for k in keys], atol=1e-4, rtol=0)
     ref_ndcg = _json_lines(ref.stdout)[0]["ndcg_at_5"]
     assert port_out[0]["ndcg_at_5"] == ref_ndcg
+    assert port_out[1]["pairs"] == N_ROWS and port_out[1]["device"] == "cpu"
+
+
+def test_score_cli_lxmert_matches_jax_script(tmp_path, monkeypatch, capsys):
+    import jax
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import get_model as jax_get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import lxmert as jax_lxmert
+
+    lines, answers = make_eval_tsv(N_ROWS, seed=9, planted=0.0)
+    (tmp_path / "pairs.tsv").write_text("\n".join(lines) + "\n")
+    (tmp_path / "labels.txt").write_text("".join(f"{k}\t{v}\n" for k, v in SYNTHETIC_LABELS.items()))
+    (tmp_path / "answers.json").write_text(json.dumps(answers))
+    depths = {"l_layers": 2, "x_layers": 2, "r_layers": 1}
+    monkeypatch.setenv("KMR_CONFIG_OVERRIDES", json.dumps(TINY))
+    lcfg = jax_get_model("lxmert", overrides=depths).config
+    shapes = jax.eval_shape(lambda: jax_lxmert.init_params(jax.random.key(0), lcfg))
+    save_npz(tmp_path / "l.npz", numpy_like(shapes, seed=10))
+    common = [
+        "--model", "lxmert", "--tsv", str(tmp_path / "pairs.tsv"),
+        "--labels", str(tmp_path / "labels.txt"), "--checkpoint", str(tmp_path / "l.npz"),
+        "--config-overrides", json.dumps(depths),
+        "--batch-size", "16", "--precision", "f32", "--answers", str(tmp_path / "answers.json"),
+        "--expect-pairs", str(N_ROWS),
+    ]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "JAX_PLATFORM_NAME": "cpu"}
+    ref = subprocess.run(
+        [sys.executable, "scripts/score.py", *common, "--out", str(tmp_path / "jax.csv")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert ref.returncode == 0, ref.stderr[-3000:]
+
+    port_cli.main([*common, "--device", "cpu", "--out", str(tmp_path / "port.csv")])
+    port_out = _json_lines(capsys.readouterr().out)
+
+    want, got = _read_csv_scores(tmp_path / "jax.csv"), _read_csv_scores(tmp_path / "port.csv")
+    assert list(got) == list(want) and len(got) == N_ROWS
+    keys = sorted(want)
+    np.testing.assert_allclose([got[k] for k in keys], [want[k] for k in keys], atol=1e-4, rtol=0)
+    assert port_out[0]["ndcg_at_5"] == _json_lines(ref.stdout)[0]["ndcg_at_5"]
     assert port_out[1]["pairs"] == N_ROWS and port_out[1]["device"] == "cpu"
 
 
