@@ -12,19 +12,31 @@
    The same for LXMERT's kernels at its shapes (lang F=23, visn T=10, seeded
    key masks with some all-masked rows): the cross and dual attention cores,
    the cross block in both directions, the dual block, and the self-attention
-   and erf-GELU FFN blocks at S=23 and S=10.
-3. Full-width scoring, two models, each a 2048-row synthetic TSV scored end
+   and erf-GELU FFN blocks at S=23 and S=10. And for the fused encoder layer
+   (``KMR_FUSED_LAYER=1``): ``layer_tail`` and ``encoder_layer`` at S=40 (no
+   mask, tanh GELU), S=30 (ImageBERT-B's masks, some pairs with every key past
+   the query masked, tanh), S=23 and S=10 (LXMERT's masks, erf), and the
+   GEMM's "f32" epilogue at ImageBERT-B's label-conv shape; timed at B=512,
+   S=30 beside the two blocks they replace.
+3. Full-width scoring, three models, each a 2048-row synthetic TSV scored end
    to end through ``ScoringEngine`` (bf16, batch 512, random weights from
-   seed 0): ImageBERT-A (12 x 768), then LXMERT (9/5/5 x 768) on its default
-   route and again with ``KMR_DUAL_CROSS=1``. Every launch counter is set to 0
-   just before each of the three runs and read just after it, and must show
-   exactly the launches that path makes. ImageBERT-A's scores are held
-   against the plain path on the card (max |d score| <= SCORE_BAND); LXMERT's,
-   whose head makes them more sensitive, against the f32 truth on the card
-   (plain blocks in f32), where both its bf16 paths must lie within
-   SCORE_BAND, and against the plain path within LX_PAIR_BAND; its two routes
-   against each other within SCORE_BAND; each model against its f32 plain
-   path on the CPU for a few pairs.
+   seed 0): ImageBERT-A (12 x 768); LXMERT (9/5/5 x 768) on its default
+   route, with ``KMR_DUAL_CROSS=1`` and with ``KMR_FUSED_LAYER=1``;
+   ImageBERT-B (12 x 768, S=30, AM head) on its default route and with
+   ``KMR_FUSED_LAYER=1``, and ImageBERT-C (B with the sen2forest query
+   rewrite). Every launch counter is set to 0 just before each of the seven
+   runs and read just after it, and must show exactly the launches that path
+   makes. ImageBERT-A's scores are held against the plain path on the card
+   (max |d score| <= SCORE_BAND). LXMERT's and ImageBERT-B's, whose heads make
+   them more sensitive, are held against the f32 truth on the card (plain
+   blocks in f32): both bf16 paths (kernels, plain) within SCORE_BAND of it
+   (ImageBERT-B, whose AM head has a slope up to 7.5: at the 99th percentile,
+   and within B_WORST_BAND at the worst pair), and within 2 * SCORE_BAND of
+   each other; each model's other routes against its default route within
+   SCORE_BAND (the fused layer rounds as the two blocks do, so it is also
+   reported whether they are bit-equal); ImageBERT-C equal to ImageBERT-B bit
+   for bit on every row without the rewrite's trigger; each model against its
+   f32 plain path on the CPU for a few pairs.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -56,6 +68,8 @@ HBM_BYTES_PER_S = 3.35e12
 CHECK_B, MAIN_B, S, H, N, I = 256, 512, 40, 768, 12, 3072
 LX_F, LX_T = 23, 10  # LXMERT's lang and visn stream lengths
 LX_DEPTHS = (9, 5, 5)  # l_layers, r_layers, x_layers
+B_S = 30  # ImageBERT-B/C's sequence: 20 query + 10 image tokens
+CONV_BLOCKS = 48  # [H, H] blocks of the 8x8 label-conv band inside the kernel's reach
 # bf16 outputs: |d| <= CARD_ATOL + CARD_RTOL * |plain| elementwise, i.e. two bf16 ulps of the
 # plain value (2^-6 relative) above a 1.6e-2 floor: kernel and plain version round the same
 # intermediates, but their long sums run in another order, which can flip one bf16 rounding
@@ -68,6 +82,14 @@ SCORE_BAND = 1e-2  # kernel path vs plain path, scores on the card
 # plain) is held to the f32 truth on the card within SCORE_BAND; two such paths then lie
 # within 2 * SCORE_BAND of each other, the band of the kernel-vs-plain check there
 LX_PAIR_BAND = 2 * SCORE_BAND
+# LXMERT's routes: the environment flags each run sets
+LX_ROUTES = {"lxmert": {}, "lxmert_dual_cross": {"KMR_DUAL_CROSS": True},
+             "lxmert_fused_layer": {"KMR_FUSED_LAYER": True}}
+# ImageBERT-B: its AM head (scale 30) turns the cosine gap into a score with a slope up to 7.5, and
+# random-init scores spread over ~[0.46, 0.79]; both its bf16 paths (kernels, plain) lie equally far from
+# the f32 truth (mean |d| 2.4e-3, worst of 2048 pairs 1.1e-2 and 9.8e-3). Each path is held to the truth
+# within SCORE_BAND at the 99th percentile and within B_WORST_BAND at its worst pair
+B_WORST_BAND = 2 * SCORE_BAND
 CPU_SCORE_BAND = 5e-2  # bf16 kernels vs the f32 plain path on the CPU
 N_ROWS, SEED = 2048, 0
 
@@ -117,23 +139,29 @@ def launch_counters() -> tuple:
     k = import_module(f"{PKG}.ops.kernels")
     blocks = [
         getattr(import_module(f"{PKG}.ops.{mod}"), mod)
-        for mod in ("attention_block", "ffn_block", "cross_attention_block", "dual_cross_attention_block")
+        for mod in ("attention_block", "ffn_block", "cross_attention_block", "dual_cross_attention_block",
+                    "encoder_layer")
     ]
     return (*k.WRAPPERS, *blocks)
 
 
+ROUTE_FLAGS = ("KMR_DUAL_CROSS", "KMR_FUSED_LAYER")
+
+
 @contextlib.contextmanager
-def dual_cross(on: bool):
-    """KMR_DUAL_CROSS=1 inside the block when ``on``, unset inside otherwise
-    and after it either way."""
-    if on:
-        os.environ["KMR_DUAL_CROSS"] = "1"
-    else:
-        os.environ.pop("KMR_DUAL_CROSS", None)
+def route(**flags: bool):
+    """Each of ROUTE_FLAGS set to 1 inside the block if named true, unset
+    inside otherwise, and unset after it either way."""
+    for name in ROUTE_FLAGS:
+        if flags.get(name):
+            os.environ[name] = "1"
+        else:
+            os.environ.pop(name, None)
     try:
         yield
     finally:
-        os.environ.pop("KMR_DUAL_CROSS", None)
+        for name in ROUTE_FLAGS:
+            os.environ.pop(name, None)
 
 
 class Smoke:
@@ -433,6 +461,130 @@ class Smoke:
                       PEAK_BF16_FLOPS)
         return rows
 
+    # ---- phase 2, ImageBERT-B/C: the fused encoder layer and the label conv -------
+
+    def key_bias(self, b: int, s: int):
+        """Seeded key-mask rows [b, s] as each model makes them, or None (S=40:
+        ImageBERT-A masks nothing). S=30: ImageBERT-B's query lengths 2..20 and
+        box counts 0..10, every fourth pair with no box, so all its keys past
+        the query are masked; S=23/10: LXMERT's lang lengths 3..23 and visn box
+        counts 0..10 (pair 0 with none)."""
+        from importlib import import_module
+
+        torch = self.torch
+        att = import_module(f"{PKG}.ops.attention")
+        if s == S:
+            return None
+        if s == B_S:
+            nq = torch.randint(2, 21, (b,), generator=self.gen)
+            nb = torch.randint(0, 11, (b,), generator=self.gen)
+            nb[::4] = 0
+            keep = torch.cat([torch.arange(20)[None] < nq[:, None], torch.arange(10)[None] < nb[:, None]], dim=1)
+        else:
+            n = torch.randint(3 if s == LX_F else 0, s + 1, (b,), generator=self.gen)
+            n[0] = s if s == LX_F else 0
+            keep = torch.arange(s)[None] < n[:, None]
+        return att.mask_to_bias(keep.float()).to(self.dev)
+
+    def layer_args(self, w):
+        """The 12 weights of encoder_layer (LN2 with its own gamma and beta)."""
+        g2, be2 = 1.0 + self.randn(H, scale=0.1), self.randn(H, scale=0.1)
+        return [w[n] for n in ("wqkv", "bqkv", "wo", "bo", "gamma", "beta", "w1", "b1", "w2", "b2")] + [g2, be2]
+
+    def label_band(self, dtype=None):
+        """The label conv's banded weight [8H, 8H] from seeded taps (0.02), and its tiled bias."""
+        from importlib import import_module
+
+        ib = import_module(f"{PKG}.models.imagebert_b")
+        band = ib.label_conv_band(0.02 * self.torch.randn(8, H, H, generator=self.gen),
+                                  0.02 * self.torch.randn(H, generator=self.gen))
+        return band["kernel"].to(self.dev, dtype or self.torch.bfloat16), band["bias"].to(self.dev)
+
+    def check_layer_kernels(self, w) -> None:
+        """layer_tail and encoder_layer against their plain versions at the four
+        lengths (S=40 no mask, tanh; S=30 ImageBERT-B masks, tanh; S=23 and 10
+        LXMERT masks, erf), and the "f32" epilogue at the label conv's shape."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        el = import_module(f"{PKG}.ops.encoder_layer")
+        torch = self.torch
+        b = CHECK_B
+        lw = self.layer_args(w)
+        for s, tanh in ((S, True), (B_S, True), (LX_F, False), (LX_T, False)):
+            label = f"S={s}, {'key mask' if s != S else 'no mask'}, gelu {'tanh' if tanh else 'erf'}"
+            x = self.randn(b, s, H, dtype=torch.bfloat16)
+            bias = self.key_bias(b, s)
+            self.check(f"encoder_layer [{label}]", "encoder_layer", el.encoder_layer(x, *lw, N, bias, tanh),
+                       el.encoder_layer_plain(x, *lw, N, bias, tanh), CARD_ATOL, CARD_RTOL)
+            ctx, x2d = self.randn(b * s, H, dtype=torch.bfloat16), x.reshape(b * s, H)
+            self.check(f"layer_tail [{label}]", "layer_tail", k.layer_tail(ctx, x2d, *lw[2:], tanh),
+                       k.layer_tail_plain(ctx, x2d, *lw[2:], tanh), CARD_ATOL, CARD_RTOL)
+        band, bias = self.label_band()
+        a = self.randn(b * 10, 8 * H, dtype=torch.bfloat16)
+        self.check("gemm label conv [f32]", "gemm_bf16", k.gemm(a, band, bias, "f32"),
+                   k.gemm_plain(a, band, bias, "f32"), F32_OUT_BAND)
+
+    def time_layer_kernels(self, w) -> dict[str, dict]:
+        """At ImageBERT-B's batch (B=512, S=30, its key masks): layer_tail,
+        encoder_layer and the label conv's product, each kernel / plain /
+        library / bound and held against its plain version once more; and the
+        two blocks at S=30, for the model's time breakdown."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        ab = import_module(f"{PKG}.ops.attention_block")
+        fb = import_module(f"{PKG}.ops.ffn_block")
+        el = import_module(f"{PKG}.ops.encoder_layer")
+        torch = self.torch
+        F = torch.nn.functional
+        b, s = MAIN_B, B_S
+        m = b * s
+        lw = self.layer_args(w)
+        x, bias = self.randn(b, s, H, dtype=torch.bfloat16), self.key_bias(b, s)
+        x2d, ctx = x.reshape(m, H), self.randn(m, H, dtype=torch.bfloat16)
+        rows = {}
+        tail_flops = 2.0 * m * H * H + 4.0 * m * H * I
+        layer_flops = 2.0 * m * H * 3 * H + 4.0 * b * N * s * s * 64 + tail_flops
+        y = self.randn(m, H)
+
+        def tail_lib():  # its launches' library calls: 3 matmuls, GELU, 2 LayerNorms
+            a = F.layer_norm(torch.matmul(ctx, lw[2]).float() + y, (H,), lw[4], lw[5], 1e-12).to(torch.bfloat16)
+            hmid = F.gelu(torch.matmul(a, lw[6]), approximate="tanh")
+            return F.layer_norm(torch.matmul(hmid, lw[8]).float() + y, (H,), lw[10], lw[11], 1e-12)
+
+        self.time_row(rows, f"layer_tail S={s}", "layer_tail", lambda: k.layer_tail(ctx, x2d, *lw[2:]),
+                      lambda: k.layer_tail_plain(ctx, x2d, *lw[2:]), tail_lib,
+                      3 * m * H * 2 + nbytes_of(lw[2:]), tail_flops, PEAK_BF16_FLOPS)
+        # the library yardstick of the whole layer: one PyTorch call, erf GELU and a boolean key mask
+        # (time only: it differs from the port in GELU, mask form and rounding points)
+        ref_layer = torch.nn.TransformerEncoderLayer(
+            H, N, I, dropout=0.0, activation="gelu", batch_first=True, norm_first=False, layer_norm_eps=1e-12,
+        ).to(self.dev, torch.bfloat16).eval()
+        pad = bias < 0
+
+        def layer_lib():
+            with torch.inference_mode():
+                return ref_layer(x, src_key_padding_mask=pad)
+
+        self.time_row(rows, f"encoder_layer S={s}", "encoder_layer", lambda: el.encoder_layer(x, *lw, N, bias),
+                      lambda: el.encoder_layer_plain(x, *lw, N, bias), layer_lib,
+                      2 * m * H * 2 + nbytes_of((bias, *lw)), layer_flops, PEAK_BF16_FLOPS)
+        aw, fw = lw[:6], lw[6:]
+        self.time_row(rows, f"attention_block S={s}", "attention_block", lambda: ab.attention_block(x, *aw, N, bias),
+                      lambda: ab.attention_block_plain(x, *aw, N, bias), None, 2 * m * H * 2 + nbytes_of((bias, *aw)),
+                      2.0 * m * H * 3 * H + 4.0 * b * N * s * s * 64 + 2.0 * m * H * H, PEAK_BF16_FLOPS)
+        self.time_row(rows, f"ffn_block S={s}", "ffn_block", lambda: fb.ffn_block(x, *fw), lambda: fb.ffn_block_plain(x, *fw),
+                      None, 2 * m * H * 2 + nbytes_of(fw), 4.0 * m * H * I, PEAK_BF16_FLOPS)
+        band, cbias = self.label_band()
+        a = self.randn(b * 10, 8 * H, dtype=torch.bfloat16)
+        # the conv needs 48 of the band's 64 [H, H] blocks (each output sees the taps inside the kernel)
+        self.time_row(rows, "gemm_bf16 label conv [f32]", "gemm_bf16", lambda: k.gemm(a, band, cbias, "f32"),
+                      lambda: k.gemm_plain(a, band, cbias, "f32"), lambda: torch.matmul(a, band),
+                      nbytes_of((a, band, cbias)) + b * 10 * 8 * H * 4, 2.0 * b * 10 * H * H * CONV_BLOCKS,
+                      PEAK_BF16_FLOPS, F32_OUT_BAND, 0.0)
+        return rows
+
     # ---- phase 3: the main path ----------------------------------------------
 
     def score_main_path(self) -> tuple[dict, dict]:
@@ -529,8 +681,9 @@ class Smoke:
         return launches, stats.batches, rates
 
     def score_lxmert(self) -> tuple[dict[str, dict], int, dict]:
-        """LXMERT at full width through ScoringEngine, on its default route
-        and with KMR_DUAL_CROSS=1; the launch counters around each run."""
+        """LXMERT at full width through ScoringEngine, on its default route,
+        with KMR_DUAL_CROSS=1 and with KMR_FUSED_LAYER=1; the launch counters
+        around each run."""
         from importlib import import_module
 
         import numpy as np
@@ -563,27 +716,28 @@ class Smoke:
         log(f"setup: {N_ROWS}-row TSV and LXMERT {LX_DEPTHS}x{H} params in {time.perf_counter() - t0:.1f} s")
 
         batches = list(data.batches_from_files([tsv], featurizer.lxmert, MAIN_B))
-        os.environ.pop("KMR_DUAL_CROSS", None)
-        engine.score_batch(batches[0])  # warm-up
+        for flags in LX_ROUTES.values():  # warm-up of every route
+            with route(**flags):
+                engine.score_batch(batches[0])
         torch.cuda.synchronize()
 
         launches, results, rates = {}, {}, {}
         counted = launch_counters()
-        for route, dual in (("lxmert", False), ("lxmert_dual_cross", True)):
-            with dual_cross(dual):
+        for run, flags in LX_ROUTES.items():
+            with route(**flags):
                 for w in counted:
                     w.launches = 0
                 stats = engine_mod.ScoringStats()
-                results[route] = engine.score_files([tsv], featurizer, MAIN_B, stats=stats)
+                results[run] = engine.score_files([tsv], featurizer, MAIN_B, stats=stats)
                 torch.cuda.synchronize()
-                launches[route] = {w.__name__: w.launches for w in counted}
-            log(f"main path {route}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
+                launches[run] = {w.__name__: w.launches for w in counted}
+            log(f"main path {run}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
                 f"{stats.pairs_per_second:.1f} pairs/s end to end (host parse + featurize included)")
-            log(f"launches {route}: {json.dumps(launches[route])}")
+            log(f"launches {run}: {json.dumps(launches[run])}")
             if stats.pairs != N_ROWS:
-                raise RuntimeError(f"{route} scored {stats.pairs} pairs, expected {N_ROWS}")
-            rates[route] = {"pairs": stats.pairs, "seconds": stats.seconds,
-                            "pairs_per_second": stats.pairs_per_second}
+                raise RuntimeError(f"{run} scored {stats.pairs} pairs, expected {N_ROWS}")
+            rates[run] = {"pairs": stats.pairs, "seconds": stats.seconds,
+                          "pairs_per_second": stats.pairs_per_second}
 
         staged = [engine.to_device(bt) for bt in batches]
 
@@ -593,13 +747,13 @@ class Smoke:
         n_pad = len(batches) * MAIN_B
         scores = {}
         with torch.inference_mode():
-            for route, dual in (("lxmert", False), ("lxmert_dual_cross", True)):
-                with dual_cross(dual):
+            for run, flags in LX_ROUTES.items():
+                with route(**flags):
                     dev_ms = cuda_ms(torch, lambda: run_all(models.KERNEL_BLOCKS), iters=3, warmup=1)
-                    scores[route] = torch.cat(run_all(models.KERNEL_BLOCKS)).float().cpu()
-                rates[route].update(device_ms=dev_ms, device_pairs=n_pad,
-                                    device_pairs_per_second=n_pad / dev_ms * 1e3)
-                log(f"device {route}: model alone {dev_ms:.3f} ms for {n_pad} padded pairs = "
+                    scores[run] = torch.cat(run_all(models.KERNEL_BLOCKS)).float().cpu()
+                rates[run].update(device_ms=dev_ms, device_pairs=n_pad,
+                                  device_pairs_per_second=n_pad / dev_ms * 1e3)
+                log(f"device {run}: model alone {dev_ms:.3f} ms for {n_pad} padded pairs = "
                     f"{n_pad / dev_ms * 1e3:.1f} pairs/s")
             plain_dev_ms = cuda_ms(torch, lambda: run_all(models.PLAIN_BLOCKS), iters=1, warmup=1)
             plain = torch.cat(run_all(models.PLAIN_BLOCKS)).float().cpu()
@@ -609,30 +763,34 @@ class Smoke:
                                for bt in staged]).float().cpu()
             del params32
         valid = torch.from_numpy(np.concatenate([bt["valid"] for bt in batches]))
-        kern, dual, plain, ref32 = (scores["lxmert"][valid], scores["lxmert_dual_cross"][valid], plain[valid],
-                                    ref32[valid])
+        kern, dual, fused, plain, ref32 = (scores["lxmert"][valid], scores["lxmert_dual_cross"][valid],
+                                           scores["lxmert_fused_layer"][valid], plain[valid], ref32[valid])
         spread = {}
-        for label, a, b_ in (("kernel-plain", kern, plain), ("kernel-f32", kern, ref32), ("plain-f32", plain, ref32)):
+        for label, a, b_ in (("kernel-plain", kern, plain), ("kernel-f32", kern, ref32), ("plain-f32", plain, ref32),
+                             ("fused-default", fused, kern), ("fused-f32", fused, ref32)):
             d = (a - b_).abs()
             spread[label] = {"max": d.max().item(), "mean": d.mean().item(),
                              "p99": d.quantile(0.99).item(), "p50": d.quantile(0.5).item()}
         log(f"scores lxmert |d| spread (f32 = plain blocks in f32 on the card): {json.dumps(spread)}")
-        if not bool(torch.isfinite(kern).all()) or kern.shape != (N_ROWS,) or not bool(torch.isfinite(dual).all()):
+        if not all(bool(torch.isfinite(t).all()) and t.shape == (N_ROWS,) for t in (kern, dual, fused)):
             raise RuntimeError("LXMERT kernel-path scores are not finite or of the wrong shape")
         d_score, d_route = spread["kernel-plain"]["max"], (dual - kern).abs().max().item()
+        d_fused = spread["fused-default"]["max"]
         d_truth = max(spread["kernel-f32"]["max"], spread["plain-f32"]["max"])
         d_engine = max(
-            (torch.tensor([results[route][str(q)][str(p)] for bt in batches
+            (torch.tensor([results[run][str(q)][str(p)] for bt in batches
                            for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]) - s).abs().max().item()
-            for route, s in (("lxmert", kern), ("lxmert_dual_cross", dual))
+            for run, s in (("lxmert", kern), ("lxmert_dual_cross", dual), ("lxmert_fused_layer", fused))
         )
         same_rank, n_q = self.ranking_agreement(batches, kern, plain)
         log(f"scores lxmert: range [{kern.min().item():.5f}, {kern.max().item():.5f}], max |d| of each bf16 "
             f"path vs the f32 truth on the card = {d_truth:.6g} (band {SCORE_BAND:g}), kernel vs plain = "
             f"{d_score:.6g} (band {LX_PAIR_BAND:g}; plain path {plain_dev_ms:.3f} ms), dual-cross route vs "
-            f"default = {d_route:.6g} (band {SCORE_BAND:g}), engine vs staged = {d_engine:.3g}, identical "
-            f"per-query ranking in {same_rank}/{n_q} queries")
-        if d_truth > SCORE_BAND or d_score > LX_PAIR_BAND or d_route > SCORE_BAND or d_engine > 1e-6:
+            f"default = {d_route:.6g} (band {SCORE_BAND:g}), fused-layer route vs default = {d_fused:.6g} (band "
+            f"{SCORE_BAND:g}; bit-equal: {bool(torch.equal(fused, kern))}), engine vs staged = {d_engine:.3g}, identical per-query ranking in {same_rank}/{n_q} "
+            f"queries")
+        if (d_truth > SCORE_BAND or d_score > LX_PAIR_BAND or d_route > SCORE_BAND or d_fused > SCORE_BAND
+                or d_engine > 1e-6):
             raise RuntimeError("LXMERT scores disagree with the f32 truth, the plain path or across routes")
 
         small = {key: val[:8].cpu() for key, val in staged[0].items()}
@@ -644,9 +802,166 @@ class Smoke:
         if not d_cpu <= CPU_SCORE_BAND:
             raise RuntimeError("LXMERT kernel-path scores disagree with the f32 CPU reference")
         rates["lxmert"].update(plain_device_ms=plain_dev_ms, max_abs_score_err=d_score, score_spread=spread,
-                               max_abs_score_err_dual_vs_default=d_route, max_abs_score_err_vs_cpu_f32=d_cpu,
+                               max_abs_score_err_dual_vs_default=d_route,
+                               max_abs_score_err_fused_vs_default=d_fused, max_abs_score_err_vs_cpu_f32=d_cpu,
                                identical_rankings=[same_rank, n_q])
         return launches, len(batches), rates
+
+    def score_imagebert_b(self) -> tuple[dict[str, dict], int, dict]:
+        """ImageBERT-B at full width through ScoringEngine on its default route
+        and with KMR_FUSED_LAYER=1, then ImageBERT-C (the sen2forest rewrite) on
+        the same weights; the launch counters around each run. Scores: each
+        bf16 path (kernels, plain) against the f32 truth on the card, the two
+        routes against each other, C against B (bit for bit off the trigger
+        rows), a few pairs against the f32 plain path on the CPU."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        tsv_mod = import_module(f"{PKG}.data.tsv")
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        models = import_module(f"{PKG}.models")
+        heads = import_module(f"{PKG}.models.heads")
+        imagebert_b = import_module(f"{PKG}.models.imagebert_b")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        tok = import_module(f"{PKG}.tokenization")
+
+        work = pkg.BUILD_DIR / "smoke"
+        work.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        lines = synthetic.make_tsv(N_ROWS, seed=SEED)
+        tsv = work / "pairs_imagebert_b.tsv"
+        tsv.write_text("\n".join(lines) + "\n")
+        labels = work / "labels.txt"
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        trigger = torch.tensor([tsv_mod.SEN2FOREST_SRC in tsv_mod.parse_line(line).query
+                                for line in lines if not tsv_mod.is_header(line)])
+        spec_b, spec_c = models.get_model("imagebert_b"), models.get_model("imagebert_c")
+        cfg = spec_b.config
+        if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads) != (H, 12, N):
+            raise RuntimeError(f"not the full-width config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
+        params = spec_b.init_params(SEED)
+        bf16 = models.Precision.bf16()
+        engines = {"imagebert_b": engine_mod.ScoringEngine(spec_b, params, device=self.dev, precision=bf16),
+                   "imagebert_c": engine_mod.ScoringEngine(spec_c, params, device=self.dev, precision=bf16)}
+        google = tok.FullTokenizer.google_style(pkg.VOCAB_PATH)
+        label_texts = data.load_multimodal_labels(labels)
+        featurizers = {"imagebert_b": data.Featurizer(google, label_texts),
+                       "imagebert_c": data.Featurizer(google, label_texts, sen2forest=True)}
+        log(f"setup: {N_ROWS}-row TSV ({int(trigger.sum())} with the sen2forest trigger) and ImageBERT-B "
+            f"{cfg.num_hidden_layers}x{cfg.hidden_size} params in {time.perf_counter() - t0:.1f} s")
+
+        batches = {name: list(data.batches_from_files([tsv], fz.imagebert_b, MAIN_B)) for name, fz in featurizers.items()}
+        engine = engines["imagebert_b"]
+        for fused in (False, True):  # warm-up of both routes
+            with route(KMR_FUSED_LAYER=fused):
+                engine.score_batch(batches["imagebert_b"][0])
+        torch.cuda.synchronize()
+
+        launches, results, rates = {}, {}, {}
+        counted = launch_counters()
+        for run, model, fused in (("imagebert_b", "imagebert_b", False), ("imagebert_b_fused_layer", "imagebert_b", True),
+                                  ("imagebert_c", "imagebert_c", False)):
+            with route(KMR_FUSED_LAYER=fused):
+                for w in counted:
+                    w.launches = 0
+                stats = engine_mod.ScoringStats()
+                results[run] = engines[model].score_files([tsv], featurizers[model], MAIN_B, stats=stats)
+                torch.cuda.synchronize()
+                launches[run] = {w.__name__: w.launches for w in counted}
+            log(f"main path {run}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
+                f"{stats.pairs_per_second:.1f} pairs/s end to end (host parse + featurize included)")
+            log(f"launches {run}: {json.dumps(launches[run])}")
+            if stats.pairs != N_ROWS:
+                raise RuntimeError(f"{run} scored {stats.pairs} pairs, expected {N_ROWS}")
+            rates[run] = {"pairs": stats.pairs, "seconds": stats.seconds, "pairs_per_second": stats.pairs_per_second}
+
+        staged = {name: [engine.to_device(bt) for bt in bts] for name, bts in batches.items()}
+        n_pad = len(batches["imagebert_b"]) * MAIN_B
+
+        def run_all(model, blocks, p=engine.params, prec=bf16, out="score"):
+            return torch.cat([imagebert_b.apply(p, bt, cfg, prec, blocks)[out] for bt in staged[model]]).float()
+
+        scores = {}
+        with torch.inference_mode():
+            for run, model, fused in (("imagebert_b", "imagebert_b", False),
+                                      ("imagebert_b_fused_layer", "imagebert_b", True),
+                                      ("imagebert_c", "imagebert_c", False)):
+                with route(KMR_FUSED_LAYER=fused):
+                    dev_ms = cuda_ms(torch, lambda: run_all(model, models.KERNEL_BLOCKS), iters=3, warmup=1)
+                    scores[run] = run_all(model, models.KERNEL_BLOCKS).cpu()
+                rates[run].update(device_ms=dev_ms, device_pairs=n_pad, device_pairs_per_second=n_pad / dev_ms * 1e3)
+                log(f"device {run}: model alone {dev_ms:.3f} ms for {n_pad} padded pairs = "
+                    f"{n_pad / dev_ms * 1e3:.1f} pairs/s")
+            plain_dev_ms = cuda_ms(torch, lambda: run_all("imagebert_b", models.PLAIN_BLOCKS), iters=1, warmup=1)
+            plain = run_all("imagebert_b", models.PLAIN_BLOCKS).cpu()
+            # the f32 truth on the card: plain blocks and plain label-conv product, f32 weights and activations
+            params32 = import_module(f"{PKG}.checkpoint").tree_to(params, self.dev)
+            f32 = models.Precision.f32()
+            ref32 = run_all("imagebert_b", models.PLAIN_BLOCKS, params32, f32).cpu()
+            pooled32 = run_all("imagebert_b", models.PLAIN_BLOCKS, params32, f32, "pooled")
+            cos32 = heads.am_cosines(params32["cls"]["seq_relationship"], pooled32)[:, 1].cpu()  # the fed label's class
+            del params32, pooled32
+        valid = torch.from_numpy(np.concatenate([bt["valid"] for bt in batches["imagebert_b"]]))
+        kern, fused, c_scores, plain, ref32, cos32 = (t[valid] for t in (
+            scores["imagebert_b"], scores["imagebert_b_fused_layer"], scores["imagebert_c"], plain, ref32, cos32))
+        for name, t in (("kernel", kern), ("fused", fused), ("imagebert_c", c_scores)):
+            if not bool(torch.isfinite(t).all()) or t.shape != (N_ROWS,):
+                raise RuntimeError(f"ImageBERT-B {name} scores are not finite or of the wrong shape")
+        # pairs whose f32 cos for the fed class is within 1e-3 of the margin can flip the margin on a
+        # rounding: left out of the bands and counted
+        near = (cos32 - heads.AM_MARGIN).abs() < 1e-3
+        keep = ~near
+        spread = {}
+        for label, a, b_ in (("kernel-plain", kern, plain), ("kernel-f32", kern, ref32), ("plain-f32", plain, ref32),
+                             ("fused-default", fused, kern), ("fused-f32", fused, ref32)):
+            d = (a - b_)[keep].abs()
+            spread[label] = {"max": d.max().item(), "mean": d.mean().item(), "p99": d.quantile(0.99).item()}
+        log(f"scores imagebert_b |d| spread (f32 = plain blocks in f32 on the card): {json.dumps(spread)}")
+        d_truth = max(spread["kernel-f32"]["max"], spread["plain-f32"]["max"])
+        p99_truth = max(spread["kernel-f32"]["p99"], spread["plain-f32"]["p99"])
+        d_pair, d_route = spread["kernel-plain"]["max"], spread["fused-default"]["max"]
+        off = ~trigger
+        c_equal = bool(torch.equal(c_scores[off], kern[off]))
+        c_moved = int((c_scores[trigger] != kern[trigger]).sum())
+        d_engine = max(
+            (torch.tensor([results[run][str(q)][str(p)] for bt in batches["imagebert_b"]
+                           for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]) - t).abs().max().item()
+            for run, t in (("imagebert_b", kern), ("imagebert_b_fused_layer", fused), ("imagebert_c", c_scores))
+        )
+        same_rank, n_q = self.ranking_agreement(batches["imagebert_b"], kern, plain)
+        log(f"scores imagebert_b: range [{kern.min().item():.5f}, {kern.max().item():.5f}], f32 cos of the fed class "
+            f"in [{cos32.min().item():.4f}, {cos32.max().item():.4f}], {int(near.sum())} pairs within 1e-3 of the "
+            f"{heads.AM_MARGIN} margin left out; |d| of each bf16 path vs the f32 truth: p99 {p99_truth:.6g} "
+            f"(band {SCORE_BAND:g}), max {d_truth:.6g} (band {B_WORST_BAND:g}); kernel vs plain = {d_pair:.6g} "
+            f"(band {2 * SCORE_BAND:g}; plain path "
+            f"{plain_dev_ms:.3f} ms), fused route vs default = {d_route:.6g} (band {SCORE_BAND:g}; bit-equal: "
+            f"{bool(torch.equal(fused, kern))}), engine vs "
+            f"staged = {d_engine:.3g}, identical per-query ranking in {same_rank}/{n_q} queries")
+        log(f"scores imagebert_c: equal to imagebert_b bit for bit on all {int(off.sum())} rows without the trigger: "
+            f"{c_equal}; {c_moved} of {int(trigger.sum())} trigger rows differ")
+        if (p99_truth > SCORE_BAND or d_truth > B_WORST_BAND or d_pair > 2 * SCORE_BAND or d_route > SCORE_BAND
+                or d_engine > 1e-6):
+            raise RuntimeError("ImageBERT-B scores disagree with the f32 truth, the plain path or across routes")
+        if not c_equal or c_moved == 0:
+            raise RuntimeError("ImageBERT-C is not ImageBERT-B plus the sen2forest rewrite")
+
+        small = {key: val[:8].cpu() for key, val in staged["imagebert_b"][0].items()}
+        with torch.inference_mode():
+            ref = imagebert_b.score(params, small, cfg, models.Precision.f32())
+        d_cpu = (kern[:8] - ref).abs().max().item()
+        log(f"scores imagebert_b: max |d| bf16 kernels vs f32 plain on the CPU, 8 pairs = {d_cpu:.6g} "
+            f"(band {CPU_SCORE_BAND:g})")
+        if not d_cpu <= CPU_SCORE_BAND:
+            raise RuntimeError("ImageBERT-B kernel-path scores disagree with the f32 CPU reference")
+        rates["imagebert_b"].update(plain_device_ms=plain_dev_ms, score_spread=spread, near_margin_pairs=int(near.sum()),
+                                    max_abs_score_err_vs_cpu_f32=d_cpu, identical_rankings=[same_rank, n_q])
+        rates["imagebert_c"].update(equal_off_trigger=c_equal, trigger_rows=int(trigger.sum()),
+                                    trigger_rows_moved=c_moved)
+        return launches, len(batches["imagebert_b"]), rates
 
     @staticmethod
     def ranking_agreement(batches, kern, plain) -> tuple[int, int]:
@@ -663,6 +978,7 @@ class Smoke:
 
 PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
 PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
+PER_B = f"one ImageBERT-B layer at B={MAIN_B}, S={B_S} (fused route)"
 KERNELS = [
     # name, source, TPU kernel it replaces, the rows of time_kernels() / time_lxmert_kernels()
     # that make up one layer's launches, and which layer that is
@@ -682,7 +998,14 @@ KERNELS = [
      ["attn_core_dual"], PER_X),
     ("layernorm", f"{PKG}/csrc/layernorm.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:237",
      ["layernorm", "layernorm"], PER_A),
+    ("encoder_layer", f"{PKG}/ops/encoder_layer.py", f"{TPU_PKG_DIR}/ops/pallas_layer.py:128",
+     [f"encoder_layer S={B_S}"], PER_B),
+    ("layer_tail", f"{PKG}/csrc/layer_tail.cu", f"{TPU_PKG_DIR}/ops/pallas_layer.py:84",
+     [f"layer_tail S={B_S}"], PER_B),
 ]
+# the GEMM's "f32" epilogue (ImageBERT-B's banded label conv, one launch a batch) rides in the
+# gemm_bf16 entry under this key, timed alone at B=512
+F32_EPILOGUE_ROW = "gemm_bf16 label conv [f32]"
 LAUNCH_KEY = {"gemm_bf16": "gemm"}
 
 
@@ -709,6 +1032,9 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
             "library_ms": None if None in lib else sum(lib),
             "per": f"{len(rows)} launch(es) of {per}",
         })
+        if name == "gemm_bf16":
+            out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
+                                       f"512-pair ImageBERT-B batch"}
     return {"kernels": out}
 
 
@@ -731,6 +1057,24 @@ def lxmert_breakdown(times: dict, rates: dict, n_batches: int) -> dict:
     return out
 
 
+def imagebert_b_breakdown(times: dict, rates: dict, n_batches: int) -> dict:
+    """One 512-pair ImageBERT-B batch on the device, on each route: the layers,
+    from their launches timed alone at the model's shapes, the label conv's
+    product, and the rest of the measured model time (embeddings, the other
+    denses, pooler, AM head, gaps)."""
+    out = {}
+    for run, parts in (("imagebert_b", {"attention_blocks": f"attention_block S={B_S}",
+                                        "ffn_blocks": f"ffn_block S={B_S}"}),
+                       ("imagebert_b_fused_layer", {"encoder_layers": f"encoder_layer S={B_S}"})):
+        r = {part: 12 * times[row]["ms"] for part, row in parts.items()}
+        r["label_conv"] = times[F32_EPILOGUE_ROW]["ms"]
+        model = rates[run]["device_ms"] / n_batches
+        r["rest"] = model - sum(r.values())
+        r["model"] = model
+        out[run] = r
+    return out
+
+
 def expected_launches(n: int, per_batch: dict) -> dict:
     """Every counter's expected launches over n batches; unnamed counters 0."""
     return {w.__name__: n * per_batch.get(w.__name__, 0) for w in launch_counters()}
@@ -745,7 +1089,16 @@ PER_BATCH = {
                "attn_core": 24, "attn_core_cross": 10, "layernorm": 48 + 10},
     "lxmert_dual_cross": {"attention_block": 24, "ffn_block": 24, "dual_cross_attention_block": 5,
                           "gemm": 24 * 4 + 5 * 4, "attn_core": 24, "attn_core_dual": 5, "layernorm": 48 + 10},
+    # KMR_FUSED_LAYER=1: the 14 L/R layers keep their two blocks, the x-layers' 10 stream layers
+    # are one fused layer each (QKV gemm, attn_core, layer_tail)
+    "lxmert_fused_layer": {"attention_block": 14, "ffn_block": 14, "cross_attention_block": 10,
+                           "encoder_layer": 10, "gemm": 14 * 4 + 10 * 3 + 10, "attn_core": 24,
+                           "attn_core_cross": 10, "layer_tail": 10, "layernorm": 28 + 10},
+    # 12 layers and the label conv's gemm ("f32" epilogue); C is B's path on rewritten queries
+    "imagebert_b": {"attention_block": 12, "ffn_block": 12, "gemm": 48 + 1, "attn_core": 12, "layernorm": 24},
+    "imagebert_b_fused_layer": {"encoder_layer": 12, "gemm": 12 + 1, "attn_core": 12, "layer_tail": 12},
 }
+PER_BATCH["imagebert_c"] = PER_BATCH["imagebert_b"]
 
 
 def main() -> int:
@@ -778,10 +1131,12 @@ def main() -> int:
         weights = smoke.layer_weights()
         smoke.check_kernels(weights)
         smoke.check_lxmert_kernels(weights)
+        smoke.check_layer_kernels(weights)
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         times = smoke.time_kernels(weights)
         times.update(smoke.time_lxmert_kernels(weights))
+        times.update(smoke.time_layer_kernels(weights))
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         launches, n_batches, rates = smoke.score_main_path()
@@ -796,7 +1151,14 @@ def main() -> int:
                 raise RuntimeError(f"{route} launches {counts}, expected {expected}")
         log(json.dumps({"end_to_end_lxmert": lx_rates}))
         log(json.dumps({"lxmert_device_ms_per_batch": lxmert_breakdown(times, lx_rates, lx_batches)}))
-        all_launches = {"imagebert_a": launches, **lx_launches}
+        b_launches, b_batches, b_rates = smoke.score_imagebert_b()
+        for run, counts in b_launches.items():
+            expected = expected_launches(b_batches, PER_BATCH[run])
+            if counts != expected or b_batches == 0:
+                raise RuntimeError(f"{run} launches {counts}, expected {expected}")
+        log(json.dumps({"end_to_end_imagebert_b": b_rates}))
+        log(json.dumps({"imagebert_b_device_ms_per_batch": imagebert_b_breakdown(times, b_rates, b_batches)}))
+        all_launches = {"imagebert_a": launches, **lx_launches, **b_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:

@@ -3,11 +3,13 @@
 * ``flatten_tree`` / ``unflatten_tree`` / ``load_npz``: the port's own copy
   of the flat ``a/b/c``-keyed npz interchange of the JAX package
   (``checkpoint/orbax_io.py`` :37-64).
-* ``params_from_jax``: an ImageBERT-A or LXMERT tree of numpy arrays in the
-  JAX layout -> float32 torch tensors, with each attention's query/key/value
-  fused ONCE (``models/core.py:attention_forms``; the JAX package
-  concatenates them on every call, ``models/core.py`` :293-299, :315-316,
-  :400-401).
+* ``params_from_jax``: an ImageBERT-A, ImageBERT-B/C or LXMERT tree of
+  numpy arrays in the JAX layout -> float32 torch tensors, with each
+  attention's query/key/value fused ONCE (``models/core.py:attention_forms``;
+  the JAX package concatenates them on every call, ``models/core.py``
+  :293-299, :315-316, :400-401), and ImageBERT-B's label-conv taps banded
+  ONCE (``models/imagebert_b.py:label_conv_band``; the JAX package builds
+  the band on every call, its ``models/imagebert_b.py`` :91-101).
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
   embedding tables and the heads' f32 weights stay float32.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.core import Params, attention_forms
+from ..models.imagebert_b import label_conv_band
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -60,11 +63,15 @@ def _to_torch(tree):
 
 
 def params_from_jax(tree: dict) -> Params:
-    """JAX ImageBERT-A or LXMERT param tree (numpy leaves) -> the port's
-    float32 params; an LXMERT tree is told by its ``x_layers``.
+    """JAX ImageBERT-A, ImageBERT-B/C or LXMERT param tree (numpy leaves) ->
+    the port's float32 params; an LXMERT tree is told by its ``x_layers``,
+    an ImageBERT-B tree by its ``kdd_conv1``, whose ``weights``/``biases``
+    taps become the banded ``kernel``/``bias`` that ``cast_matmul_weights``
+    casts like any dense (the AM head's ``am_kernel`` stays f32).
 
     Leaves the JAX apply never reads for scoring (the MLM and NSP heads of
-    LXMERT and its AM head's ``logit_W``, ImageBERT-A's MLM head) are dropped."""
+    LXMERT and its AM head's ``logit_W``, the MLM and word-match heads of the
+    ImageBERTs) are dropped."""
     params = _to_torch(tree)
     enc = params["bert"]["encoder"]
     if "x_layers" in enc:
@@ -79,6 +86,9 @@ def params_from_jax(tree: dict) -> Params:
         return {"bert": params["bert"], "logit_fc": params["logit_fc"]}
     enc["attention"] = attention_forms(enc["attention"])
     params["cls"] = {"seq_relationship": params["cls"]["seq_relationship"]}
+    if "kdd_conv1" in params:
+        conv = params["kdd_conv1"]
+        params["kdd_conv1"] = label_conv_band(conv["weights"], conv["biases"])
     return params
 
 

@@ -1,8 +1,13 @@
 """Score query-product TSV pairs with one model of the ensemble (the port of
-the JAX package's ``scripts/score.py``, same flags for ``--model imagebert_a``
-and ``--model lxmert``, same output: ``qid\\tpid\\tscore`` rows for
-ImageBERT-A; for LXMERT, which tokenizes HF-style, a ``query-id,product-id,score``
-CSV). ``KMR_DUAL_CROSS=1`` runs LXMERT's two cross directions as one dual block.
+the JAX package's ``scripts/score.py``, same flags and same output:
+``qid\\tpid\\tscore`` rows for ``--model imagebert_a``, ``imagebert_b`` and
+``imagebert_c``; for ``--model lxmert``, which tokenizes HF-style, a
+``query-id,product-id,score`` CSV). ImageBERT-C is ImageBERT-B with the
+sen2forest query rewrite; ``--delta-from B.tsv`` scores only the rows the
+rewrite changes and copies every other score from ImageBERT-B's file.
+``KMR_DUAL_CROSS=1`` runs LXMERT's two cross directions as one dual block;
+``KMR_FUSED_LAYER=1`` runs each ImageBERT layer, and each LXMERT x-layer's
+self-attention + FFN, as one fused encoder layer.
 
 Runs on the card by default (bf16, through the CUDA kernels); ``--device
 cpu`` runs the plain versions (f32 by default). Example:
@@ -20,13 +25,23 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
+from pathlib import Path
 
 from .. import VOCAB_PATH
 from ..checkpoint import load_npz, params_from_jax
 from ..data import Featurizer, load_multimodal_labels
+from ..data.tsv import SEN2FOREST_SRC, is_header
 from ..eval import evaluate_scores, load_answers
 from ..models import Precision, get_model
-from ..parallel import ScoringEngine, ScoringStats, resolve_device, write_scores_csv, write_scores_tsv
+from ..parallel import (
+    ScoringEngine,
+    ScoringStats,
+    load_tsv_scores,
+    resolve_device,
+    write_scores_csv,
+    write_scores_tsv,
+)
 from ..tokenization import FullTokenizer
 
 
@@ -43,6 +58,24 @@ def load_params(path: str | None, spec):
     if "bert" not in tree:
         raise NotImplementedError("flat TF-variable npz import is not yet ported, see ROADMAP.md")
     return params_from_jax(tree)
+
+
+def rewritten_rows(tsv_paths, out_path) -> tuple[int, int]:
+    """Copy the rows the sen2forest rewrite changes into out_path -> (rows
+    copied, data rows seen). The trigger holds spaces, which the base64
+    columns cannot, so a substring test on the raw line is exact."""
+    matched = tsv_rows = 0
+    with open(out_path, "w", encoding="utf-8") as tmp:
+        for path in tsv_paths:
+            with open(path, "r", encoding="utf-8") as f:
+                for line in f:
+                    if is_header(line) or not line.strip():
+                        continue
+                    tsv_rows += 1
+                    if SEN2FOREST_SRC in line:
+                        tmp.write(line if line.endswith("\n") else line + "\n")
+                        matched += 1
+    return matched, tsv_rows
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -63,24 +96,69 @@ def main(argv: list[str] | None = None) -> None:
                     help="valid_answer.json: report nDCG@5 of this scorer")
     ap.add_argument("--expect-pairs", type=int, default=None,
                     help="fail unless exactly N pairs were scored")
+    ap.add_argument("--delta-from", default=None,
+                    help="ImageBERT-C as a delta: the ImageBERT-B score file of the SAME tsv and "
+                         "checkpoint; only rows containing 'sen department of' are scored, every "
+                         "other score is copied from it. Only with --model imagebert_c.")
     ap.add_argument("--workers", type=int, default=0,
                     help="host loader worker processes; only 0 (a prefetch thread) is ported")
     args = ap.parse_args(argv)
     if args.workers:
         ap.error("--workers > 0 (multi-process loading) is not yet ported, see ROADMAP.md")
+    if args.delta_from is not None and args.model != "imagebert_c":
+        ap.error("--delta-from is only meaningful for --model imagebert_c (C == B + sen2forest rewrite)")
 
     device = resolve_device(args.device)
-    spec = get_model(args.model, overrides=json.loads(args.config_overrides) if args.config_overrides else None)
-    tok = FullTokenizer.hf_style(VOCAB_PATH) if args.model == "lxmert" else FullTokenizer.google_style(VOCAB_PATH)
-    featurizer = Featurizer(tok, load_multimodal_labels(args.labels))
-    params = load_params(args.checkpoint, spec)
-    prec = None if args.precision is None else (Precision.f32() if args.precision == "f32" else Precision.bf16())
-    engine = ScoringEngine(spec, params, device=device, precision=prec)
     stats = ScoringStats()
-    result = engine.score_files(args.tsv, featurizer, args.batch_size, stats=stats)
-    if args.expect_pairs is not None and stats.pairs != args.expect_pairs:
+    tsv_paths = list(args.tsv)
+    delta_base = delta_tmp = None
+    matched = 0
+    if args.delta_from is not None:
+        delta_base = load_tsv_scores(args.delta_from)
+        base_pairs = sum(len(r) for r in delta_base.values())
+        with tempfile.NamedTemporaryFile("w", suffix=".tsv", delete=False, encoding="utf-8") as tmp:
+            delta_tmp = tmp.name
+        matched, tsv_rows = rewritten_rows(tsv_paths, delta_tmp)
+        if base_pairs != tsv_rows:
+            Path(delta_tmp).unlink(missing_ok=True)
+            print(f"ERROR: --delta-from file has {base_pairs} pairs but the tsv has {tsv_rows} rows; "
+                  f"the B score file must come from the SAME tsv", file=sys.stderr)
+            raise SystemExit(4)
+        print(f"[delta] {matched} rewritten rows to rescore; {base_pairs} pairs copied from B", file=sys.stderr)
+        tsv_paths = [delta_tmp]
+
+    try:
+        if delta_base is not None and matched == 0:
+            # no query holds the trigger: C's score file IS B's, bit for bit
+            result = delta_base
+        else:
+            overrides = json.loads(args.config_overrides) if args.config_overrides else None
+            spec = get_model(args.model, overrides=overrides)
+            tok = (FullTokenizer.hf_style(VOCAB_PATH) if args.model == "lxmert"
+                   else FullTokenizer.google_style(VOCAB_PATH))
+            featurizer = Featurizer(tok, load_multimodal_labels(args.labels), sen2forest=spec.sen2forest)
+            params = load_params(args.checkpoint, spec)
+            prec = None if args.precision is None else (
+                Precision.f32() if args.precision == "f32" else Precision.bf16())
+            engine = ScoringEngine(spec, params, device=device, precision=prec)
+            result = engine.score_files(tsv_paths, featurizer, args.batch_size, stats=stats)
+            if delta_base is not None:
+                for qid, row in result.items():
+                    for pid, s in row.items():
+                        if qid not in delta_base or pid not in delta_base[qid]:
+                            print(f"ERROR: rewritten pair ({qid}, {pid}) absent from --delta-from file; "
+                                  f"the B score file must come from the SAME tsv", file=sys.stderr)
+                            raise SystemExit(4)
+                        delta_base[qid][pid] = s
+                result = delta_base
+    finally:
+        if delta_tmp is not None:
+            Path(delta_tmp).unlink(missing_ok=True)
+
+    total_pairs = sum(len(r) for r in result.values()) if delta_base is not None else stats.pairs
+    if args.expect_pairs is not None and total_pairs != args.expect_pairs:
         print(
-            f"ERROR: scored {stats.pairs} pairs, expected {args.expect_pairs} "
+            f"ERROR: scored {total_pairs} pairs, expected {args.expect_pairs} "
             f"({stats.pipeline.errors} parse errors) -- refusing to write a short score file",
             file=sys.stderr,
         )
@@ -90,13 +168,16 @@ def main(argv: list[str] | None = None) -> None:
     if args.answers:
         ndcg = evaluate_scores(result, load_answers(args.answers))
         print(json.dumps({"ndcg_at_5": round(ndcg, 6)}))
-    print(json.dumps({
-        "pairs": stats.pairs,
+    report = {
+        "pairs": total_pairs,
         "pairs_per_second": round(stats.pairs_per_second, 1),
         "parse_errors": stats.pipeline.errors,
         "device": str(device),
         "out": args.out,
-    }))
+    }
+    if delta_base is not None:
+        report["scored_pairs"] = stats.pairs  # rows run through the model
+    print(json.dumps(report))
 
 
 if __name__ == "__main__":

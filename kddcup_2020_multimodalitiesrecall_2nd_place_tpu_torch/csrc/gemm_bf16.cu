@@ -8,6 +8,10 @@
 //   EPI_GELU_ERF  -> bf16(gelu_erf(acc + bias))            FFN up (LXMERT)
 //   EPI_RESIDUAL  -> f32(acc + bias + residual[bf16])      out-proj / FFN down,
 //                                                          ahead of the LayerNorm
+//   EPI_F32       -> f32(acc + bias)                       ImageBERT-B's banded
+//                                                          label conv (bf16 in,
+//                                                          f32 out, the JAX dot's
+//                                                          rounding)
 // These are the rounding points of the Pallas bodies this replaces
 // (ops/pallas_attention.py:200-203 and :228-236, ops/pallas_ffn.py:45-56).
 //
@@ -43,7 +47,7 @@ constexpr int STAGE_BYTES = (A_STAGE + B_STAGE) * 2;
 constexpr int SCRATCH_FLOATS = 16 * 16;              // per warp
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + (THREADS / 32) * SCRATCH_FLOATS * 4;
 
-enum { EPI_BIAS = 0, EPI_GELU_TANH = 1, EPI_GELU_ERF = 2, EPI_RESIDUAL = 3 };
+enum { EPI_BIAS = 0, EPI_GELU_TANH = 1, EPI_GELU_ERF = 2, EPI_RESIDUAL = 3, EPI_F32 = 4 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -156,11 +160,13 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = sc[r * 16 + c0 + e] + bv[e];
         const size_t off = (size_t)grow * N + gcol;
-        if (EPI == EPI_RESIDUAL) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(residual + off);
-          const __nv_bfloat16* rb = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        if (EPI == EPI_RESIDUAL || EPI == EPI_F32) {
+          if (EPI == EPI_RESIDUAL) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(residual + off);
+            const __nv_bfloat16* rb = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rb[e]);
+            for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rb[e]);
+          }
           float* o = reinterpret_cast<float*>(out) + off;
           *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
           *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
@@ -212,6 +218,7 @@ int kmr_gemm_bf16(const void* a, const void* w, const void* bias, const void* re
     case EPI_GELU_TANH: return launch<EPI_GELU_TANH>(a, w, bias, residual, out, M, N, K, s);
     case EPI_GELU_ERF: return launch<EPI_GELU_ERF>(a, w, bias, residual, out, M, N, K, s);
     case EPI_RESIDUAL: return launch<EPI_RESIDUAL>(a, w, bias, residual, out, M, N, K, s);
+    case EPI_F32: return launch<EPI_F32>(a, w, bias, residual, out, M, N, K, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,16 +1,17 @@
 """Featurization of decoded TSV rows into fixed-shape numpy arrays.
 
-Two layouts are ported, both identical to the JAX package's
-``data/featurize.py``:
+The three layouts, each identical to the JAX package's ``data/featurize.py``:
 
 * ImageBERT-A (``imagebert_lds``): 20 query ids + 10 box feature tokens +
   10 label tokens, segment ids over the 20 text positions, and **no**
   padding masks (``pixelmodel.py:189-195`` builds an all-ones mask).
+* ImageBERT-B/C (``imagebert_zk``): 20 query ids + 10 image tokens; segment
+  ids ``[0]*20 + [1]*10``; real length masks from ``len_query``/``num_boxes``
+  (``model_triple.py:198-201``); C also rewrites the query text
+  (``sen2forest``).
 * LXMERT: 23 query ids (+mask), 10x8 label ids (+mask), 4-dim normalised
   boxes, features and a feature mask (``tasks/kdd_data.py:88-108``,
   ``utils.py:23-59``); its queries go through the HF-style tokenizer.
-
-The ImageBERT-B/C layout follows with its models.
 """
 
 from __future__ import annotations
@@ -28,17 +29,25 @@ from .tsv import (
     RawExample,
     pad_1d,
     pad_rows,
+    rewrite_sen2forest,
     row_mask,
 )
 
+SEGMENT_IDS_B = np.array([0] * MAX_QUERY_LEN_AB + [1] * MAX_BOXES, dtype=np.int32)
+
 
 class Featurizer:
-    """Tokenizes queries and box-label texts into the model layouts."""
+    """Tokenizes queries and box-label texts into the model layouts;
+    ``sen2forest`` rewrites every query first (ImageBERT-C)."""
 
-    def __init__(self, tokenizer: FullTokenizer, label_texts: dict[str, str]):
+    def __init__(self, tokenizer: FullTokenizer, label_texts: dict[str, str], sen2forest: bool = False):
         self.tokenizer = tokenizer
         self.label_texts = label_texts
+        self.sen2forest = sen2forest
         self._label_ids_cache: dict[int, list[int]] = {}
+
+    def _query_text(self, ex: RawExample) -> str:
+        return rewrite_sen2forest(ex.query) if self.sen2forest else ex.query
 
     def label_token_ids(self, class_label: int) -> list[int]:
         """WordPiece ids of a box label's text (no [CLS]/[SEP])."""
@@ -64,7 +73,7 @@ class Featurizer:
         return ids, mask, lens
 
     def imagebert_a(self, ex: RawExample, label: int = 0) -> dict[str, np.ndarray]:
-        q_ids = self.tokenizer.encode_query(ex.query)
+        q_ids = self.tokenizer.encode_query(self._query_text(ex))
         return {
             "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_AB).astype(np.int32),
             "segment_ids": np.zeros((MAX_QUERY_LEN_AB,), dtype=np.int32),
@@ -76,8 +85,27 @@ class Featurizer:
             "query_id": np.int64(ex.query_id),
         }
 
+    def imagebert_b(self, ex: RawExample, label: int = 1) -> dict[str, np.ndarray]:
+        """The fed label is 1, as the reference scores testB
+        (``evaluate_normal.py:240-243``); the AM head's margin reads it."""
+        q_ids = self.tokenizer.encode_query(self._query_text(ex))
+        label_ids, _, label_lens = self._label_id_grid(ex)
+        return {
+            "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_AB).astype(np.int32),
+            "len_query": np.int32(len(q_ids)),
+            "num_boxes": np.int32(ex.num_boxes),
+            "segment_ids": SEGMENT_IDS_B.copy(),
+            "boxes": pad_rows(ex.boxes_5(), MAX_BOXES).astype(np.float32),
+            "features": pad_rows(ex.features, MAX_BOXES).astype(np.float32),
+            "label_ids": label_ids,
+            "label_lens": label_lens,
+            "labels": np.int32(label),
+            "product_id": np.int64(ex.product_id),
+            "query_id": np.int64(ex.query_id),
+        }
+
     def lxmert(self, ex: RawExample, label: int = 1) -> dict[str, np.ndarray]:
-        q_ids = self.tokenizer.encode_query(ex.query)
+        q_ids = self.tokenizer.encode_query(self._query_text(ex))
         label_ids, label_mask, _ = self._label_id_grid(ex)
         return {
             "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_L).astype(np.int32),
@@ -93,7 +121,9 @@ class Featurizer:
         }
 
     def for_model(self, name: str) -> Callable[[RawExample], dict[str, np.ndarray]]:
-        layouts = {"imagebert_a": self.imagebert_a, "lxmert": self.lxmert}
+        # imagebert_c is imagebert_b's layout; its rewrite is the sen2forest flag
+        layouts = {"imagebert_a": self.imagebert_a, "imagebert_b": self.imagebert_b,
+                   "imagebert_c": self.imagebert_b, "lxmert": self.lxmert}
         if name not in layouts:
             raise NotImplementedError(
                 f"featurizer layout {name!r} is not yet ported, see ROADMAP.md"

@@ -20,6 +20,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+SEN2FOREST_SRC = "sen department of"
+SEN2FOREST_DST = "forest style"
+
 MAX_QUERY_LEN_AB = 20  # [CLS] + pieces + [SEP], truncated (imagebert A/B/C)
 MAX_QUERY_LEN_L = 23  # lxmert (tasks/kdd_data.py:14)
 MAX_BOXES = 10
@@ -91,6 +94,11 @@ def parse_line(line: str) -> RawExample:
 def is_header(line: str) -> bool:
     """The reference skips any line containing 'product_id'."""
     return "product_id" in line
+
+
+def rewrite_sen2forest(query: str) -> str:
+    """ImageBERT-C's data-side query rewrite (zk load_data_v4.py:153-154)."""
+    return query.replace(SEN2FOREST_SRC, SEN2FOREST_DST)
 
 
 def pad_1d(ids, maxlen: int, pad_value: int = 0) -> np.ndarray:

@@ -4,7 +4,8 @@
 * ``Precision``: the compute dtype plus the float32 matmul policy,
 * ``dense`` and ``layer_norm`` (eps 1e-12, float32 internals),
 * the post-LN encoder, a loop over ``[L]``-stacked layer parameters whose
-  blocks are the fused attention and FFN blocks of ``ops/``,
+  layers are the fused attention and FFN blocks of ``ops/``, or with
+  ``KMR_FUSED_LAYER=1`` one fused encoder layer each,
 * the cross-attention block and the pair of shared-weight cross directions
   of an LXMERT x-layer,
 * embedding and pooler pieces, and initialisers (truncated normal,
@@ -23,12 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
-
-import os
 
 from ..ops.attention_block import attention_block as attention_block_op
 from ..ops.attention_block import attention_block_plain
@@ -36,9 +36,11 @@ from ..ops.cross_attention_block import cross_attention_block as cross_attention
 from ..ops.cross_attention_block import cross_attention_block_plain
 from ..ops.dual_cross_attention_block import dual_cross_attention_block as dual_cross_attention_block_op
 from ..ops.dual_cross_attention_block import dual_cross_attention_block_plain
+from ..ops.encoder_layer import encoder_layer as encoder_layer_op
+from ..ops.encoder_layer import encoder_layer_plain
 from ..ops.ffn_block import ffn_block as ffn_block_op
 from ..ops.ffn_block import ffn_block_plain
-from ..ops.kernels import layernorm_plain
+from ..ops.kernels import gemm, gemm_plain, layernorm_plain
 
 Params = dict[str, Any]
 
@@ -92,20 +94,23 @@ class Precision:
 
 
 class Blocks(NamedTuple):
-    """The block functions the models call."""
+    """The block functions the models call, and the GEMM of ImageBERT-B's
+    banded label conv (its "f32" epilogue)."""
 
     attention: Callable[..., torch.Tensor]
     ffn: Callable[..., torch.Tensor]
     cross: Callable[..., torch.Tensor]
     dual: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+    layer: Callable[..., torch.Tensor]
+    gemm: Callable[..., torch.Tensor]
 
 
 # the wrappers: plain versions on CPU tensors, the CUDA kernels on CUDA tensors
 KERNEL_BLOCKS = Blocks(attention_block_op, ffn_block_op, cross_attention_block_op,
-                       dual_cross_attention_block_op)
+                       dual_cross_attention_block_op, encoder_layer_op, gemm)
 # the oracles, on any device (chip_smoke.py holds the kernels against them)
 PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain, cross_attention_block_plain,
-                      dual_cross_attention_block_plain)
+                      dual_cross_attention_block_plain, encoder_layer_plain, gemm_plain)
 
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
 
@@ -256,15 +261,45 @@ def num_layers(p: Params) -> int:
     return p["attention"]["qkv"]["kernel"].shape[0]
 
 
+def fused_layer_route(bias, act_name: str) -> bool:
+    """True iff ``KMR_FUSED_LAYER=1`` and the layer qualifies for the fused
+    launch: a compact key mask ([B, S] rows or [B, 1, 1, S]) or none, and a
+    GELU the kernel has (the gating of the JAX package's ``models/core.py``
+    :570-582)."""
+    compact = bias is None or bias.dim() == 2 or (bias.dim() == 4 and bias.shape[1] == bias.shape[2] == 1)
+    return os.environ.get("KMR_FUSED_LAYER", "0") == "1" and compact and act_name in GELU_APPROXIMATE
+
+
+def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS,
+                  act: str | None = None, fuse: bool = True) -> torch.Tensor:
+    """One post-LN layer: the attention block then the FFN block (the
+    default), or with ``fuse`` and ``KMR_FUSED_LAYER=1`` one fused encoder
+    layer, as the JAX package's ``models/core.py`` :612-628 (whose fused
+    layer measured slower on its TPU, hence opt-in)."""
+    act_name = act or cfg.hidden_act
+    if fuse and fused_layer_route(bias, act_name):
+        out = att_p["output"]
+        ffn_out = ffn_p["output"]
+        return blocks.layer(
+            x, att_p["qkv"]["kernel"], att_p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
+            out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], ffn_p["intermediate"]["kernel"],
+            ffn_p["intermediate"]["bias"], ffn_out["dense"]["kernel"], ffn_out["dense"]["bias"],
+            ffn_out["LayerNorm"]["gamma"], ffn_out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
+            approximate_gelu=GELU_APPROXIMATE[act_name],
+        )
+    return ffn_block(ffn_p, attention_block(att_p, x, bias, cfg, blocks), cfg, blocks, act)
+
+
 def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
-            blocks: Blocks = KERNEL_BLOCKS, act: str | None = None) -> torch.Tensor:
+            blocks: Blocks = KERNEL_BLOCKS, act: str | None = None, fuse: bool = True) -> torch.Tensor:
     """The post-LN stack; the f32 embedding output is cast to the compute
-    dtype on entry (the JAX package's ``models/core.py`` :673)."""
+    dtype on entry (the JAX package's ``models/core.py`` :673). ``fuse=False``
+    keeps the two blocks whatever ``KMR_FUSED_LAYER`` says (LXMERT's L and R
+    stacks, as the JAX package's ``models/lxmert.py`` :245-259)."""
     x = x.to(prec.compute_dtype)
     for i in range(num_layers(p)):
         layer = layer_slice(p, i)
-        x = attention_block(layer["attention"], x, bias, cfg, blocks)
-        x = ffn_block(layer["ffn"], x, cfg, blocks, act)
+        x = encoder_layer(layer["attention"], layer["ffn"], x, bias, cfg, blocks, act, fuse)
     return x
 
 

@@ -3,12 +3,17 @@
 * The NSP-style binary softmax head of ImageBERT-A (score = probs[:, 1]),
   ``run_pretraining_predict_score.py:479-501``; float32 throughout, as the
   JAX package's ``models/heads.py`` :38-57 runs it at HIGHEST precision.
+* The AM-softmax head of ImageBERT-B/C (``model_triple.py:56-106``, the JAX
+  package's ``models/heads.py`` :69-94), all in f32: the L2-normalised
+  pooled output against the L2-normalised [768, 2] kernel, margin 0.35 and
+  scale 30. The margin applies to the *fed* label's class (the scorers feed
+  1), and only where that class's cos > 0.35; scores change without it.
 * LXMERT's two-layer ``logit_fc`` classifier (dense 2H, erf GELU, LayerNorm,
   dense 2; ``tasks/kdd_model.py:167-173``), as the JAX package's
   ``models/heads.py`` :197-210: its two denses round their inputs to the
   compute dtype, like every ``dense``.
 
-The AM-softmax and MLM heads follow with their models."""
+The MLM head follows with training."""
 
 from __future__ import annotations
 
@@ -31,6 +36,39 @@ def nsp_logits(p: Params, pooled: torch.Tensor) -> torch.Tensor:
 
 def nsp_probs(p: Params, pooled: torch.Tensor) -> torch.Tensor:
     return torch.softmax(nsp_logits(p, pooled), dim=-1)
+
+
+AM_MARGIN = 0.35
+AM_SCALE = 30.0
+
+
+def am_head_init(cfg: BertConfig, gen: torch.Generator) -> Params:
+    """xavier_normal over [H, 2] (model_triple.py:62-63)."""
+    fan_in, fan_out = cfg.hidden_size, 2
+    std = (2.0 / (fan_in + fan_out)) ** 0.5
+    return {"am_kernel": std * torch.randn((fan_in, fan_out), generator=gen)}
+
+
+def am_cosines(p: Params, pooled: torch.Tensor) -> torch.Tensor:
+    """cos(theta) per class, clipped to [-1, 1]. The [B, H] x [H, 2] product
+    is an elementwise f32 sum, so no TF32 setting can round it."""
+    x = pooled.float()
+    x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1e-12)
+    w = p["am_kernel"].float()
+    w = w / torch.linalg.vector_norm(w, dim=0, keepdim=True).clamp_min(1e-10)
+    return (x[:, :, None] * w[None]).sum(dim=1).clamp(-1.0, 1.0)
+
+
+def am_margin_logits(cos: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """scale * (cos - margin on the label's class where its cos > margin)."""
+    one_hot = torch.nn.functional.one_hot(labels.long(), 2).float()
+    gt_score = (cos * one_hot).sum(dim=-1, keepdim=True)
+    added_margin = torch.where(gt_score > AM_MARGIN, AM_MARGIN, 0.0)
+    return (cos - one_hot * added_margin) * AM_SCALE
+
+
+def am_probs(p: Params, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(am_margin_logits(am_cosines(p, pooled), labels), dim=-1)
 
 
 def logit_fc_init(cfg: BertConfig, gen: torch.Generator, num_answers: int = 2) -> Params:

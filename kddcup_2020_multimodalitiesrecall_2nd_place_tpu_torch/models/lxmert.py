@@ -8,7 +8,10 @@ tokens (key mask from ``feats_mask``), then 5 cross ("x") layers. Each
 x-layer runs both cross directions with **one** shared ``visual_attention``
 module (``modeling.py:460-464``), lang <- visn masked by the visn keys and
 visn <- lang masked by the lang keys, both from the pre-cross streams, then
-self-attention and FFN per stream. Every FFN uses the erf GELU.
+self-attention and FFN per stream. Every FFN uses the erf GELU. With
+``KMR_FUSED_LAYER=1`` each x-layer's self-attention + FFN, in both streams,
+is one fused encoder layer (the JAX package's ``models/lxmert.py`` :301-315);
+the L and R stacks keep the two blocks, as there (:245-259).
 
 Visual token = (LN(visn_fc(feats)) + LN(box_fc(boxes4)) + LN(label_fc(z)))/3
 where z mixes each box's 8 label-text embeddings with an 8-tap weight in f32
@@ -34,7 +37,6 @@ from .core import (
     Blocks,
     Params,
     Precision,
-    attention_block,
     attention_forms,
     dense,
     dense_init,
@@ -42,7 +44,7 @@ from .core import (
     embeddings_init,
     encoder,
     encoder_init,
-    ffn_block,
+    encoder_layer,
     layer_norm,
     layer_norm_init,
     layer_slice,
@@ -162,17 +164,15 @@ def apply(p: Params, batch: dict, lcfg: LxmertConfig, prec: Precision | None = N
     lang_bias = mask_to_bias(batch["input_mask"])  # [B, 23] key-mask rows
     visn_bias = mask_to_bias(batch["feats_mask"])  # [B, 10]
 
-    lang = encoder(enc["layer"], lang, lang_bias, cfg, prec, blocks, ACT)
-    visn = encoder(enc["r_layers"], visn, visn_bias, cfg, prec, blocks, ACT)
+    lang = encoder(enc["layer"], lang, lang_bias, cfg, prec, blocks, ACT, fuse=False)
+    visn = encoder(enc["r_layers"], visn, visn_bias, cfg, prec, blocks, ACT, fuse=False)
     xs = enc["x_layers"]
     for i in range(xs["visual_attention"]["qkv"]["kernel"].shape[0]):
         lp = layer_slice(xs, i)
         lang2, visn2 = dual_cross_attention_blocks(lp["visual_attention"], lang, visn, lang_bias,
                                                    visn_bias, cfg, blocks)
-        lang = ffn_block(lp["lang_ffn"], attention_block(lp["lang_self_att"], lang2, lang_bias, cfg, blocks),
-                         cfg, blocks, ACT)
-        visn = ffn_block(lp["visn_ffn"], attention_block(lp["visn_self_att"], visn2, visn_bias, cfg, blocks),
-                         cfg, blocks, ACT)
+        lang = encoder_layer(lp["lang_self_att"], lp["lang_ffn"], lang2, lang_bias, cfg, blocks, ACT)
+        visn = encoder_layer(lp["visn_self_att"], lp["visn_ffn"], visn2, visn_bias, cfg, blocks, ACT)
 
     pooled = pooler(p["bert"]["pooler"], lang, prec)
     logit = heads.logit_fc(p["logit_fc"], pooled, prec)

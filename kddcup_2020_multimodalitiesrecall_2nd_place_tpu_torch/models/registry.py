@@ -1,5 +1,7 @@
-"""Model registry. ImageBERT-A and LXMERT are ported; the other scorers of
-the ensemble (``code/main.py:59``) raise until their slice lands."""
+"""Model registry: the four scorers of the ensemble (``code/main.py:59``:
+0.3 A + 0.2 B + 0.2 C + 0.3 LXMERT) are ported; ImageBERT-C is ImageBERT-B
+with the sen2forest query rewrite (``sen2forest``). The two-tower recall
+model raises until its slice lands."""
 
 from __future__ import annotations
 
@@ -11,11 +13,11 @@ from typing import Any, Callable
 import torch
 
 from .. import BERT_CONFIG_PATH
-from . import imagebert_a, lxmert
+from . import imagebert_a, imagebert_b, lxmert
 from .core import BertConfig, Params
 
-PORTED = ("imagebert_a", "lxmert")
-NOT_YET_PORTED = ("imagebert_b", "imagebert_c", "two_tower")
+PORTED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert")
+NOT_YET_PORTED = ("two_tower",)
 LXMERT_DEPTHS = ("l_layers", "x_layers", "r_layers")
 
 
@@ -28,6 +30,7 @@ class ModelSpec:
     featurizer_layout: str  # which Featurizer method builds its batches
     input_keys: tuple[str, ...]
     matmul_kernels: tuple[tuple[str, ...], ...]  # the param paths cast to the compute dtype
+    sen2forest: bool = False  # the featurizer rewrites queries first (ImageBERT-C)
 
     def init_params(self, seed: int = 0) -> Params:
         return self.init(torch.Generator().manual_seed(seed))
@@ -66,6 +69,17 @@ def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
             featurizer_layout="lxmert",
             input_keys=lxmert.INPUT_KEYS,
             matmul_kernels=lxmert.MATMUL_KERNELS,
+        )
+    if name in ("imagebert_b", "imagebert_c"):
+        return ModelSpec(
+            name,
+            cfg,
+            init=lambda gen: imagebert_b.init_params(cfg, gen),
+            apply=imagebert_b.apply,
+            featurizer_layout="imagebert_b",
+            input_keys=imagebert_b.INPUT_KEYS,
+            matmul_kernels=imagebert_b.MATMUL_KERNELS,
+            sen2forest=(name == "imagebert_c"),
         )
     return ModelSpec(
         name,

@@ -2,17 +2,22 @@
 plain PyTorch version and a launch counter.
 
 The fused blocks (``attention_block.py``, ``ffn_block.py``,
-``cross_attention_block.py``, ``dual_cross_attention_block.py``) are built
-from these three kernels:
+``cross_attention_block.py``, ``dual_cross_attention_block.py``,
+``encoder_layer.py``) are built from these four kernels:
 
 * ``gemm``       ``csrc/gemm_bf16.cu``: bf16 ``A @ W + b`` with a fused
-                 epilogue (bf16 out, GELU then bf16, or + residual in f32).
+                 epilogue (bf16 out, GELU then bf16, + residual in f32, or
+                 f32 out: ImageBERT-B's banded label conv).
 * ``attn_core``  ``csrc/attn_core.cu``: per-head softmax(QK^T/8 + key bias)V
                  read from the fused [B*S, 3H] QKV buffer; its two other entry
                  points are ``attn_core_cross`` (Q [B*Sq, H] against a fused
                  K/V [B*Sk, 2H]) and ``attn_core_dual`` (both directions of an
                  LXMERT x-layer from the two streams' QKV buffers, one launch).
 * ``layernorm``  ``csrc/layernorm.cu``: f32 row LayerNorm, bf16 out.
+* ``layer_tail`` ``csrc/layer_tail.cu``: everything of a post-LN encoder
+                 layer after its attention core (out-projection, LN1, FFN,
+                 LN2) in one launch, the LN1 output and the GELU
+                 intermediate kept in shared memory.
 
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel or raises; there is no fallback. ``<wrapper>.launches``
@@ -32,7 +37,8 @@ from . import _build
 from .activations import gelu_erf, gelu_tanh
 from .attention import merge_heads, mha, split_heads
 
-EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "residual": 3}
+EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "residual": 3, "f32": 4}
+F32_OUT = ("residual", "f32")  # the epilogues that write f32
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -54,10 +60,13 @@ def _check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch
 
 def gemm_plain(a, w, bias, epilogue: str = "bias", residual=None) -> torch.Tensor:
     """f32 product of a and w (w rounded to a's dtype first), + f32 bias;
-    "residual" adds residual and stays f32, the others end in a's dtype."""
+    "residual" adds residual and "f32" adds nothing, both staying f32; the
+    others end in a's dtype."""
     y = torch.matmul(a.float(), w.to(a.dtype).float()) + bias.float()
     if epilogue == "residual":
         return y + residual.float()
+    if epilogue == "f32":
+        return y
     if epilogue == "gelu_tanh":
         y = gelu_tanh(y)
     elif epilogue == "gelu_erf":
@@ -67,7 +76,7 @@ def gemm_plain(a, w, bias, epilogue: str = "bias", residual=None) -> torch.Tenso
 
 def gemm(a, w, bias, epilogue: str = "bias", residual=None) -> torch.Tensor:
     """a [M, K] bf16, w [K, N] bf16, bias [N] f32 (+ residual [M, N] bf16)
-    -> [M, N] bf16, or f32 for the "residual" epilogue."""
+    -> [M, N] bf16, or f32 for the "residual" and "f32" epilogues."""
     _require(epilogue in EPILOGUES, f"unknown epilogue {epilogue!r}")
     _require((epilogue == "residual") == (residual is not None),
              "a residual goes with the 'residual' epilogue and only with it")
@@ -87,7 +96,7 @@ def gemm(a, w, bias, epilogue: str = "bias", residual=None) -> torch.Tensor:
     if residual is not None:
         _check_operand(residual, "residual", torch.bfloat16, a.device)
         _require(tuple(residual.shape) == (m, n), "residual shape must equal the output's")
-    out = torch.empty(m, n, dtype=torch.float32 if residual is not None else torch.bfloat16,
+    out = torch.empty(m, n, dtype=torch.float32 if epilogue in F32_OUT else torch.bfloat16,
                       device=a.device)
     fn = _build.bind("gemm_bf16", "kmr_gemm_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     rc = fn(_build.ptr(a), _build.ptr(w), _build.ptr(bias),
@@ -264,4 +273,56 @@ def layernorm(y, gamma, beta, eps: float = 1e-12, out_dtype=torch.bfloat16) -> t
 
 layernorm.launches = 0
 
-WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm)
+
+# ---------------------------------------------------------------------------
+# layer_tail: out-projection + LN1 + FFN + LN2 of one encoder layer
+# ---------------------------------------------------------------------------
+
+
+def layer_tail_plain(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
+                     approximate_gelu: bool = True, eps: float = 1e-12) -> torch.Tensor:
+    """ctx, x [M, H] -> bf16-rounded LN2(h @ W2 + b2 + a) in x's dtype, where
+    a = LN1(ctx @ Wo + bo + x) and h = gelu(a @ W1 + b1), both rounded to
+    x's dtype (``ops/pallas_layer.py`` :84-115 of the JAX package)."""
+    dt = x.dtype
+    y = torch.matmul(ctx.float(), wo.to(dt).float()) + bo.float() + x.float()
+    a = layernorm_plain(y, g1, be1, eps, out_dtype=dt)
+    act = gelu_tanh if approximate_gelu else gelu_erf
+    hmid = act(torch.matmul(a.float(), w1.to(dt).float()) + b1.float()).to(dt)
+    z = torch.matmul(hmid.float(), w2.to(dt).float()) + b2.float() + a.float()
+    return layernorm_plain(z, g2, be2, eps, out_dtype=dt)
+
+
+def layer_tail(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
+               approximate_gelu: bool = True, eps: float = 1e-12) -> torch.Tensor:
+    """ctx, x [M, 768] bf16; wo [768, 768], w1 [768, I], w2 [I, 768] bf16;
+    biases, gammas, betas f32 -> [M, 768] bf16. I % 256 == 0."""
+    if not x.is_cuda:
+        return layer_tail_plain(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, approximate_gelu, eps)
+    lib = _build.load("layer_tail")
+    m, h = x.shape
+    i = w1.shape[1]
+    hidden, chunk = lib.kmr_layer_tail_hidden(), lib.kmr_layer_tail_chunk()
+    _require(h == hidden, f"layer_tail takes H = {hidden}, got {h}")
+    _require(i > 0 and i % chunk == 0, f"layer_tail takes I % {chunk} == 0, got I={i}")
+    _require(m > 0, "empty layer_tail")
+    shapes = {"ctx": (m, h), "x": (m, h), "wo": (h, h), "bo": (h,), "g1": (h,), "be1": (h,),
+              "w1": (h, i), "b1": (i,), "w2": (i, h), "b2": (h,), "g2": (h,), "be2": (h,)}
+    args = dict(zip(shapes, (ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)))
+    for name, t in args.items():
+        dt = torch.bfloat16 if name in ("ctx", "x", "wo", "w1", "w2") else torch.float32
+        _check_operand(t, name, dt, x.device)
+        _require(tuple(t.shape) == shapes[name], f"{name} shape {tuple(t.shape)} != {shapes[name]}")
+    out = torch.empty(m, h, dtype=torch.bfloat16, device=x.device)
+    fn = _build.bind("layer_tail", "kmr_layer_tail",
+                     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(*(_build.ptr(t) for t in args.values()), _build.ptr(out), m, i, int(not approximate_gelu), eps,
+            _build.stream_of(x))
+    _build.check(rc, "layer_tail")
+    layer_tail.launches += 1
+    return out
+
+
+layer_tail.launches = 0
+
+WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm, layer_tail)

@@ -1,3 +1,11 @@
-from .engine import ScoringEngine, ScoringStats, resolve_device, write_scores_csv, write_scores_tsv
+from .engine import (
+    ScoringEngine,
+    ScoringStats,
+    load_tsv_scores,
+    resolve_device,
+    write_scores_csv,
+    write_scores_tsv,
+)
 
-__all__ = ["ScoringEngine", "ScoringStats", "resolve_device", "write_scores_csv", "write_scores_tsv"]
+__all__ = ["ScoringEngine", "ScoringStats", "load_tsv_scores", "resolve_device", "write_scores_csv",
+           "write_scores_tsv"]

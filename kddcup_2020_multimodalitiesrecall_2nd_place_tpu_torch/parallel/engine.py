@@ -123,6 +123,19 @@ class ScoringEngine:
         return result
 
 
+def load_tsv_scores(path) -> dict[str, dict[str, float]]:
+    """A qid\tpid\tscore file -> {qid: {pid: score}}; lines with fewer than
+    three fields are skipped (the JAX package's ``ensemble/fusion.py`` :36-44)."""
+    out: dict[str, dict[str, float]] = {}
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            arr = line.strip().split("\t")
+            if len(arr) < 3:
+                continue
+            out.setdefault(arr[0], {})[arr[1]] = float(arr[2])
+    return out
+
+
 def write_scores_tsv(result: dict[str, dict[str, float]], path) -> None:
     """qid\\tpid\\tscore rows (the ImageBERT score-file format)."""
     with open(path, "w", encoding="utf-8") as f:

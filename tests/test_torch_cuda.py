@@ -29,6 +29,10 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.dual_cross_attent
     dual_cross_attention_block,
     dual_cross_attention_block_plain,
 )
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.encoder_layer import (
+    encoder_layer,
+    encoder_layer_plain,
+)
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from torch_parity import attn_inputs, cuda, ffn_inputs  # noqa: F401  (cuda: fixture)
 
@@ -204,3 +208,98 @@ def test_cuda_cross_tensors_launch_or_raise(cuda):
     dual_cross_attention_block(x, ctx, *_fused(ws), 12, lb, vb)
     torch.cuda.synchronize()
     assert [w.launches for w in counted] == [n + 1 for n in before]
+
+
+# ImageBERT-B/C's fused encoder layer (KMR_FUSED_LAYER=1) and its label conv. The four shapes of
+# the layer: (S, key mask, tanh GELU); "all-masked-tail" gives every other pair no box, so all
+# its keys past the query are masked, as an ImageBERT-B pair with no box
+LAYER_CASES = [(40, "no-mask", True), (30, "all-masked-tail", True), (23, "mask", False), (10, "mask", False)]
+LAYER_IDS = ["S40-tanh", "S30-mask-tanh", "S23-mask-erf", "S10-mask-erf"]
+
+
+def _layer_case(device, seed, s, masks, b=8, h=768, i=3072):
+    """x [b, s, H] bf16, the layer's weights (wqkv, bqkv, wo, bo, g1, be1,
+    w1, b1, w2, b2, g2, be2) and its key-mask bias [b, s] or None."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, s, h, generator=g).to(device, torch.bfloat16)
+    ws = []
+    for name, shape in (("wqkv", (h, 3 * h)), ("bqkv", (3 * h,)), ("wo", (h, h)), ("bo", (h,)), ("gamma", (h,)),
+                        ("beta", (h,)), ("w1", (h, i)), ("b1", (i,)), ("w2", (i, h)), ("b2", (h,)),
+                        ("gamma", (h,)), ("beta", (h,))):
+        noise = torch.randn(*shape, generator=g)
+        if name == "gamma":
+            ws.append((1.0 + 0.1 * noise).to(device))
+        elif name.startswith("w"):
+            ws.append((0.8 / shape[0] ** 0.5 * noise).to(device, torch.bfloat16))
+        else:
+            ws.append((0.05 * noise).to(device))
+    bias = None
+    if masks != "no-mask":
+        m = (torch.rand(b, s, generator=g) > 0.3).float()
+        m[:, 0] = 1.0
+        if masks == "all-masked-tail":
+            m[::2, 20:] = 0.0
+        bias = mask_to_bias(m).to(device)
+    return x, ws, bias
+
+
+@pytest.mark.parametrize("s,masks,tanh", LAYER_CASES, ids=LAYER_IDS)
+def test_cuda_encoder_layer_and_tail_match_plain(cuda, s, masks, tanh):
+    x, ws, bias = _layer_case(cuda, 13, s, masks)
+    got = encoder_layer(x, *ws, 12, bias, approximate_gelu=tanh)
+    assert within_band(got, encoder_layer_plain(x, *ws, 12, bias, approximate_gelu=tanh))
+    ctx = torch.randn(x.shape[0] * s, 768, generator=torch.Generator().manual_seed(14)).to(cuda, torch.bfloat16)
+    x2d = x.reshape(-1, 768)
+    got = kernels.layer_tail(ctx, x2d, *ws[2:], approximate_gelu=tanh)
+    assert within_band(got, kernels.layer_tail_plain(ctx, x2d, *ws[2:], approximate_gelu=tanh))
+
+
+def test_cuda_layer_tail_ragged_rows(cuda):
+    """M = 333 rows: the last 32-row tile is zero-filled on load and masked on store."""
+    x, ws, _ = _layer_case(cuda, 15, 37, "no-mask", b=9)
+    x2d = x.reshape(-1, 768)
+    ctx = torch.randn(333, 768, generator=torch.Generator().manual_seed(16)).to(cuda, torch.bfloat16)
+    got = kernels.layer_tail(ctx, x2d, *ws[2:])
+    assert got.shape == (333, 768)
+    assert within_band(got, kernels.layer_tail_plain(ctx, x2d, *ws[2:]))
+
+
+def test_cuda_gemm_f32_epilogue_label_conv(cuda):
+    """The banded label conv's shape: [B*10, 8H] @ [8H, 8H] -> f32, the JAX dot's rounding."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    a = torch.randn(8 * 10, 8 * 768, generator=g).to(cuda, torch.bfloat16)
+    w = (0.02 * torch.randn(8 * 768, 8 * 768, generator=g)).to(cuda, torch.bfloat16)
+    bias = torch.randn(8 * 768, generator=g).to(cuda)
+    got = kernels.gemm(a, w, bias, "f32")
+    assert got.dtype == torch.float32
+    assert within_band(got, kernels.gemm_plain(a, w, bias, "f32"), atol=1e-3, rtol=0.0)
+
+
+def test_cuda_layer_tensors_launch_or_raise(cuda):
+    """CUDA tensors the fused layer does not take raise, and never run the plain version."""
+    x, ws, bias = _layer_case(cuda, 18, 30, "mask")
+    counted = (kernels.layer_tail, encoder_layer)
+    before = [w.launches for w in counted]
+    with pytest.raises(ValueError, match="dtype"):
+        encoder_layer(x.float(), *ws, 12, bias)  # f32 activations
+    with pytest.raises(ValueError, match="I %"):
+        kernels.layer_tail(x.reshape(-1, 768), x.reshape(-1, 768), *ws[2:6], ws[6][:, :100].contiguous(),
+                           ws[7][:100].contiguous(), ws[8][:100].contiguous(), *ws[9:])
+    with pytest.raises(ValueError, match="expected cuda"):
+        kernels.layer_tail(x.reshape(-1, 768), x.reshape(-1, 768), *ws[2:5], ws[5].cpu(), *ws[6:])
+    assert [w.launches for w in counted] == before
+    encoder_layer(x, *ws, 12, bias)
+    torch.cuda.synchronize()
+    assert [w.launches for w in counted] == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("s,masks,tanh", LAYER_CASES, ids=LAYER_IDS)
+def test_cuda_encoder_layer_equals_two_blocks(cuda, s, masks, tanh):
+    """The fused layer rounds as the two-block route does: its products
+    accumulate in gemm_bf16's k order and its LayerNorms repeat layernorm.cu's
+    arithmetic, so the two routes agree bit for bit."""
+    x, ws, bias = _layer_case(cuda, 19, s, masks)
+    fused = encoder_layer(x, *ws, 12, bias, approximate_gelu=tanh)
+    two = ffn_block(attention_block(x, *ws[:6], 12, bias), *ws[6:], approximate_gelu=tanh)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, two)

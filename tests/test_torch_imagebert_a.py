@@ -81,9 +81,10 @@ def test_registry(monkeypatch):
     spec = get_model("imagebert_a")
     assert (spec.config.hidden_size, spec.config.num_hidden_layers) == (32, 2)
     assert get_model("imagebert_a", overrides={"num_hidden_layers": 1}).config.num_hidden_layers == 1
-    for name in ("imagebert_b", "imagebert_c"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_model(name)
+    assert [get_model(name).sen2forest for name in ("imagebert_a", "imagebert_b", "imagebert_c")] == [
+        False, False, True]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_model("two_tower")
 
 
 def test_random_init_is_seeded_and_scores():

@@ -112,6 +112,25 @@ def test_dual_cross_route_gives_the_same_scores(monkeypatch):
     np.testing.assert_allclose(dual_plain, default, atol=1e-5, rtol=0)
 
 
+def test_fused_layer_route_matches_jax(monkeypatch):
+    """KMR_FUSED_LAYER=1: each x-layer's self-attention + FFN as one fused
+    encoder layer, in both streams, the L and R stacks as two blocks; held to
+    JAX's scores (its fused layer needs the packed TPU backend, so on the CPU
+    it runs the two blocks) and counted through the wrappers."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import core
+
+    jcfg, pcfg = _configs(False)
+    tree = jax_lxmert_params(jcfg, seed=5)
+    batch = lxmert_batch(5, jcfg, seed=6)
+    want = _jax_scores(jcfg, tree, batch, JaxPrecision.f32())
+    monkeypatch.setenv("KMR_FUSED_LAYER", "1")
+    calls = []
+    fused = core.KERNEL_BLOCKS._replace(layer=lambda *a, **k: calls.append(1) or core.KERNEL_BLOCKS.layer(*a, **k))
+    got = _port_scores(pcfg, tree, batch, Precision.f32(), fused)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert len(calls) == 2 * pcfg.x_layers
+
+
 def test_apply_bf16_cpu_path_tracks_jax_bf16():
     jcfg, pcfg = _configs(False)
     tree = jax_lxmert_params(jcfg, seed=5)

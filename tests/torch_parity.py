@@ -53,6 +53,34 @@ def jax_imagebert_a_params(cfg, seed: int):
     return numpy_like(shapes, seed)
 
 
+def jax_imagebert_b_params(cfg, seed: int):
+    """Numpy params in the JAX ImageBERT-B/C tree layout for ``cfg``."""
+    import jax
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import imagebert_b
+
+    shapes = jax.eval_shape(lambda: imagebert_b.init_params(jax.random.key(0), cfg))
+    return numpy_like(shapes, seed)
+
+
+def imagebert_b_batch(b: int, vocab_size: int, seed: int, label: int = 1) -> dict[str, np.ndarray]:
+    """An ImageBERT-B/C batch: query lengths 2..20, box counts 0..10 (pair 0
+    with no box, so all its image keys are masked), the fed label."""
+    rng = np.random.default_rng(seed)
+    num_boxes = rng.integers(0, 11, (b,)).astype(np.int32)
+    num_boxes[0] = 0
+    return {
+        "input_ids": rng.integers(0, vocab_size, (b, 20)).astype(np.int32),
+        "len_query": rng.integers(2, 21, (b,)).astype(np.int32),
+        "num_boxes": num_boxes,
+        "segment_ids": np.tile(np.array([0] * 20 + [1] * 10, dtype=np.int32), (b, 1)),
+        "boxes": rng.random((b, 10, 5)).astype(np.float32),
+        "features": rng.standard_normal((b, 10, 2048)).astype(np.float32),
+        "label_ids": rng.integers(0, vocab_size, (b, 10, 8)).astype(np.int32),
+        "labels": np.full((b,), label, dtype=np.int32),
+    }
+
+
 def imagebert_a_batch(b: int, vocab_size: int, seed: int) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     return {
@@ -86,6 +114,14 @@ def attn_inputs(seed, b=3, s=40, h=64, with_bias=False):
         mask = (rng.random((b, s)) > 0.3).astype(np.float32)
         mask[:, 0] = 1.0  # at least one live key per row
     return x, ws, mask
+
+
+def layer_inputs(seed, b=3, s=40, h=64, i=128, with_bias=False):
+    """x, the layer's 12 weights (attention block's, then FFN block's) and a
+    key mask [b, s] (None without bias; at least one live key a row)."""
+    x, aw, mask = attn_inputs(seed, b, s, h, with_bias)
+    _, fw = ffn_inputs(seed + 1000, b, s, h, i)
+    return x, aw + fw, mask
 
 
 def ffn_inputs(seed, b=3, s=40, h=64, i=128):
