@@ -20,7 +20,7 @@
    S=30 beside the two blocks they replace.
 3. Full-width scoring, three models, each a 2048-row synthetic TSV scored end
    to end through ``ScoringEngine`` (bf16, batch 512, random weights from
-   seed 0): ImageBERT-A (12 x 768); LXMERT (9/5/5 x 768) on its default
+   the seed): ImageBERT-A (12 x 768); LXMERT (9/5/5 x 768) on its default
    route, with ``KMR_DUAL_CROSS=1`` and with ``KMR_FUSED_LAYER=1``;
    ImageBERT-B (12 x 768, S=30, AM head) on its default route and with
    ``KMR_FUSED_LAYER=1``, and ImageBERT-C (B with the sen2forest query
@@ -30,18 +30,20 @@
    (max |d score| <= SCORE_BAND). LXMERT's and ImageBERT-B's, whose heads make
    them more sensitive, are held against the f32 truth on the card (plain
    blocks in f32): both bf16 paths (kernels, plain) within SCORE_BAND of it
-   (ImageBERT-B, whose AM head has a slope up to 7.5: at the 99th percentile,
-   and within B_WORST_BAND at the worst pair), and within 2 * SCORE_BAND of
-   each other; each model's other routes against its default route within
-   SCORE_BAND (the fused layer rounds as the two blocks do, so it is also
-   reported whether they are bit-equal); ImageBERT-C equal to ImageBERT-B bit
-   for bit on every row without the rewrite's trigger; each model against its
-   f32 plain path on the CPU for a few pairs.
+   (ImageBERT-B, whose AM head has a slope up to 7.5: the kernel path's worst
+   pair within SCORE_BAND or B_KERNEL_OVER_PLAIN times the plain path's worst,
+   whichever is larger, and its 99th percentile within SCORE_BAND), and within
+   2 * SCORE_BAND of each other; each model's other routes against its
+   default route within SCORE_BAND (the fused layer rounds as the two blocks
+   do, so it is also reported whether they are bit-equal); ImageBERT-C equal
+   to ImageBERT-B bit for bit on every row without the rewrite's trigger; each
+   model against its f32 plain path on the CPU for a few pairs.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
-result, when any phase fails or no CUDA device is present. The full nvcc
-report (ptxas registers, shared memory, spills) goes to
+``--seed N`` draws the inputs, data and weights from another seed (0 by
+default). Prints the card's name and power limit, a ``{"kernels": [...]}``
+line, and as its last line ``{"ok": true, "device": {...}}``. Exits
+non-zero, with no result, when any phase fails or no CUDA device is present.
+The full nvcc report (ptxas registers, shared memory, spills) goes to
 ``build/kernels/nvcc.log``; its summary lines are printed.
 """
 
@@ -86,10 +88,11 @@ LX_PAIR_BAND = 2 * SCORE_BAND
 LX_ROUTES = {"lxmert": {}, "lxmert_dual_cross": {"KMR_DUAL_CROSS": True},
              "lxmert_fused_layer": {"KMR_FUSED_LAYER": True}}
 # ImageBERT-B: its AM head (scale 30) turns the cosine gap into a score with a slope up to 7.5, and
-# random-init scores spread over ~[0.46, 0.79]; both its bf16 paths (kernels, plain) lie equally far from
-# the f32 truth (mean |d| 2.4e-3, worst of 2048 pairs 1.1e-2 and 9.8e-3). Each path is held to the truth
-# within SCORE_BAND at the 99th percentile and within B_WORST_BAND at its worst pair
-B_WORST_BAND = 2 * SCORE_BAND
+# random-init scores spread over ~[0.46, 0.79]; both its bf16 paths (kernels, plain) lie about equally far
+# from the f32 truth (mean |d| 2.4e-3, worst of 2048 pairs 1.1e-2 and 9.8e-3 at seed 0). The plain path is
+# held to the truth within SCORE_BAND; the kernel path within SCORE_BAND at the 99th percentile, and at
+# its worst pair within SCORE_BAND or B_KERNEL_OVER_PLAIN times the plain path's worst in the same run
+B_KERNEL_OVER_PLAIN = 1.25
 CPU_SCORE_BAND = 5e-2  # bf16 kernels vs the f32 plain path on the CPU
 N_ROWS, SEED = 2048, 0
 
@@ -165,10 +168,11 @@ def route(**flags: bool):
 
 
 class Smoke:
-    def __init__(self, torch):
+    def __init__(self, torch, seed: int = SEED):
         self.torch = torch
+        self.seed = seed
         self.dev = torch.device("cuda")
-        self.gen = torch.Generator(device="cpu").manual_seed(SEED)
+        self.gen = torch.Generator(device="cpu").manual_seed(seed)
         self.errors: dict[str, float] = {}
         self.failures: list[str] = []
 
@@ -605,14 +609,14 @@ class Smoke:
         work.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         tsv = work / "pairs.tsv"
-        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=SEED)) + "\n")
+        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=self.seed)) + "\n")
         labels = work / "labels.txt"
         labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
         spec = models.get_model("imagebert_a")
         cfg = spec.config
         if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads) != (H, 12, N):
             raise RuntimeError(f"not the full-width config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
-        params = spec.init_params(SEED)
+        params = spec.init_params(self.seed)
         engine = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=models.Precision.bf16())
         featurizer = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH),
                                      data.load_multimodal_labels(labels))
@@ -701,7 +705,7 @@ class Smoke:
         work.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         tsv = work / "pairs_lxmert.tsv"
-        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=SEED)) + "\n")
+        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=self.seed)) + "\n")
         labels = work / "labels.txt"
         labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
         spec = models.get_model("lxmert")
@@ -709,7 +713,7 @@ class Smoke:
         shape = (cfg.bert.hidden_size, cfg.bert.num_attention_heads, cfg.l_layers, cfg.r_layers, cfg.x_layers)
         if shape != (H, N, *LX_DEPTHS):
             raise RuntimeError(f"not the full-width LXMERT config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
-        params = spec.init_params(SEED)
+        params = spec.init_params(self.seed)
         engine = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=models.Precision.bf16())
         featurizer = data.Featurizer(tok.FullTokenizer.hf_style(pkg.VOCAB_PATH),
                                      data.load_multimodal_labels(labels))
@@ -832,7 +836,7 @@ class Smoke:
         work = pkg.BUILD_DIR / "smoke"
         work.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        lines = synthetic.make_tsv(N_ROWS, seed=SEED)
+        lines = synthetic.make_tsv(N_ROWS, seed=self.seed)
         tsv = work / "pairs_imagebert_b.tsv"
         tsv.write_text("\n".join(lines) + "\n")
         labels = work / "labels.txt"
@@ -843,7 +847,7 @@ class Smoke:
         cfg = spec_b.config
         if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads) != (H, 12, N):
             raise RuntimeError(f"not the full-width config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
-        params = spec_b.init_params(SEED)
+        params = spec_b.init_params(self.seed)
         bf16 = models.Precision.bf16()
         engines = {"imagebert_b": engine_mod.ScoringEngine(spec_b, params, device=self.dev, precision=bf16),
                    "imagebert_c": engine_mod.ScoringEngine(spec_c, params, device=self.dev, precision=bf16)}
@@ -921,7 +925,8 @@ class Smoke:
             d = (a - b_)[keep].abs()
             spread[label] = {"max": d.max().item(), "mean": d.mean().item(), "p99": d.quantile(0.99).item()}
         log(f"scores imagebert_b |d| spread (f32 = plain blocks in f32 on the card): {json.dumps(spread)}")
-        d_truth = max(spread["kernel-f32"]["max"], spread["plain-f32"]["max"])
+        kern_truth, plain_truth = spread["kernel-f32"]["max"], spread["plain-f32"]["max"]
+        kern_band = max(SCORE_BAND, B_KERNEL_OVER_PLAIN * plain_truth)
         p99_truth = max(spread["kernel-f32"]["p99"], spread["plain-f32"]["p99"])
         d_pair, d_route = spread["kernel-plain"]["max"], spread["fused-default"]["max"]
         off = ~trigger
@@ -935,16 +940,17 @@ class Smoke:
         same_rank, n_q = self.ranking_agreement(batches["imagebert_b"], kern, plain)
         log(f"scores imagebert_b: range [{kern.min().item():.5f}, {kern.max().item():.5f}], f32 cos of the fed class "
             f"in [{cos32.min().item():.4f}, {cos32.max().item():.4f}], {int(near.sum())} pairs within 1e-3 of the "
-            f"{heads.AM_MARGIN} margin left out; |d| of each bf16 path vs the f32 truth: p99 {p99_truth:.6g} "
-            f"(band {SCORE_BAND:g}), max {d_truth:.6g} (band {B_WORST_BAND:g}); kernel vs plain = {d_pair:.6g} "
+            f"{heads.AM_MARGIN} margin left out; |d| vs the f32 truth: p99 of each bf16 path {p99_truth:.6g} "
+            f"(band {SCORE_BAND:g}), max plain {plain_truth:.6g} (band {SCORE_BAND:g}), max kernels {kern_truth:.6g} "
+            f"(band {kern_band:.6g}); kernel vs plain = {d_pair:.6g} "
             f"(band {2 * SCORE_BAND:g}; plain path "
             f"{plain_dev_ms:.3f} ms), fused route vs default = {d_route:.6g} (band {SCORE_BAND:g}; bit-equal: "
             f"{bool(torch.equal(fused, kern))}), engine vs "
             f"staged = {d_engine:.3g}, identical per-query ranking in {same_rank}/{n_q} queries")
         log(f"scores imagebert_c: equal to imagebert_b bit for bit on all {int(off.sum())} rows without the trigger: "
             f"{c_equal}; {c_moved} of {int(trigger.sum())} trigger rows differ")
-        if (p99_truth > SCORE_BAND or d_truth > B_WORST_BAND or d_pair > 2 * SCORE_BAND or d_route > SCORE_BAND
-                or d_engine > 1e-6):
+        if (p99_truth > SCORE_BAND or plain_truth > SCORE_BAND or kern_truth > kern_band
+                or d_pair > 2 * SCORE_BAND or d_route > SCORE_BAND or d_engine > 1e-6):
             raise RuntimeError("ImageBERT-B scores disagree with the f32 truth, the plain path or across routes")
         if not c_equal or c_moved == 0:
             raise RuntimeError("ImageBERT-C is not ImageBERT-B plus the sen2forest rewrite")
@@ -1101,8 +1107,14 @@ PER_BATCH = {
 PER_BATCH["imagebert_c"] = PER_BATCH["imagebert_b"]
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
+
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--seed", type=int, default=SEED, help="seed of the inputs, data and weights")
+    seed = args.parse_args(argv).seed
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1127,7 +1139,7 @@ def main() -> int:
                 if "Used" in line or "spill" in line:
                     log(f"ptxas {name}: {line.strip()}")
 
-        smoke = Smoke(torch)
+        smoke = Smoke(torch, seed)
         weights = smoke.layer_weights()
         smoke.check_kernels(weights)
         smoke.check_lxmert_kernels(weights)

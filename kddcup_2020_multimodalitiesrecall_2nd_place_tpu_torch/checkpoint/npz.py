@@ -7,9 +7,8 @@
   numpy arrays in the JAX layout -> float32 torch tensors, with each
   attention's query/key/value fused ONCE (``models/core.py:attention_forms``;
   the JAX package concatenates them on every call, ``models/core.py``
-  :293-299, :315-316, :400-401), and ImageBERT-B's label-conv taps banded
-  ONCE (``models/imagebert_b.py:label_conv_band``; the JAX package builds
-  the band on every call, its ``models/imagebert_b.py`` :91-101).
+  :293-299, :315-316, :400-401). Leaves a model stores in another form
+  are left to its spec's ``from_jax`` (ImageBERT-B's label-conv band).
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
   embedding tables and the heads' f32 weights stay float32.
@@ -23,7 +22,6 @@ import numpy as np
 import torch
 
 from ..models.core import Params, attention_forms
-from ..models.imagebert_b import label_conv_band
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -64,10 +62,9 @@ def _to_torch(tree):
 
 def params_from_jax(tree: dict) -> Params:
     """JAX ImageBERT-A, ImageBERT-B/C or LXMERT param tree (numpy leaves) ->
-    the port's float32 params; an LXMERT tree is told by its ``x_layers``,
-    an ImageBERT-B tree by its ``kdd_conv1``, whose ``weights``/``biases``
-    taps become the banded ``kernel``/``bias`` that ``cast_matmul_weights``
-    casts like any dense (the AM head's ``am_kernel`` stays f32).
+    the port's float32 params; an LXMERT tree is told by its ``x_layers``.
+    ImageBERT-B's ``kdd_conv1`` taps stay as in the JAX tree: its spec's
+    ``from_jax`` bands them (the AM head's ``am_kernel`` stays f32).
 
     Leaves the JAX apply never reads for scoring (the MLM and NSP heads of
     LXMERT and its AM head's ``logit_W``, the MLM and word-match heads of the
@@ -86,9 +83,6 @@ def params_from_jax(tree: dict) -> Params:
         return {"bert": params["bert"], "logit_fc": params["logit_fc"]}
     enc["attention"] = attention_forms(enc["attention"])
     params["cls"] = {"seq_relationship": params["cls"]["seq_relationship"]}
-    if "kdd_conv1" in params:
-        conv = params["kdd_conv1"]
-        params["kdd_conv1"] = label_conv_band(conv["weights"], conv["biases"])
     return params
 
 

@@ -57,7 +57,7 @@ def load_params(path: str | None, spec):
     tree = load_npz(path)
     if "bert" not in tree:
         raise NotImplementedError("flat TF-variable npz import is not yet ported, see ROADMAP.md")
-    return params_from_jax(tree)
+    return spec.from_jax(params_from_jax(tree))
 
 
 def rewritten_rows(tsv_paths, out_path) -> tuple[int, int]:

@@ -51,25 +51,16 @@ using namespace nvcuda;
 
 namespace {
 
-// Tile shape: 8 warps, 256-column FFN chunks, a 3-stage ring; the macros let
-// ops/tune_layer_tail.py build and time other shapes (PERF.md has the result).
-#ifndef KMR_TAIL_WARPS
-#define KMR_TAIL_WARPS 8
-#endif
-#ifndef KMR_TAIL_CI
-#define KMR_TAIL_CI 256
-#endif
-#ifndef KMR_TAIL_STAGES
-#define KMR_TAIL_STAGES 3
-#endif
+// Tile shape: 8 warps, 256-column FFN chunks, a 3-stage ring (PERF.md has
+// the other shapes timed and why this one).
 constexpr int H = 768;
 constexpr int BM = 32;                   // rows a CTA
-constexpr int WARPS = KMR_TAIL_WARPS, THREADS = WARPS * 32;
+constexpr int WARPS = 8, THREADS = WARPS * 32;
 constexpr int FM = BM / 16;              // row fragments a warp (every warp spans all BM rows)
-constexpr int CI = KMR_TAIL_CI;          // FFN columns a chunk
-constexpr int STAGES = KMR_TAIL_STAGES;
+constexpr int CI = 256;                  // FFN columns a chunk
+constexpr int STAGES = 3;
 constexpr int BK_WIDE = 32;              // K rows a stage of the 768-wide products (Wo, W2)
-constexpr int BK_UP = CI == 256 ? 64 : 32;  // K rows a stage of the CI-wide product (W1 chunk)
+constexpr int BK_UP = 64;                // K rows a stage of the CI-wide product (W1 chunk)
 constexpr int X_LD = H + 8;              // bf16 strides, padded 16 bytes against bank conflicts
 constexpr int H_LD = CI + 8;
 constexpr int WIDE_STAGE = BK_WIDE * (H + 8);

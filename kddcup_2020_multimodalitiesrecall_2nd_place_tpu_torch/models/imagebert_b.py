@@ -93,6 +93,14 @@ def label_conv_band(weights: torch.Tensor, biases: torch.Tensor) -> Params:
             "bias": biases.repeat(CONV_TAPS)}
 
 
+def from_jax(params: Params) -> Params:
+    """``checkpoint.params_from_jax``'s output for a B tree -> the port's
+    layout: kdd_conv1's taps (``weights``/``biases``) banded once, stored as
+    the ``kernel``/``bias`` that ``cast_matmul_weights`` casts like any dense."""
+    conv = params["kdd_conv1"]
+    return {**params, "kdd_conv1": label_conv_band(conv["weights"], conv["biases"])}
+
+
 def init_params(cfg: BertConfig, gen: torch.Generator) -> Params:
     """Random parameters in the port's layout, drawn from ``gen``."""
     h, std = cfg.hidden_size, cfg.initializer_range

@@ -21,6 +21,10 @@ NOT_YET_PORTED = ("two_tower",)
 LXMERT_DEPTHS = ("l_layers", "x_layers", "r_layers")
 
 
+def _as_loaded(params: Params) -> Params:
+    return params
+
+
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
@@ -31,6 +35,8 @@ class ModelSpec:
     input_keys: tuple[str, ...]
     matmul_kernels: tuple[tuple[str, ...], ...]  # the param paths cast to the compute dtype
     sen2forest: bool = False  # the featurizer rewrites queries first (ImageBERT-C)
+    # the model's own step after checkpoint.params_from_jax (ImageBERT-B bands its label conv)
+    from_jax: Callable[[Params], Params] = _as_loaded
 
     def init_params(self, seed: int = 0) -> Params:
         return self.init(torch.Generator().manual_seed(seed))
@@ -80,6 +86,7 @@ def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
             input_keys=imagebert_b.INPUT_KEYS,
             matmul_kernels=imagebert_b.MATMUL_KERNELS,
             sen2forest=(name == "imagebert_c"),
+            from_jax=imagebert_b.from_jax,
         )
     return ModelSpec(
         name,

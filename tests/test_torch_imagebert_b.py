@@ -111,7 +111,8 @@ def _jax_scores(cfg, tree, batch, prec):
 
 
 def _port_scores(cfg, tree, batch, prec):
-    params = cast_matmul_weights(params_from_jax(tree), prec.compute_dtype, imagebert_b.MATMUL_KERNELS)
+    params = cast_matmul_weights(imagebert_b.from_jax(params_from_jax(tree)), prec.compute_dtype,
+                                 imagebert_b.MATMUL_KERNELS)
     batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
     with torch.inference_mode():
         return (imagebert_b.score(params, batch_t, cfg, prec).numpy(),
@@ -160,7 +161,9 @@ def test_params_from_jax_b_tree():
     tree = jax_imagebert_b_params(cfg, seed=5)
     tree["cls"]["predictions"] = {"output_bias": np.zeros(3, np.float32)}  # an MLM head: dropped
     h = cfg.hidden_size
-    params = params_from_jax(tree)
+    loaded = params_from_jax(tree)
+    assert loaded["kdd_conv1"].keys() == {"weights", "biases"}  # the loader leaves the taps to the model
+    params = get_model("imagebert_b", overrides=TINY).from_jax(loaded)
     assert params["cls"].keys() == {"seq_relationship"}
     conv = params["kdd_conv1"]
     assert conv.keys() == {"kernel", "bias"} and conv["kernel"].shape == (8 * h, 8 * h)
