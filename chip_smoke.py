@@ -38,6 +38,22 @@
    do, so it is also reported whether they are bit-equal); ImageBERT-C equal
    to ImageBERT-B bit for bit on every row without the rewrite's trigger; each
    model against its f32 plain path on the CPU for a few pairs.
+4. The attention backends and serving export. Kernel checks: ``mha`` and
+   ``mha_packed`` (``csrc/mha.cu``) against their plain versions at S=40 with
+   no bias, S=30 with ImageBERT-B's [B,1,1,S] key mask, with a [B,1,S,S] and
+   a [B,N,S,S] bias, in bf16 (CARD_ATOL, CARD_RTOL) and f32 (MHA_F32_BAND),
+   timed at B=512 beside their bounds and SDPA. Paths, each with the launch
+   counters around it: ImageBERT-A, -B and -C through
+   ``ScoringEngine(attention_backend="pallas")`` (12 ``mha`` launches a batch,
+   and B/C's label-conv ``gemm``), A held to the plain path within SCORE_BAND,
+   B held to the f32 truth as its kernel path is, C equal to B off the trigger
+   rows; ImageBERT-A in f32 (the engine picks "xla": 0 launches, TF32 off)
+   within F32_SCORE_BAND of the f32 truth; ImageBERT-A exported at B=512 with
+   "pallas_packed" (bit-equal to the engine's default route on one batch, the
+   same kernel launches) and "xla" (within SCORE_BAND of the plain path), each
+   reloaded from ``build/smoke/``; and ``ops/attention.py:mha_packed``, the
+   only entry point of the ``mha_packed`` kernel (no model path reaches it, as
+   in the JAX package).
 
 ``--seed N`` draws the inputs, data and weights from another seed (0 by
 default). Prints the card's name and power limit, a ``{"kernels": [...]}``
@@ -94,6 +110,8 @@ LX_ROUTES = {"lxmert": {}, "lxmert_dual_cross": {"KMR_DUAL_CROSS": True},
 # its worst pair within SCORE_BAND or B_KERNEL_OVER_PLAIN times the plain path's worst in the same run
 B_KERNEL_OVER_PLAIN = 1.25
 CPU_SCORE_BAND = 5e-2  # bf16 kernels vs the f32 plain path on the CPU
+MHA_F32_BAND = 1e-5  # the f32 mha kernels vs their plain versions: summation order only, abs
+F32_SCORE_BAND = 1e-4  # the f32 "xla" route vs the f32 truth (plain blocks in f32), scores on the card
 N_ROWS, SEED = 2048, 0
 
 
@@ -165,6 +183,17 @@ def route(**flags: bool):
     finally:
         for name in ROUTE_FLAGS:
             os.environ.pop(name, None)
+
+
+@contextlib.contextmanager
+def packed_route():
+    """The "pallas_packed" attention backend inside the block: the route of the
+    fused blocks (``models/core.py:Blocks``), which every engine on CUDA in
+    bf16 takes by default, for model calls made outside an engine."""
+    from importlib import import_module
+
+    with import_module(f"{PKG}.ops.attention").attention_backend("pallas_packed"):
+        yield
 
 
 class Smoke:
@@ -589,6 +618,75 @@ class Smoke:
                       PEAK_BF16_FLOPS, F32_OUT_BAND, 0.0)
         return rows
 
+    # ---- phase 2, the attention backends: mha and mha_packed ---------------------
+
+    def mha_cases(self, b: int):
+        """The mha kernels' inputs at batch b, by row name: (q, k, v [b, N, S, 64],
+        their packed [b, S, H] forms, the bias or None): ImageBERT-A's S=40 with no
+        bias; ImageBERT-B's S=30 with its [B,1,1,S] key mask (every fourth pair's
+        keys past the query all masked), with a full [B,1,S,S] bias (a random
+        score bias under the same mask), and with a [B,N,S,S] one (mha only);
+        and the key-mask case in f32."""
+        torch = self.torch
+        cases = {}
+        for name, s, dtype, kind in (("S=40", S, torch.bfloat16, None), ("S=30 key mask", B_S, torch.bfloat16, "key"),
+                                     ("S=30 [B,1,S,S] bias", B_S, torch.bfloat16, "full"),
+                                     ("S=30 [B,N,S,S] bias", B_S, torch.bfloat16, "heads"),
+                                     ("f32 S=30 key mask", B_S, torch.float32, "key")):
+            packed = [self.randn(b, s, H, dtype=dtype) for _ in range(3)]
+            heads = [t.reshape(b, s, N, 64).transpose(1, 2).contiguous() for t in packed]
+            bias = None
+            if kind is not None:
+                bias = self.key_bias(b, s)[:, None, None, :]
+                if kind == "full":
+                    bias = bias + self.randn(b, 1, s, s)
+                elif kind == "heads":
+                    bias = bias + self.randn(b, N, s, s)
+            cases[name] = (heads, packed, bias)
+        return cases
+
+    def check_mha_kernels(self) -> None:
+        """mha and mha_packed against their plain versions at every case of
+        mha_cases (B = CHECK_B): bf16 in the ulp band, f32 within 1e-5."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        for name, (heads, packed, bias) in self.mha_cases(CHECK_B).items():
+            band = (MHA_F32_BAND, 0.0) if name.startswith("f32") else (CARD_ATOL, CARD_RTOL)
+            self.check(f"mha [{name}]", "mha", k.mha(*heads, bias), k.mha_plain(*heads, bias), *band)
+            if bias is None or bias.shape[1] == 1:
+                self.check(f"mha_packed [{name}]", "mha_packed", k.mha_packed(*packed, N, bias),
+                           k.mha_packed_plain(*packed, N, bias), *band)
+
+    def time_mha_kernels(self) -> dict[str, dict]:
+        """Each case at the main path's batch: kernel / plain / SDPA (the bias as
+        a float mask in the inputs' dtype) / bound, held against the plain version
+        once more."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        torch = self.torch
+        F = torch.nn.functional
+        b, rows = MAIN_B, {}
+        for name, (heads, packed, bias) in self.mha_cases(b).items():
+            f32 = name.startswith("f32")
+            band = (MHA_F32_BAND, 0.0) if f32 else (CARD_ATOL, CARD_RTOL)
+            s, el = heads[0].shape[2], heads[0].element_size()
+            nbytes = 4 * b * N * s * 64 * el + (0 if bias is None else nbytes_of((bias,)))
+            flops, peak = 4.0 * b * N * s * s * 64, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+            mask = None if bias is None else bias.to(heads[0].dtype)
+            views = [t.view(b, s, N, 64).transpose(1, 2) for t in packed]  # SDPA on the packed buffers, in place
+            self.time_row(rows, f"mha {name}", "mha", lambda h=heads, bi=bias: k.mha(*h, bi),
+                          lambda h=heads, bi=bias: k.mha_plain(*h, bi),
+                          lambda h=heads, m=mask: F.scaled_dot_product_attention(*h, attn_mask=m),
+                          nbytes, flops, peak, *band)
+            if bias is None or bias.shape[1] == 1:
+                self.time_row(rows, f"mha_packed {name}", "mha_packed", lambda p=packed, bi=bias: k.mha_packed(*p, N, bi),
+                              lambda p=packed, bi=bias: k.mha_packed_plain(*p, N, bi),
+                              lambda v=views, m=mask: F.scaled_dot_product_attention(*v, attn_mask=m),
+                              nbytes, flops, peak, *band)
+        return rows
+
     # ---- phase 3: the main path ----------------------------------------------
 
     def score_main_path(self) -> tuple[dict, dict]:
@@ -646,7 +744,7 @@ class Smoke:
         def run_all(blocks):
             return [imagebert_a.score(engine.params, bt, cfg, engine.precision, blocks) for bt in staged]
 
-        with torch.inference_mode():
+        with torch.inference_mode(), packed_route():
             dev_ms = cuda_ms(torch, lambda: run_all(models.KERNEL_BLOCKS), iters=3, warmup=1)
             plain_dev_ms = cuda_ms(torch, lambda: run_all(models.PLAIN_BLOCKS), iters=1, warmup=1)
             kern = torch.cat(run_all(models.KERNEL_BLOCKS)).float().cpu()
@@ -671,7 +769,7 @@ class Smoke:
 
         # a small input against the f32 plain path on the CPU (the CPU tests' reference)
         small = {key: val[:8] for key, val in staged[0].items()}
-        with torch.inference_mode():
+        with torch.inference_mode(), packed_route():
             ref = imagebert_a.score(params, {key: val.cpu() for key, val in small.items()}, cfg,
                                     models.Precision.f32())
         d_cpu = (kern[:8] - ref).abs().max().item()
@@ -683,6 +781,211 @@ class Smoke:
                  "plain_device_ms": plain_dev_ms, "max_abs_score_err": d_score,
                  "max_abs_score_err_vs_cpu_f32": d_cpu, "identical_rankings": [same_rank, n_q]}
         return launches, stats.batches, rates
+
+    def time_unfused_layer(self, enc_params, cfg, prec, backend: str, bias, s: int) -> dict:
+        """Layer 0's attention block and FFN block through ``models/core.py``
+        under ``backend`` (the unfused route of "xla" and "pallas"), at B=MAIN_B,
+        length s, on seeded inputs in the compute dtype: ms of each."""
+        from importlib import import_module
+
+        torch = self.torch
+        core = import_module(f"{PKG}.models.core")
+        att = import_module(f"{PKG}.ops.attention")
+        lp = core.layer_slice(enc_params, 0)
+        x = self.randn(MAIN_B, s, H, dtype=prec.compute_dtype)
+        with torch.inference_mode(), att.attention_backend(backend):
+            a_ms = cuda_ms(torch, lambda: core.attention_block(lp["attention"], x, bias, cfg, prec), iters=10)
+            f_ms = cuda_ms(torch, lambda: core.ffn_block(lp["ffn"], x, cfg, prec), iters=10)
+        return {"attention_block_ms": a_ms, "ffn_block_ms": f_ms}
+
+    def score_imagebert_a_backends(self) -> tuple[dict[str, dict], int, dict]:
+        """ImageBERT-A at full width through ScoringEngine on the "pallas" backend
+        (bf16: the unfused route, each attention core one mha launch) and in f32
+        (the engine picks "xla" by itself: plain f32 products, TF32 off), with the
+        launch counters around each run; then the serving export of the same
+        weights, "pallas_packed" and "xla" in bf16, each reloaded and scoring one
+        staged batch with the counters around it. Scores: "pallas" within
+        SCORE_BAND of the plain path, as the default route is held; f32 within
+        F32_SCORE_BAND of the f32 truth; the "pallas_packed" artifact bit-equal to
+        the engine's default route on the same batch with the same kernel
+        launches; the "xla" artifact within SCORE_BAND of the plain path."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        models = import_module(f"{PKG}.models")
+        imagebert_a = import_module(f"{PKG}.models.imagebert_a")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        tok = import_module(f"{PKG}.tokenization")
+        att = import_module(f"{PKG}.ops.attention")
+        kernels = import_module(f"{PKG}.ops.kernels")
+        serving = import_module(f"{PKG}.serving")
+
+        work = pkg.BUILD_DIR / "smoke"
+        work.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        tsv = work / "pairs_backends.tsv"
+        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=self.seed)) + "\n")
+        labels = work / "labels.txt"
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        spec = models.get_model("imagebert_a")
+        cfg = spec.config
+        if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads) != (H, 12, N):
+            raise RuntimeError(f"not the full-width config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
+        params = spec.init_params(self.seed)
+        bf16, f32 = models.Precision.bf16(), models.Precision.f32()
+        engines = {
+            "imagebert_a_pallas": engine_mod.ScoringEngine(spec, params, device=self.dev, precision=bf16,
+                                                           attention_backend="pallas"),
+            "imagebert_a_f32": engine_mod.ScoringEngine(spec, params, device=self.dev, precision=f32),
+        }
+        default = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=bf16)
+        tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
+        log(f"backends: the f32 engine picked {engines['imagebert_a_f32'].attention_backend!r}, the bf16 one "
+            f"{default.attention_backend!r}; TF32 {tf32}")
+        if engines["imagebert_a_f32"].attention_backend != "xla" or default.attention_backend != "pallas_packed":
+            raise RuntimeError("the engine's default backend rule picked another backend")
+        if any(tf32.values()):
+            raise RuntimeError("TF32 is on in f32 mode")
+        featurizer = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH),
+                                     data.load_multimodal_labels(labels))
+        log(f"setup: {N_ROWS}-row TSV and {cfg.num_hidden_layers}x{cfg.hidden_size} params in "
+            f"{time.perf_counter() - t0:.1f} s")
+        batches = list(data.batches_from_files([tsv], featurizer.imagebert_a, MAIN_B))
+        for engine in (*engines.values(), default):  # warm-up
+            engine.score_batch(batches[0])
+        torch.cuda.synchronize()
+
+        launches, results, rates = {}, {}, {}
+        counted = launch_counters()
+        for run, engine in engines.items():
+            for w in counted:
+                w.launches = 0
+            stats = engine_mod.ScoringStats()
+            results[run] = engine.score_files([tsv], featurizer, MAIN_B, stats=stats)
+            torch.cuda.synchronize()
+            launches[run] = {w.__name__: w.launches for w in counted}
+            log(f"main path {run}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
+                f"{stats.pairs_per_second:.1f} pairs/s end to end (host parse + featurize included)")
+            log(f"launches {run}: {json.dumps(launches[run])}")
+            if stats.pairs != N_ROWS:
+                raise RuntimeError(f"{run} scored {stats.pairs} pairs, expected {N_ROWS}")
+            rates[run] = {"pairs": stats.pairs, "seconds": stats.seconds, "pairs_per_second": stats.pairs_per_second}
+
+        staged = [default.to_device(bt) for bt in batches]
+        n_pad = len(batches) * MAIN_B
+
+        def run_all(engine, blocks=models.KERNEL_BLOCKS):
+            return torch.cat([imagebert_a.score(engine.params, bt, cfg, engine.precision, blocks)
+                              for bt in staged]).float()
+
+        scores = {}
+        with torch.inference_mode():
+            for run, engine in engines.items():
+                with att.attention_backend(engine.attention_backend):
+                    dev_ms = cuda_ms(torch, lambda: run_all(engine), iters=3, warmup=1)
+                    scores[run] = run_all(engine).cpu()
+                rates[run].update(device_ms=dev_ms, device_pairs=n_pad, device_pairs_per_second=n_pad / dev_ms * 1e3)
+                log(f"device {run}: model alone {dev_ms:.3f} ms for {n_pad} padded pairs = "
+                    f"{n_pad / dev_ms * 1e3:.1f} pairs/s")
+            with packed_route():
+                plain_all = run_all(default, models.PLAIN_BLOCKS).cpu()
+                truth = run_all(engines["imagebert_a_f32"], models.PLAIN_BLOCKS).cpu()  # plain blocks in f32
+        valid = torch.from_numpy(np.concatenate([bt["valid"] for bt in batches]))
+        pallas, s32, plain, truth = (t[valid] for t in (scores["imagebert_a_pallas"], scores["imagebert_a_f32"],
+                                                         plain_all, truth))
+        for name, t in (("pallas", pallas), ("f32", s32)):
+            if not bool(torch.isfinite(t).all()) or t.shape != (N_ROWS,):
+                raise RuntimeError(f"ImageBERT-A {name} scores are not finite or of the wrong shape")
+        d_pallas, d_f32 = (pallas - plain).abs().max().item(), (s32 - truth).abs().max().item()
+        d_engine = max(
+            (torch.tensor([results[run][str(q)][str(p)] for bt in batches
+                           for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]) - t).abs().max().item()
+            for run, t in (("imagebert_a_pallas", pallas), ("imagebert_a_f32", s32))
+        )
+        same_rank, n_q = self.ranking_agreement(batches, pallas, plain)
+        log(f"scores imagebert_a: \"pallas\" vs the plain path max |d| = {d_pallas:.6g} (band {SCORE_BAND:g}), "
+            f"identical per-query ranking in {same_rank}/{n_q} queries; f32 (\"xla\") vs the f32 truth max |d| = "
+            f"{d_f32:.6g} (band {F32_SCORE_BAND:g}); engine vs staged = {d_engine:.3g}")
+        if d_pallas > SCORE_BAND or d_f32 > F32_SCORE_BAND or d_engine > 1e-6:
+            raise RuntimeError("ImageBERT-A on \"pallas\" or in f32 disagrees with its reference")
+        rates["imagebert_a_pallas"].update(max_abs_score_err_vs_plain=d_pallas, identical_rankings=[same_rank, n_q],
+                                           layers=self.time_unfused_layer(default.params["bert"]["encoder"], cfg,
+                                                                          bf16, "pallas", None, S))
+        rates["imagebert_a_f32"].update(max_abs_score_err_vs_f32_truth=d_f32, tf32=tf32,
+                                        layers=self.time_unfused_layer(
+                                            engines["imagebert_a_f32"].params["bert"]["encoder"], cfg, f32, "xla",
+                                            None, S))
+
+        # the serving export: one staged batch through each reloaded artifact, the counters around it
+        bt0 = batches[0]
+        with torch.inference_mode():
+            for w in counted:
+                w.launches = 0
+            live = default.score_batch(bt0).float().cpu()
+            torch.cuda.synchronize()
+        live_launches = {w.__name__: w.launches for w in counted}
+        art, export = {}, {}
+        for backend in ("pallas_packed", "xla"):
+            t0 = time.perf_counter()
+            out_dir = work / f"export_imagebert_a_{backend}"
+            meta = serving.save_scorer(out_dir, serving.export_scorer(spec, params, MAIN_B, bf16, backend, self.dev),
+                                       spec, MAIN_B, backend)
+            scorer = serving.load_scorer(out_dir)
+            seconds = time.perf_counter() - t0
+            feats = {key: bt0[key] for key in scorer.feature_keys}
+            scorer(feats)  # warm-up
+            torch.cuda.synchronize()
+            for w in counted:
+                w.launches = 0
+            art[backend] = torch.from_numpy(scorer(feats))
+            torch.cuda.synchronize()
+            run = f"imagebert_a_export_{backend}"
+            launches[run] = {w.__name__: w.launches for w in counted}
+            size = sum(f.stat().st_size for f in out_dir.iterdir())
+            export[backend] = {"export_save_load_seconds": seconds, "bytes": size, "custom_ops": meta["custom_ops"]}
+            log(f"export {backend}: traced, saved ({size / 1e6:.1f} MB) and reloaded in {seconds:.1f} s; custom ops "
+                f"{meta['custom_ops']}; launches on one batch: {json.dumps(launches[run])}")
+        kernel_names = [w.__name__ for w in kernels.WRAPPERS]
+        same_launches = all(live_launches[k] == launches["imagebert_a_export_pallas_packed"][k] for k in kernel_names)
+        bit_equal = bool(torch.equal(art["pallas_packed"], live))
+        d_xla = (art["xla"] - plain_all[:MAIN_B]).abs().max().item()
+        export["pallas_packed"].update(bit_equal_to_engine=bit_equal, same_kernel_launches=same_launches)
+        export["xla"].update(max_abs_score_err_vs_plain=d_xla)
+        log(f"export: the \"pallas_packed\" artifact vs the engine's default route on one batch: bit-equal "
+            f"{bit_equal}, the same kernel launches {same_launches} (engine: {json.dumps(live_launches)}); the "
+            f"\"xla\" artifact vs the plain path max |d| = {d_xla:.6g} (band {SCORE_BAND:g})")
+        if not bit_equal or not same_launches or d_xla > SCORE_BAND:
+            raise RuntimeError("the exported artifacts do not score as the engine does")
+        rates["export"] = export
+        return launches, len(batches), rates
+
+    def drive_mha_packed(self) -> dict:
+        """``ops/attention.py:mha_packed``, the one entry point that reaches the
+        mha_packed kernel (no model path does, as in the JAX package), at
+        ImageBERT-A's shape, with the counters around the call; its output held
+        against the plain version."""
+        from importlib import import_module
+
+        torch = self.torch
+        att = import_module(f"{PKG}.ops.attention")
+        k = import_module(f"{PKG}.ops.kernels")
+        q, kk, v = (self.randn(MAIN_B, S, H, dtype=torch.bfloat16) for _ in range(3))
+        counted = launch_counters()
+        torch.cuda.synchronize()
+        for w in counted:
+            w.launches = 0
+        out = att.mha_packed(q, kk, v, N)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in counted}
+        log(f"launches mha_packed entry point: {json.dumps(launches)}")
+        self.check("ops/attention.py:mha_packed [S=40]", "mha_packed", out, k.mha_packed_plain(q, kk, v, N),
+                   CARD_ATOL, CARD_RTOL)
+        return launches
 
     def score_lxmert(self) -> tuple[dict[str, dict], int, dict]:
         """LXMERT at full width through ScoringEngine, on its default route,
@@ -750,7 +1053,7 @@ class Smoke:
 
         n_pad = len(batches) * MAIN_B
         scores = {}
-        with torch.inference_mode():
+        with torch.inference_mode(), packed_route():
             for run, flags in LX_ROUTES.items():
                 with route(**flags):
                     dev_ms = cuda_ms(torch, lambda: run_all(models.KERNEL_BLOCKS), iters=3, warmup=1)
@@ -798,7 +1101,7 @@ class Smoke:
             raise RuntimeError("LXMERT scores disagree with the f32 truth, the plain path or across routes")
 
         small = {key: val[:8].cpu() for key, val in staged[0].items()}
-        with torch.inference_mode():
+        with torch.inference_mode(), packed_route():
             ref = lxmert.score(params, small, cfg, models.Precision.f32())
         d_cpu = (kern[:8] - ref).abs().max().item()
         log(f"scores lxmert: max |d| bf16 kernels vs f32 plain on the CPU, 8 pairs = {d_cpu:.6g} "
@@ -832,6 +1135,7 @@ class Smoke:
         imagebert_b = import_module(f"{PKG}.models.imagebert_b")
         engine_mod = import_module(f"{PKG}.parallel.engine")
         tok = import_module(f"{PKG}.tokenization")
+        att = import_module(f"{PKG}.ops.attention")
 
         work = pkg.BUILD_DIR / "smoke"
         work.mkdir(parents=True, exist_ok=True)
@@ -851,6 +1155,14 @@ class Smoke:
         bf16 = models.Precision.bf16()
         engines = {"imagebert_b": engine_mod.ScoringEngine(spec_b, params, device=self.dev, precision=bf16),
                    "imagebert_c": engine_mod.ScoringEngine(spec_c, params, device=self.dev, precision=bf16)}
+        for name, spec in (("imagebert_b", spec_b), ("imagebert_c", spec_c)):  # the "pallas" backend
+            engines[f"{name}_pallas"] = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=bf16,
+                                                                 attention_backend="pallas")
+        # run name, model, KMR_FUSED_LAYER; a run ending in _pallas takes its own engine
+        runs = (("imagebert_b", "imagebert_b", False), ("imagebert_b_fused_layer", "imagebert_b", True),
+                ("imagebert_c", "imagebert_c", False), ("imagebert_b_pallas", "imagebert_b", False),
+                ("imagebert_c_pallas", "imagebert_c", False))
+        engine_of = {run: engines[run if run.endswith("_pallas") else model] for run, model, _ in runs}
         google = tok.FullTokenizer.google_style(pkg.VOCAB_PATH)
         label_texts = data.load_multimodal_labels(labels)
         featurizers = {"imagebert_b": data.Featurizer(google, label_texts),
@@ -863,17 +1175,17 @@ class Smoke:
         for fused in (False, True):  # warm-up of both routes
             with route(KMR_FUSED_LAYER=fused):
                 engine.score_batch(batches["imagebert_b"][0])
+        engines["imagebert_b_pallas"].score_batch(batches["imagebert_b"][0])
         torch.cuda.synchronize()
 
         launches, results, rates = {}, {}, {}
         counted = launch_counters()
-        for run, model, fused in (("imagebert_b", "imagebert_b", False), ("imagebert_b_fused_layer", "imagebert_b", True),
-                                  ("imagebert_c", "imagebert_c", False)):
+        for run, model, fused in runs:
             with route(KMR_FUSED_LAYER=fused):
                 for w in counted:
                     w.launches = 0
                 stats = engine_mod.ScoringStats()
-                results[run] = engines[model].score_files([tsv], featurizers[model], MAIN_B, stats=stats)
+                results[run] = engine_of[run].score_files([tsv], featurizers[model], MAIN_B, stats=stats)
                 torch.cuda.synchronize()
                 launches[run] = {w.__name__: w.launches for w in counted}
             log(f"main path {run}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
@@ -890,11 +1202,9 @@ class Smoke:
             return torch.cat([imagebert_b.apply(p, bt, cfg, prec, blocks)[out] for bt in staged[model]]).float()
 
         scores = {}
-        with torch.inference_mode():
-            for run, model, fused in (("imagebert_b", "imagebert_b", False),
-                                      ("imagebert_b_fused_layer", "imagebert_b", True),
-                                      ("imagebert_c", "imagebert_c", False)):
-                with route(KMR_FUSED_LAYER=fused):
+        with torch.inference_mode(), packed_route():
+            for run, model, fused in runs:
+                with route(KMR_FUSED_LAYER=fused), att.attention_backend(engine_of[run].attention_backend):
                     dev_ms = cuda_ms(torch, lambda: run_all(model, models.KERNEL_BLOCKS), iters=3, warmup=1)
                     scores[run] = run_all(model, models.KERNEL_BLOCKS).cpu()
                 rates[run].update(device_ms=dev_ms, device_pairs=n_pad, device_pairs_per_second=n_pad / dev_ms * 1e3)
@@ -912,7 +1222,9 @@ class Smoke:
         valid = torch.from_numpy(np.concatenate([bt["valid"] for bt in batches["imagebert_b"]]))
         kern, fused, c_scores, plain, ref32, cos32 = (t[valid] for t in (
             scores["imagebert_b"], scores["imagebert_b_fused_layer"], scores["imagebert_c"], plain, ref32, cos32))
-        for name, t in (("kernel", kern), ("fused", fused), ("imagebert_c", c_scores)):
+        pallas, c_pallas = scores["imagebert_b_pallas"][valid], scores["imagebert_c_pallas"][valid]
+        for name, t in (("kernel", kern), ("fused", fused), ("imagebert_c", c_scores), ("pallas", pallas),
+                        ("imagebert_c pallas", c_pallas)):
             if not bool(torch.isfinite(t).all()) or t.shape != (N_ROWS,):
                 raise RuntimeError(f"ImageBERT-B {name} scores are not finite or of the wrong shape")
         # pairs whose f32 cos for the fed class is within 1e-3 of the margin can flip the margin on a
@@ -921,7 +1233,8 @@ class Smoke:
         keep = ~near
         spread = {}
         for label, a, b_ in (("kernel-plain", kern, plain), ("kernel-f32", kern, ref32), ("plain-f32", plain, ref32),
-                             ("fused-default", fused, kern), ("fused-f32", fused, ref32)):
+                             ("fused-default", fused, kern), ("fused-f32", fused, ref32), ("pallas-f32", pallas, ref32),
+                             ("pallas-plain", pallas, plain)):
             d = (a - b_)[keep].abs()
             spread[label] = {"max": d.max().item(), "mean": d.mean().item(), "p99": d.quantile(0.99).item()}
         log(f"scores imagebert_b |d| spread (f32 = plain blocks in f32 on the card): {json.dumps(spread)}")
@@ -932,10 +1245,14 @@ class Smoke:
         off = ~trigger
         c_equal = bool(torch.equal(c_scores[off], kern[off]))
         c_moved = int((c_scores[trigger] != kern[trigger]).sum())
+        pallas_truth, pallas_p99 = spread["pallas-f32"]["max"], spread["pallas-f32"]["p99"]
+        c_pallas_equal = bool(torch.equal(c_pallas[off], pallas[off]))
+        c_pallas_moved = int((c_pallas[trigger] != pallas[trigger]).sum())
         d_engine = max(
             (torch.tensor([results[run][str(q)][str(p)] for bt in batches["imagebert_b"]
                            for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]) - t).abs().max().item()
-            for run, t in (("imagebert_b", kern), ("imagebert_b_fused_layer", fused), ("imagebert_c", c_scores))
+            for run, t in (("imagebert_b", kern), ("imagebert_b_fused_layer", fused), ("imagebert_c", c_scores),
+                           ("imagebert_b_pallas", pallas), ("imagebert_c_pallas", c_pallas))
         )
         same_rank, n_q = self.ranking_agreement(batches["imagebert_b"], kern, plain)
         log(f"scores imagebert_b: range [{kern.min().item():.5f}, {kern.max().item():.5f}], f32 cos of the fed class "
@@ -949,14 +1266,22 @@ class Smoke:
             f"staged = {d_engine:.3g}, identical per-query ranking in {same_rank}/{n_q} queries")
         log(f"scores imagebert_c: equal to imagebert_b bit for bit on all {int(off.sum())} rows without the trigger: "
             f"{c_equal}; {c_moved} of {int(trigger.sum())} trigger rows differ")
+        log(f"scores imagebert_b on \"pallas\": |d| vs the f32 truth p99 {pallas_p99:.6g} (band {SCORE_BAND:g}), max "
+            f"{pallas_truth:.6g} (band {kern_band:.6g}); vs the plain path max {spread['pallas-plain']['max']:.6g}; "
+            f"imagebert_c on \"pallas\" equal to imagebert_b on \"pallas\" bit for bit off the trigger rows: "
+            f"{c_pallas_equal}; {c_pallas_moved} trigger rows differ")
         if (p99_truth > SCORE_BAND or plain_truth > SCORE_BAND or kern_truth > kern_band
                 or d_pair > 2 * SCORE_BAND or d_route > SCORE_BAND or d_engine > 1e-6):
             raise RuntimeError("ImageBERT-B scores disagree with the f32 truth, the plain path or across routes")
         if not c_equal or c_moved == 0:
             raise RuntimeError("ImageBERT-C is not ImageBERT-B plus the sen2forest rewrite")
+        if pallas_p99 > SCORE_BAND or pallas_truth > kern_band:
+            raise RuntimeError("ImageBERT-B on the \"pallas\" backend disagrees with the f32 truth")
+        if not c_pallas_equal or c_pallas_moved == 0:
+            raise RuntimeError("ImageBERT-C on \"pallas\" is not ImageBERT-B on \"pallas\" plus the sen2forest rewrite")
 
         small = {key: val[:8].cpu() for key, val in staged["imagebert_b"][0].items()}
-        with torch.inference_mode():
+        with torch.inference_mode(), packed_route():
             ref = imagebert_b.score(params, small, cfg, models.Precision.f32())
         d_cpu = (kern[:8] - ref).abs().max().item()
         log(f"scores imagebert_b: max |d| bf16 kernels vs f32 plain on the CPU, 8 pairs = {d_cpu:.6g} "
@@ -967,6 +1292,9 @@ class Smoke:
                                     max_abs_score_err_vs_cpu_f32=d_cpu, identical_rankings=[same_rank, n_q])
         rates["imagebert_c"].update(equal_off_trigger=c_equal, trigger_rows=int(trigger.sum()),
                                     trigger_rows_moved=c_moved)
+        rates["imagebert_c_pallas"].update(equal_off_trigger=c_pallas_equal, trigger_rows_moved=c_pallas_moved)
+        rates["imagebert_b_pallas"]["layers"] = self.time_unfused_layer(
+            engine.params["bert"]["encoder"], cfg, bf16, "pallas", self.key_bias(MAIN_B, B_S), B_S)
         return launches, len(batches["imagebert_b"]), rates
 
     @staticmethod
@@ -985,6 +1313,7 @@ class Smoke:
 PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
 PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
 PER_B = f"one ImageBERT-B layer at B={MAIN_B}, S={B_S} (fused route)"
+PER_MHA = f"one attention core at B={MAIN_B}, S={S}, bf16, no bias (ImageBERT-A's; the other cases under \"shapes\")"
 KERNELS = [
     # name, source, TPU kernel it replaces, the rows of time_kernels() / time_lxmert_kernels()
     # that make up one layer's launches, and which layer that is
@@ -1008,6 +1337,9 @@ KERNELS = [
      [f"encoder_layer S={B_S}"], PER_B),
     ("layer_tail", f"{PKG}/csrc/layer_tail.cu", f"{TPU_PKG_DIR}/ops/pallas_layer.py:84",
      [f"layer_tail S={B_S}"], PER_B),
+    ("mha", f"{PKG}/csrc/mha.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:49", [f"mha S={S}"], PER_MHA),
+    ("mha_packed", f"{PKG}/csrc/mha.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:136", [f"mha_packed S={S}"],
+     PER_MHA),
 ]
 # the GEMM's "f32" epilogue (ImageBERT-B's banded label conv, one launch a batch) rides in the
 # gemm_bf16 entry under this key, timed alone at B=512
@@ -1041,6 +1373,8 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
         if name == "gemm_bf16":
             out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
                                        f"512-pair ImageBERT-B batch"}
+        if name.startswith("mha"):
+            out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
     return {"kernels": out}
 
 
@@ -1081,6 +1415,29 @@ def imagebert_b_breakdown(times: dict, rates: dict, n_batches: int) -> dict:
     return out
 
 
+def backends_breakdown(times: dict, a_rates: dict, a_batches: int, b_rates: dict, b_batches: int) -> dict:
+    """One 512-pair batch on the device on the "pallas" backend (ImageBERT-A,
+    ImageBERT-B) and in f32 on "xla" (ImageBERT-A): the 12 layers' attention and
+    FFN blocks, each timed alone through ``models/core.py`` (of which the mha
+    launches, timed alone), ImageBERT-B's label conv, and the rest of the
+    measured model time (embeddings, pooler, head, gaps)."""
+    out = {}
+    for run, rates, n, mha_row, conv in (("imagebert_a_pallas", a_rates, a_batches, f"mha S={S}", False),
+                                         ("imagebert_b_pallas", b_rates, b_batches, f"mha S={B_S} key mask", True),
+                                         ("imagebert_a_f32", a_rates, a_batches, None, False)):
+        layers = rates[run]["layers"]
+        r = {"attention_blocks": 12 * layers["attention_block_ms"], "ffn_blocks": 12 * layers["ffn_block_ms"]}
+        if conv:
+            r["label_conv"] = times[F32_EPILOGUE_ROW]["ms"]
+        model = rates[run]["device_ms"] / n
+        r["rest"] = model - sum(r.values())
+        r["model"] = model
+        if mha_row:
+            r["of_the_attention_blocks_mha"] = 12 * times[mha_row]["ms"]
+        out[run] = r
+    return out
+
+
 def expected_launches(n: int, per_batch: dict) -> dict:
     """Every counter's expected launches over n batches; unnamed counters 0."""
     return {w.__name__: n * per_batch.get(w.__name__, 0) for w in launch_counters()}
@@ -1103,8 +1460,21 @@ PER_BATCH = {
     # 12 layers and the label conv's gemm ("f32" epilogue); C is B's path on rewritten queries
     "imagebert_b": {"attention_block": 12, "ffn_block": 12, "gemm": 48 + 1, "attn_core": 12, "layernorm": 24},
     "imagebert_b_fused_layer": {"encoder_layer": 12, "gemm": 12 + 1, "attn_core": 12, "layer_tail": 12},
+    # the "pallas" backend: the unfused route, each self-attention core one mha launch; B and C keep
+    # the label conv's gemm, one XLA dot under every backend in the JAX package
+    "imagebert_a_pallas": {"mha": 12},
+    "imagebert_b_pallas": {"mha": 12, "gemm": 1},
+    # f32 on the card: the engine's "xla" route, plain products only
+    "imagebert_a_f32": {},
+    # one batch through each reloaded artifact: the default route's kernel launches, and no block
+    # counter (the blocks are Python compositions, which an artifact does not hold)
+    "imagebert_a_export_pallas_packed": {"gemm": 48, "attn_core": 12, "layernorm": 24},
+    "imagebert_a_export_xla": {},
+    # one call of ops/attention.py:mha_packed, the kernel's only entry point
+    "mha_packed_entry": {"mha_packed": 1},
 }
 PER_BATCH["imagebert_c"] = PER_BATCH["imagebert_b"]
+PER_BATCH["imagebert_c_pallas"] = PER_BATCH["imagebert_b_pallas"]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1144,11 +1514,13 @@ def main(argv: list[str] | None = None) -> int:
         smoke.check_kernels(weights)
         smoke.check_lxmert_kernels(weights)
         smoke.check_layer_kernels(weights)
+        smoke.check_mha_kernels()
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         times = smoke.time_kernels(weights)
         times.update(smoke.time_lxmert_kernels(weights))
         times.update(smoke.time_layer_kernels(weights))
+        times.update(smoke.time_mha_kernels())
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         launches, n_batches, rates = smoke.score_main_path()
@@ -1170,7 +1542,20 @@ def main(argv: list[str] | None = None) -> int:
                 raise RuntimeError(f"{run} launches {counts}, expected {expected}")
         log(json.dumps({"end_to_end_imagebert_b": b_rates}))
         log(json.dumps({"imagebert_b_device_ms_per_batch": imagebert_b_breakdown(times, b_rates, b_batches)}))
-        all_launches = {"imagebert_a": launches, **lx_launches, **b_launches}
+        a_launches, a_batches, a_rates = smoke.score_imagebert_a_backends()
+        for run, counts in a_launches.items():
+            n = 1 if run.startswith("imagebert_a_export") else a_batches
+            expected = expected_launches(n, PER_BATCH[run])
+            if counts != expected or a_batches == 0:
+                raise RuntimeError(f"{run} launches {counts}, expected {expected}")
+        log(json.dumps({"end_to_end_backends": a_rates}))
+        log(json.dumps({"backends_device_ms_per_batch": backends_breakdown(times, a_rates, a_batches, b_rates,
+                                                                            b_batches)}))
+        packed = smoke.drive_mha_packed()
+        if packed != expected_launches(1, PER_BATCH["mha_packed_entry"]) or smoke.failures:
+            raise RuntimeError(f"mha_packed entry point: launches {packed}, failures {smoke.failures}")
+        all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
+                        "mha_packed_entry": packed}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:

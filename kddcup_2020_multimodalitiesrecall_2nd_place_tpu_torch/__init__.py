@@ -6,9 +6,10 @@ port imports ``torch`` and ``numpy`` only; every TPU kernel of the ported
 path is a hand-written CUDA kernel for Hopper (``csrc/``), with a plain
 PyTorch version beside it (``ops/``).
 
-Ported so far: ImageBERT-A and LXMERT scoring (tokenizers, data layer,
-models, scoring engine, ``cli/score.py``). ROADMAP.md lists what is still
-to come.
+Ported so far: scoring with all four scorers, ImageBERT-A, -B, -C and LXMERT
+(tokenizers, data layer, models, scoring engine, ``cli/score.py``), under
+each attention backend, and the AOT serving export (``serving/``,
+``cli/export.py``). ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,10 @@ rewrite changes and copies every other score from ImageBERT-B's file.
 ``KMR_FUSED_LAYER=1`` runs each ImageBERT layer, and each LXMERT x-layer's
 self-attention + FFN, as one fused encoder layer.
 
-Runs on the card by default (bf16, through the CUDA kernels); ``--device
-cpu`` runs the plain versions (f32 by default). Example:
+Runs on the card by default (bf16, through the CUDA kernels of the
+"pallas_packed" attention backend); ``--precision f32`` runs the plain f32
+route there ("xla", TF32 off), as the JAX engine does; ``--device cpu`` runs
+the plain versions (f32 by default). Example:
 
   python -m kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli.score \\
       --model imagebert_a --tsv testB.tsv --labels multimodal_labels.txt \\
@@ -90,7 +92,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--out", required=True)
     ap.add_argument("--batch-size", type=int, default=512)
     ap.add_argument("--precision", choices=["f32", "bf16"], default=None,
-                    help="default: bf16 on cuda, f32 on cpu (f32 on cuda is not yet ported)")
+                    help="default: bf16 on cuda (the kernels), f32 on cpu; f32 on cuda runs plain f32 products")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--answers", default=None,
                     help="valid_answer.json: report nDCG@5 of this scorer")

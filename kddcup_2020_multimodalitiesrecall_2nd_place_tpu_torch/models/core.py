@@ -3,11 +3,14 @@
 * ``BertConfig`` (mirrors ``assets/user_data/bert_config.json``),
 * ``Precision``: the compute dtype plus the float32 matmul policy,
 * ``dense`` and ``layer_norm`` (eps 1e-12, float32 internals),
-* the post-LN encoder, a loop over ``[L]``-stacked layer parameters whose
-  layers are the fused attention and FFN blocks of ``ops/``, or with
-  ``KMR_FUSED_LAYER=1`` one fused encoder layer each,
-* the cross-attention block and the pair of shared-weight cross directions
-  of an LXMERT x-layer,
+* the post-LN encoder, a loop over ``[L]``-stacked layer parameters, and its
+  blocks: the self- and cross-attention blocks, the FFN block and the pair of
+  shared-weight cross directions of an LXMERT x-layer. Which route a block
+  takes follows the attention backend (``ops/attention.py``), as in the JAX
+  package: under "pallas_packed" the fused blocks of ``ops/`` (``Blocks``),
+  or with ``KMR_FUSED_LAYER=1`` one fused encoder layer each; under "xla" and
+  "pallas" the unfused route of plain products around ``ops/attention.py:mha``
+  (its ``models/core.py`` :331-360 and :497-504),
 * embedding and pooler pieces, and initialisers (truncated normal,
   stddev=initializer_range, as ``pixelmodel.py:418-420``).
 
@@ -30,6 +33,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..ops.activations import gelu_erf, gelu_tanh
+from ..ops.attention import merge_heads, mha, packed_attention_active, split_heads
 from ..ops.attention_block import attention_block as attention_block_op
 from ..ops.attention_block import attention_block_plain
 from ..ops.cross_attention_block import cross_attention_block as cross_attention_block_op
@@ -40,7 +45,8 @@ from ..ops.encoder_layer import encoder_layer as encoder_layer_op
 from ..ops.encoder_layer import encoder_layer_plain
 from ..ops.ffn_block import ffn_block as ffn_block_op
 from ..ops.ffn_block import ffn_block_plain
-from ..ops.kernels import gemm, gemm_plain, layernorm_plain
+from ..ops.kernels import gemm_plain, layernorm_plain
+from ..ops.library import gemm
 
 Params = dict[str, Any]
 
@@ -94,8 +100,9 @@ class Precision:
 
 
 class Blocks(NamedTuple):
-    """The block functions the models call, and the GEMM of ImageBERT-B's
-    banded label conv (its "f32" epilogue)."""
+    """The fused block functions the models call under the "pallas_packed"
+    backend, and the GEMM of ImageBERT-B's banded label conv (its "f32"
+    epilogue), which every backend runs."""
 
     attention: Callable[..., torch.Tensor]
     ffn: Callable[..., torch.Tensor]
@@ -105,7 +112,7 @@ class Blocks(NamedTuple):
     gemm: Callable[..., torch.Tensor]
 
 
-# the wrappers: plain versions on CPU tensors, the CUDA kernels on CUDA tensors
+# the kernels (custom ops over the wrappers): plain versions on CPU tensors, the CUDA kernels on CUDA tensors
 KERNEL_BLOCKS = Blocks(attention_block_op, ffn_block_op, cross_attention_block_op,
                        dual_cross_attention_block_op, encoder_layer_op, gemm)
 # the oracles, on any device (chip_smoke.py holds the kernels against them)
@@ -113,6 +120,7 @@ PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain, cross_attention_bl
                       dual_cross_attention_block_plain, encoder_layer_plain, gemm_plain)
 
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
+GELU = {"gelu": gelu_tanh, "gelu_erf": gelu_erf}
 
 
 # --------------------------------------------------------------------------
@@ -199,8 +207,32 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12, out_dtype=None) -
 # --------------------------------------------------------------------------
 
 
-def attention_block(p: Params, x, bias, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS):
+def _bias4(bias):
+    """None, [B, T] key-mask rows or a 4-D bias -> a bias broadcastable to [B, N, F, T]."""
+    return bias[:, None, None, :] if bias is not None and bias.dim() == 2 else bias
+
+
+def unfused_attention(p: Params, x, ctx, bias, cfg: BertConfig, prec: Precision):
+    """The "xla" and "pallas" route of an attention block (the JAX package's
+    ``models/core.py`` :331-360): the QKV product (Q from x, and one [H, 2H]
+    product for K, V from ``ctx`` when it is given), ``split_heads``,
+    ``ops/attention.py:mha``, ``merge_heads``, the output product, the
+    residual and the LayerNorm, emitted in the compute dtype."""
+    n, dt = cfg.num_attention_heads, prec.compute_dtype
+    if ctx is None:
+        q, k, v = dense(p["qkv"], x, prec).to(dt).chunk(3, dim=-1)
+    else:
+        q = dense(p["query"], x, prec).to(dt)
+        k, v = dense(p["kv"], ctx, prec).to(dt).chunk(2, dim=-1)
+    o = mha(split_heads(q, n), split_heads(k, n), split_heads(v, n), _bias4(bias))
+    o = dense(p["output"]["dense"], merge_heads(o), prec)
+    return layer_norm(p["output"]["LayerNorm"], o + x.float(), out_dtype=dt)
+
+
+def attention_block(p: Params, x, bias, cfg: BertConfig, prec: Precision, blocks: Blocks = KERNEL_BLOCKS):
     """Post-LN self-attention block of one layer (no dropout: inference)."""
+    if not packed_attention_active():
+        return unfused_attention(p, x, None, bias, cfg, prec)
     out = p["output"]
     return blocks.attention(
         x, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
@@ -208,8 +240,11 @@ def attention_block(p: Params, x, bias, cfg: BertConfig, blocks: Blocks = KERNEL
     )
 
 
-def cross_attention_block(p: Params, x, ctx, bias, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS):
+def cross_attention_block(p: Params, x, ctx, bias, cfg: BertConfig, prec: Precision,
+                          blocks: Blocks = KERNEL_BLOCKS):
     """Post-LN cross-attention block: x attends to ctx, ``bias`` masks ctx's keys."""
+    if not packed_attention_active():
+        return unfused_attention(p, x, ctx, bias, cfg, prec)
     out = p["output"]
     return blocks.cross(
         x, ctx, p["query"]["kernel"], p["query"]["bias"], p["kv"]["kernel"], p["kv"]["bias"],
@@ -218,33 +253,42 @@ def cross_attention_block(p: Params, x, ctx, bias, cfg: BertConfig, blocks: Bloc
     )
 
 
-def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: BertConfig,
+def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: BertConfig, prec: Precision,
                                 blocks: Blocks = KERNEL_BLOCKS):
     """Both shared-weight cross directions of an LXMERT x-layer
     (``lxmert/src/lxrt/modeling.py:460-464``): lang <- visn under the visn key
     mask and visn <- lang under the lang key mask, both from the pre-cross
-    streams. ``KMR_DUAL_CROSS=1`` runs them as one dual block (one attention
-    launch for both directions), as the JAX package's ``models/core.py``
-    :388-417 does on its kernel backend; the default is two cross blocks."""
-    if os.environ.get("KMR_DUAL_CROSS", "0") == "1" and (lang_bias is None) == (visn_bias is None):
+    streams. ``KMR_DUAL_CROSS=1`` on the "pallas_packed" backend runs them as
+    one dual block (one attention launch for both directions), as the JAX
+    package's ``models/core.py`` :388-417 does; the default is two cross blocks."""
+    if (packed_attention_active() and os.environ.get("KMR_DUAL_CROSS", "0") == "1"
+            and (lang_bias is None) == (visn_bias is None)):
         out = p["output"]
         return blocks.dual(
             l, v, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
             out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads,
             lang_bias, visn_bias,
         )
-    return (cross_attention_block(p, l, v, visn_bias, cfg, blocks),
-            cross_attention_block(p, v, l, lang_bias, cfg, blocks))
+    return (cross_attention_block(p, l, v, visn_bias, cfg, prec, blocks),
+            cross_attention_block(p, v, l, lang_bias, cfg, prec, blocks))
 
 
-def ffn_block(p: Params, x, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS, act: str | None = None):
-    """Post-LN feed-forward block of one layer (no dropout: inference).
-    ``act`` overrides ``cfg.hidden_act`` (LXMERT runs ``gelu_erf`` under a
-    config that says ``gelu``, as the JAX package's ``models/core.py`` :440-448)."""
+def ffn_block(p: Params, x, cfg: BertConfig, prec: Precision, blocks: Blocks = KERNEL_BLOCKS,
+              act: str | None = None):
+    """Post-LN feed-forward block of one layer (no dropout: inference): the
+    fused block under "pallas_packed", else dense -> GELU -> dense -> residual
+    -> LN (the JAX package's ``models/core.py`` :497-504). ``act`` overrides
+    ``cfg.hidden_act`` (LXMERT runs ``gelu_erf`` under a config that says
+    ``gelu``, as the JAX package's ``models/core.py`` :440-448)."""
     act_name = act or cfg.hidden_act
     if act_name not in GELU_APPROXIMATE:
         raise NotImplementedError(f"activation {act_name!r} is not yet ported, see ROADMAP.md")
     out = p["output"]
+    if not packed_attention_active():
+        dt = prec.compute_dtype
+        hmid = GELU[act_name](dense(p["intermediate"], x, prec)).to(dt)
+        y = dense(out["dense"], hmid, prec)
+        return layer_norm(out["LayerNorm"], y + x.float(), out_dtype=dt)
     return blocks.ffn(
         x, p["intermediate"]["kernel"], p["intermediate"]["bias"], out["dense"]["kernel"],
         out["dense"]["bias"], out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"],
@@ -262,16 +306,17 @@ def num_layers(p: Params) -> int:
 
 
 def fused_layer_route(bias, act_name: str) -> bool:
-    """True iff ``KMR_FUSED_LAYER=1`` and the layer qualifies for the fused
-    launch: a compact key mask ([B, S] rows or [B, 1, 1, S]) or none, and a
-    GELU the kernel has (the gating of the JAX package's ``models/core.py``
-    :570-582)."""
+    """True iff ``KMR_FUSED_LAYER=1``, the "pallas_packed" backend is active
+    and the layer qualifies for the fused launch: a compact key mask ([B, S]
+    rows or [B, 1, 1, S]) or none, and a GELU the kernel has (the gating of
+    the JAX package's ``models/core.py`` :570-582)."""
     compact = bias is None or bias.dim() == 2 or (bias.dim() == 4 and bias.shape[1] == bias.shape[2] == 1)
-    return os.environ.get("KMR_FUSED_LAYER", "0") == "1" and compact and act_name in GELU_APPROXIMATE
+    return (os.environ.get("KMR_FUSED_LAYER", "0") == "1" and packed_attention_active() and compact
+            and act_name in GELU_APPROXIMATE)
 
 
-def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, blocks: Blocks = KERNEL_BLOCKS,
-                  act: str | None = None, fuse: bool = True) -> torch.Tensor:
+def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, prec: Precision,
+                  blocks: Blocks = KERNEL_BLOCKS, act: str | None = None, fuse: bool = True) -> torch.Tensor:
     """One post-LN layer: the attention block then the FFN block (the
     default), or with ``fuse`` and ``KMR_FUSED_LAYER=1`` one fused encoder
     layer, as the JAX package's ``models/core.py`` :612-628 (whose fused
@@ -287,7 +332,7 @@ def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, blocks
             ffn_out["LayerNorm"]["gamma"], ffn_out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
             approximate_gelu=GELU_APPROXIMATE[act_name],
         )
-    return ffn_block(ffn_p, attention_block(att_p, x, bias, cfg, blocks), cfg, blocks, act)
+    return ffn_block(ffn_p, attention_block(att_p, x, bias, cfg, prec, blocks), cfg, prec, blocks, act)
 
 
 def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
@@ -299,7 +344,7 @@ def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
     x = x.to(prec.compute_dtype)
     for i in range(num_layers(p)):
         layer = layer_slice(p, i)
-        x = encoder_layer(layer["attention"], layer["ffn"], x, bias, cfg, blocks, act, fuse)
+        x = encoder_layer(layer["attention"], layer["ffn"], x, bias, cfg, prec, blocks, act, fuse)
     return x
 
 

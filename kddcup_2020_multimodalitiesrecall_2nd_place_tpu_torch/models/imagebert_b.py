@@ -27,9 +27,10 @@ The label conv is one banded [8H, 8H] product, as the JAX package computes
 it (:77-107): out[., w, :] = sum_t emb[., t, :] @ W[t - w + 3]. The band
 (75 MB in bf16) is built once, when the parameters are made or loaded
 (``label_conv_band``), and stored as ``kdd_conv1``'s ``kernel``, with the
-conv bias tiled over the 8 outputs as its ``bias``; on the card the product
-is ``gemm_bf16``'s "f32" epilogue (bf16 in, f32 accumulation and out, the
-JAX dot's rounding).
+conv bias tiled over the 8 outputs as its ``bias``; in bf16 on the card the
+product is ``gemm_bf16``'s "f32" epilogue (bf16 in, f32 accumulation and out,
+the JAX dot's rounding), under every attention backend, as the JAX package's
+one dot is; in f32 it is the plain f32 product.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from ..data.tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB
 from ..ops.attention import mask_to_bias
+from ..ops.kernels import gemm_plain
 from . import heads
 from .core import (
     KERNEL_BLOCKS,
@@ -120,10 +122,13 @@ def init_params(cfg: BertConfig, gen: torch.Generator) -> Params:
 
 def _label_conv(p: Params, emb: torch.Tensor, prec: Precision, blocks: Blocks = KERNEL_BLOCKS) -> torch.Tensor:
     """SAME-padded width-8 conv over the label-token axis, ReLU, then the
-    mean: emb [B, 10, 8, H] -> [B, 10, H], through the banded kernel."""
+    mean: emb [B, 10, 8, H] -> [B, 10, H], through the banded kernel:
+    ``blocks.gemm`` in bf16, the plain f32 product in f32 (``gemm_bf16``
+    multiplies bf16 only)."""
     b, n, t, h = emb.shape
     x2 = emb.to(prec.compute_dtype).reshape(b * n, t * h).contiguous()
-    out = blocks.gemm(x2, p["kernel"], p["bias"], "f32").reshape(b, n, t, -1)
+    gemm = blocks.gemm if prec.compute_dtype == torch.bfloat16 else gemm_plain
+    out = gemm(x2, p["kernel"], p["bias"], "f32").reshape(b, n, t, -1)
     return torch.relu(out).mean(dim=2)
 
 

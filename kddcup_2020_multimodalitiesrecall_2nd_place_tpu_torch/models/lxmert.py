@@ -11,7 +11,9 @@ visn <- lang masked by the lang keys, both from the pre-cross streams, then
 self-attention and FFN per stream. Every FFN uses the erf GELU. With
 ``KMR_FUSED_LAYER=1`` each x-layer's self-attention + FFN, in both streams,
 is one fused encoder layer (the JAX package's ``models/lxmert.py`` :301-315);
-the L and R stacks keep the two blocks, as there (:245-259).
+the L and R stacks keep the two blocks, as there (:245-259). The "pallas"
+attention backend takes self-attention only: the first x-layer's cross
+attention raises, as ``mha_pallas`` fails there in the JAX package.
 
 Visual token = (LN(visn_fc(feats)) + LN(box_fc(boxes4)) + LN(label_fc(z)))/3
 where z mixes each box's 8 label-text embeddings with an 8-tap weight in f32
@@ -170,9 +172,9 @@ def apply(p: Params, batch: dict, lcfg: LxmertConfig, prec: Precision | None = N
     for i in range(xs["visual_attention"]["qkv"]["kernel"].shape[0]):
         lp = layer_slice(xs, i)
         lang2, visn2 = dual_cross_attention_blocks(lp["visual_attention"], lang, visn, lang_bias,
-                                                   visn_bias, cfg, blocks)
-        lang = encoder_layer(lp["lang_self_att"], lp["lang_ffn"], lang2, lang_bias, cfg, blocks, ACT)
-        visn = encoder_layer(lp["visn_self_att"], lp["visn_ffn"], visn2, visn_bias, cfg, blocks, ACT)
+                                                   visn_bias, cfg, prec, blocks)
+        lang = encoder_layer(lp["lang_self_att"], lp["lang_ffn"], lang2, lang_bias, cfg, prec, blocks, ACT)
+        visn = encoder_layer(lp["visn_self_att"], lp["visn_ffn"], visn2, visn_bias, cfg, prec, blocks, ACT)
 
     pooled = pooler(p["bert"]["pooler"], lang, prec)
     logit = heads.logit_fc(p["logit_fc"], pooled, prec)

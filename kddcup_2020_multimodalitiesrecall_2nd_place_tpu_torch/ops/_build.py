@@ -24,7 +24,7 @@ from pathlib import Path
 from .. import BUILD_DIR, PACKAGE_ROOT
 
 CSRC = PACKAGE_ROOT / "csrc"
-SOURCES = ("gemm_bf16", "attn_core", "layernorm", "layer_tail")
+SOURCES = ("gemm_bf16", "attn_core", "layernorm", "layer_tail", "mha")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,4 +1,12 @@
-"""Eager multi-head attention for short cross-modal sequences (10-43 tokens).
+"""Multi-head attention for short cross-modal sequences (10-43 tokens), and
+the attention backend that the encoder blocks follow (the JAX package's
+``ops/attention.py``):
+
+* ``"xla"`` (the default): the unfused route of ``models/core.py``, whose
+  attention core is ``mha_xla``, plain PyTorch;
+* ``"pallas"``: the same route with the core as the hand-written ``mha``
+  kernel (``csrc/mha.cu``), one launch per self-attention;
+* ``"pallas_packed"``: the fused blocks of ``models/core.py:KERNEL_BLOCKS``.
 
 BERT semantics (reference ``pixelmodel.py:640-833``): scores = QK^T / sqrt(Dh)
 + bias, softmax over keys, no padding mask unless a bias is given
@@ -10,7 +18,12 @@ the PV product, as the JAX package's XLA and Pallas paths both do.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+BACKENDS = ("xla", "pallas", "pallas_packed")
+_backend = "xla"
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -25,7 +38,7 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, n * hd)
 
 
-def mha(
+def mha_xla(
     q: torch.Tensor,  # [B, N, F, Hd]
     k: torch.Tensor,  # [B, N, T, Hd]
     v: torch.Tensor,  # [B, N, T, Hd]
@@ -39,6 +52,46 @@ def mha(
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
+
+
+def set_attention_backend(name: str) -> None:
+    """Select "xla" (the default), "pallas" or "pallas_packed" for the encoder blocks."""
+    global _backend
+    if name not in BACKENDS:
+        raise ValueError(f"unknown attention backend {name!r}, expected one of {BACKENDS}")
+    _backend = name
+
+
+def packed_attention_active() -> bool:
+    return _backend == "pallas_packed"
+
+
+@contextlib.contextmanager
+def attention_backend(name: str):
+    """The backend ``name`` inside the block, the previous one after it."""
+    prev = _backend
+    set_attention_backend(name)
+    try:
+        yield
+    finally:
+        set_attention_backend(prev)
+
+
+def mha(q, k, v, bias=None) -> torch.Tensor:
+    """Backend-dispatching attention core of the unfused route: the ``mha``
+    kernel under "pallas", ``mha_xla`` otherwise. [B, N, S, Dh] in and out."""
+    if _backend == "pallas":
+        from .library import mha as mha_kernel  # here: library imports kernels, which imports this module
+
+        return mha_kernel(q, k, v, bias)
+    return mha_xla(q, k, v, bias)
+
+
+def mha_packed(q, k, v, num_heads: int, bias=None) -> torch.Tensor:
+    """Packed-layout attention, the ``mha_packed`` kernel: [B, S, H] in and out."""
+    from .library import mha_packed as mha_packed_kernel
+
+    return mha_packed_kernel(q, k, v, num_heads, bias)
 
 
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

@@ -29,8 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from .attention import merge_heads, mha, split_heads
-from .kernels import attn_core, gemm, layernorm, layernorm_plain
+from .attention import merge_heads, mha_xla, split_heads
+from .kernels import layernorm_plain
+from .library import attn_core, gemm, layernorm
 
 
 def key_bias_rows(bias: torch.Tensor | None, b: int, s: int) -> torch.Tensor | None:
@@ -69,6 +70,6 @@ def attention_block_plain(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bi
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
     if bias is not None:
         bias = key_bias_rows(bias, x.shape[0], x.shape[1])[:, None, None, :]
-    ctx = merge_heads(mha(q, k, v, bias))
+    ctx = merge_heads(mha_xla(q, k, v, bias))
     y = torch.matmul(ctx.float(), wo.to(dt).float()) + bo.float() + x.float()
     return layernorm_plain(y, gamma, beta, eps, out_dtype=dt)

@@ -31,9 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from .attention import merge_heads, mha, split_heads
+from .attention import merge_heads, mha_xla, split_heads
 from .attention_block import key_bias_rows
-from .kernels import attn_core_cross, gemm, layernorm, layernorm_plain
+from .kernels import layernorm_plain
+from .library import attn_core_cross, gemm, layernorm
 
 
 def cross_attention_block(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, num_heads: int,
@@ -66,6 +67,6 @@ def cross_attention_block_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, n
     k, v = kv.split(h, dim=-1)
     if bias is not None:
         bias = key_bias_rows(bias, b, t)[:, None, None, :]
-    o = merge_heads(mha(split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads), bias))
+    o = merge_heads(mha_xla(split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads), bias))
     y = torch.matmul(o.float(), wo.to(dt).float()) + bo.float() + x.float()
     return layernorm_plain(y, gamma, beta, eps, out_dtype=dt)

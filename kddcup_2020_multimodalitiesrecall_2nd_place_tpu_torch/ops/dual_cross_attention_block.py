@@ -33,7 +33,7 @@ import torch
 
 from .attention_block import key_bias_rows
 from .cross_attention_block import cross_attention_block_plain
-from .kernels import attn_core_dual, gemm, layernorm
+from .library import attn_core_dual, gemm, layernorm
 
 
 def dual_cross_attention_block(l, v, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int,

@@ -34,7 +34,7 @@ import torch
 
 from .attention_block import attention_block_plain, key_bias_rows
 from .ffn_block import ffn_block_plain
-from .kernels import attn_core, gemm, layer_tail
+from .library import attn_core, gemm, layer_tail
 
 
 def encoder_layer(x, wqkv, bqkv, wo, bo, gamma1, beta1, w1, b1, w2, b2, gamma2, beta2,

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from .activations import gelu_erf, gelu_tanh
-from .kernels import gemm, layernorm, layernorm_plain
+from .kernels import layernorm_plain
+from .library import gemm, layernorm
 
 
 def ffn_block(x, w1, b1, w2, b2, gamma, beta, approximate_gelu: bool = True,

@@ -19,6 +19,10 @@ The fused blocks (``attention_block.py``, ``ffn_block.py``,
                  LN2) in one launch, the LN1 output and the GELU
                  intermediate kept in shared memory.
 
+Two more, ``csrc/mha.cu``, are bare attention on their own: ``mha`` (q, k, v
+[B, N, S, Dh] at any strides, the "pallas" attention backend) and
+``mha_packed`` (q, k, v [B, S, H], heads in column blocks), bf16 or f32.
+
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel or raises; there is no fallback. ``<wrapper>.launches``
 counts kernel launches (never plain calls), so a run can show that its path
@@ -35,7 +39,7 @@ import torch
 
 from . import _build
 from .activations import gelu_erf, gelu_tanh
-from .attention import merge_heads, mha, split_heads
+from .attention import merge_heads, mha_xla, split_heads
 
 EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "residual": 3, "f32": 4}
 F32_OUT = ("residual", "f32")  # the epilogues that write f32
@@ -122,7 +126,7 @@ def attn_core_cross_plain(q, kv, key_bias, b: int, sq: int, sk: int, num_heads: 
     qh = split_heads(q.reshape(b, sq, h), num_heads)
     k, v = (split_heads(t.reshape(b, sk, h), num_heads) for t in kv.split(h, dim=1))
     bias = None if key_bias is None else key_bias.reshape(b, 1, 1, sk)
-    return merge_heads(mha(qh, k, v, bias)).reshape(b * sq, h)
+    return merge_heads(mha_xla(qh, k, v, bias)).reshape(b * sq, h)
 
 
 def attn_core_plain(qkv, key_bias, b: int, s: int, num_heads: int) -> torch.Tensor:
@@ -325,4 +329,110 @@ def layer_tail(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
 
 layer_tail.launches = 0
 
-WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm, layer_tail)
+
+# ---------------------------------------------------------------------------
+# mha, mha_packed: bare attention, bf16 or f32
+# ---------------------------------------------------------------------------
+
+MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mha_plain(q, k, v, bias=None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh) + bias) v on [B, N, S, Dh]: f32 scores and
+    softmax, probs rounded to v's dtype, f32 PV, out in q's dtype (the
+    Pallas body, ``ops/pallas_attention.py`` :26-46 of the JAX package)."""
+    return mha_xla(q, k, v, bias).to(q.dtype)
+
+
+def mha_packed_plain(q, k, v, num_heads: int, bias=None) -> torch.Tensor:
+    """The same on [B, S, H], head n in columns n*Dh..(n+1)*Dh."""
+    heads = [split_heads(t, num_heads) for t in (q, k, v)]
+    return merge_heads(mha_plain(*heads, bias))
+
+
+def same_length(name: str, q, k, v) -> None:
+    """The JAX kernels read k and v at q's shape (``mha_pallas`` reshapes k to
+    q's length, :58-62), so cross attention, where they differ, fails there;
+    here it raises, on every device."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name} takes q, k and v of one shape (self-attention only), got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _mha_operands(lib, name: str, q, k, v, s: int, dh: int) -> None:
+    _require(dh == lib.kmr_mha_head_dim(), f"{name} takes head dim {lib.kmr_mha_head_dim()}, got q "
+             f"{tuple(q.shape)}")
+    _require(1 <= s <= lib.kmr_mha_max_seq(), f"{name} takes S <= {lib.kmr_mha_max_seq()}, got q {tuple(q.shape)}")
+    _require(q.dtype in MHA_DTYPES, f"{name} takes bf16 or f32, got {q.dtype}")
+    vec = 16 // q.element_size()  # elements in one 16-byte load
+    for t, tn in ((q, "q"), (k, "k"), (v, "v")):
+        _require(t.device == q.device, f"{tn} is on {t.device}, expected {q.device}")
+        _require(t.dtype == q.dtype, f"{tn} has dtype {t.dtype}, q has {q.dtype}")
+        _require(t.stride(-1) == 1 and all(st % vec == 0 for st in t.stride()[:-1]) and t.data_ptr() % 16 == 0,
+                 f"{tn} needs a contiguous last axis, 16-byte aligned rows and strides a multiple of {vec}, "
+                 f"got strides {t.stride()}")
+
+
+def _mha_bias(bias, shape: tuple, device) -> tuple:
+    """(pointer, element strides over ``shape``'s 4 axes) of an f32 bias
+    broadcast to ``shape`` (stride 0 on broadcast axes), or (None, zeros)."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    _require(bias.device == device, f"bias is on {bias.device}, expected {device}")
+    _require(bias.dtype == torch.float32, f"bias has dtype {bias.dtype}, the kernel takes torch.float32")
+    try:
+        view = bias.expand(*shape)
+    except RuntimeError as e:
+        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast to {shape}") from e
+    return _build.ptr(view), view.stride()
+
+
+def mha(q, k, v, bias=None) -> torch.Tensor:
+    """q, k, v [B, N, S, 64] bf16 or f32 (any strides, last axis contiguous);
+    bias f32 broadcastable to [B, N, S, S] or None -> [B, N, S, 64] in q's dtype."""
+    same_length("mha", q, k, v)
+    if not q.is_cuda:
+        return mha_plain(q, k, v, bias)
+    b, n, s, dh = q.shape
+    lib = _build.load("mha")
+    _mha_operands(lib, "mha", q, k, v, s, dh)
+    bias_ptr, bs = _mha_bias(bias, (b, n, s, s), q.device)
+    out = torch.empty(b, n, s, dh, dtype=q.dtype, device=q.device)
+    fn = _build.bind("mha", "kmr_mha", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 13
+                     + [ctypes.c_void_p])
+    rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), bias_ptr, _build.ptr(out), b, n, s, MHA_DTYPES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bs, _build.stream_of(q))
+    _build.check(rc, "mha")
+    mha.launches += 1
+    return out
+
+
+mha.launches = 0
+
+
+def mha_packed(q, k, v, num_heads: int, bias=None) -> torch.Tensor:
+    """q, k, v [B, S, H] bf16 or f32, H = num_heads * 64, head n in columns
+    n*64..; bias f32 broadcastable to [B, 1, S, S] (a [B, 1, 1, S] key mask or
+    a [B, 1, S, S] bias, shared by the heads) or None -> [B, S, H] in q's dtype."""
+    same_length("mha_packed", q, k, v)
+    if not q.is_cuda:
+        return mha_packed_plain(q, k, v, num_heads, bias)
+    b, s, h = q.shape
+    lib = _build.load("mha")
+    _require(h % num_heads == 0, f"mha_packed: H={h} is not a multiple of {num_heads} heads")
+    _mha_operands(lib, "mha_packed", q, k, v, s, h // num_heads)
+    bias_ptr, bs = _mha_bias(bias, (b, 1, s, s), q.device)
+    out = torch.empty(b, s, h, dtype=q.dtype, device=q.device)
+    fn = _build.bind("mha", "kmr_mha_packed", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                     + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+    rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), bias_ptr, _build.ptr(out), b, s, h, num_heads,
+            MHA_DTYPES[q.dtype], *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], bs[0], bs[2], bs[3],
+            _build.stream_of(q))
+    _build.check(rc, "mha")
+    mha_packed.launches += 1
+    return out
+
+
+mha_packed.launches = 0
+
+WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm, layer_tail, mha, mha_packed)

@@ -7,11 +7,16 @@ thread parsing and featurizing ahead), the device and the copy overlap.
 
 Device policy: the engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` it raises, and it
-never moves to the CPU on its own. On CUDA the encoder blocks are always the
-hand-written kernels, which take bf16 activations (the JAX engine likewise
-takes its Pallas kernels only when not in f32, ``parallel/engine.py`` :79-85),
-so f32 on CUDA raises until it is ported. On the CPU the plain versions run
-in f32 or bf16.
+never moves to the CPU on its own.
+
+Attention backend (``ops/attention.py``), scoped around every batch: the
+caller's choice of "xla", "pallas" or "pallas_packed", or by default the JAX
+engine's rule (``parallel/engine.py`` :79-85): "pallas_packed", the fused
+blocks of hand-written kernels, on CUDA in bf16; "xla", the plain unfused
+route, in f32 or on the CPU. So f32 on CUDA runs plain f32 products with TF32
+off (``Precision.f32()``), a choice recorded in ``engine.attention_backend``;
+nothing falls back when a kernel fails to build or launch. On the CPU every
+kernel wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from ..checkpoint.npz import cast_matmul_weights, tree_to
 from ..data import Featurizer, PipelineStats, batches_from_files
 from ..models import ModelSpec, Precision
+from ..ops import attention
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -45,6 +51,11 @@ def default_precision(device: torch.device) -> Precision:
     return Precision.bf16() if device.type == "cuda" else Precision.f32()
 
 
+def default_attention_backend(device: torch.device, precision: Precision) -> str:
+    """"pallas_packed" on CUDA in bf16, "xla" in f32 or on the CPU."""
+    return "pallas_packed" if device.type == "cuda" and precision.compute_dtype != torch.float32 else "xla"
+
+
 @dataclass
 class ScoringStats:
     pairs: int = 0
@@ -60,15 +71,17 @@ class ScoringStats:
 class ScoringEngine:
     """Pairwise scorer for one model on one device."""
 
-    def __init__(self, model: ModelSpec, params, device=None, precision: Precision | None = None):
+    def __init__(self, model: ModelSpec, params, device=None, precision: Precision | None = None,
+                 attention_backend: str | None = None):
         self.model = model
         self.device = resolve_device(device)
         self.precision = precision if precision is not None else default_precision(self.device)
-        if self.device.type == "cuda" and self.precision.compute_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"{self.precision.compute_dtype} scoring on CUDA is not yet ported (the kernels "
-                "take bf16), see ROADMAP.md; use --precision bf16, or f32 on the CPU"
-            )
+        if attention_backend is None:
+            attention_backend = default_attention_backend(self.device, self.precision)
+        if attention_backend not in attention.BACKENDS:
+            raise ValueError(f"unknown attention backend {attention_backend!r}, expected one of "
+                             f"{attention.BACKENDS}")
+        self.attention_backend = attention_backend
         self.params = tree_to(
             cast_matmul_weights(params, self.precision.compute_dtype, model.matmul_kernels), self.device
         )
@@ -83,7 +96,8 @@ class ScoringEngine:
     def score_batch(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
         """-> f32 scores [B] on the device (not yet synchronised)."""
         feats = self.to_device(batch)
-        return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
+        with attention.attention_backend(self.attention_backend):
+            return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
 
     def score_stream(
         self, batches: Iterable[dict], stats: ScoringStats | None = None

@@ -303,3 +303,122 @@ def test_cuda_encoder_layer_equals_two_blocks(cuda, s, masks, tanh):
     two = ffn_block(attention_block(x, *ws[:6], 12, bias), *ws[6:], approximate_gelu=tanh)
     torch.cuda.synchronize()
     assert torch.equal(fused, two)
+
+
+# The attention backends' kernels (csrc/mha.cu): bare attention on [B, N, S, 64] views and on the
+# packed [B, S, H] layout, bf16 and f32. Cases: (S, bias) with the bias as the models make it: none
+# (ImageBERT-A), a [B,1,1,S] key mask with some pairs' tail keys all masked (ImageBERT-B), a full
+# [B,1,S,S] bias, a per-head [B,N,S,S] bias (mha only), and S=64, the longest the kernel takes
+MHA_CASES = [(40, "none"), (30, "key"), (30, "query-key"), (30, "heads"), (64, "key"), (7, "none")]
+MHA_IDS = ["S40", "S30-key-mask", "S30-B1SS", "S30-BNSS", "S64-key-mask", "S7"]
+MHA_F32_BAND = 1e-5
+
+
+def _mha_case(device, seed, s, bias_kind, dtype, b=6, n=12):
+    """q, k, v as packed [b, s, 768] buffers and as contiguous [b, n, s, 64]
+    heads, in dtype, and the f32 bias (or None)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    packed = [torch.randn(b, s, n * 64, generator=g).to(device, dtype) for _ in range(3)]
+    heads = [t.reshape(b, s, n, 64).transpose(1, 2).contiguous() for t in packed]
+    bias = None
+    if bias_kind != "none":
+        m = (torch.rand(b, s, generator=g) > 0.3).float()
+        m[:, 0] = 1.0
+        m[::2, s // 2:] = 0.0
+        bias = mask_to_bias(m)[:, None, None, :]
+        if bias_kind == "query-key":
+            bias = bias + torch.randn(b, 1, s, s, generator=g)
+        elif bias_kind == "heads":
+            bias = bias + torch.randn(b, n, s, s, generator=g)
+        bias = bias.to(device)
+    return packed, heads, bias
+
+
+def _mha_band(dtype):
+    return {"atol": MHA_F32_BAND, "rtol": 0.0} if dtype == torch.float32 else {}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s,bias_kind", MHA_CASES, ids=MHA_IDS)
+def test_cuda_mha_matches_plain(cuda, s, bias_kind, dtype):
+    packed, heads, bias = _mha_case(cuda, 20, s, bias_kind, dtype)
+    got = kernels.mha(*heads, bias)
+    assert got.dtype == dtype and got.shape == heads[0].shape
+    assert within_band(got, kernels.mha_plain(*heads, bias), **_mha_band(dtype))
+    if bias is None or bias.shape[1] == 1:
+        got = kernels.mha_packed(*packed, 12, bias)
+        assert got.dtype == dtype and got.shape == packed[0].shape
+        assert within_band(got, kernels.mha_packed_plain(*packed, 12, bias), **_mha_band(dtype))
+
+
+def test_cuda_mha_reads_strided_views(cuda):
+    """The "pallas" route hands mha the split_heads views of one [B, S, 3H]
+    projection; the kernel reads them in place, bit-equal to contiguous copies,
+    and mha_packed on the packed buffers equals mha on the head views."""
+    g = torch.Generator(device="cpu").manual_seed(21)
+    qkv = torch.randn(6, 30, 3 * 768, generator=g).to(cuda, torch.bfloat16)
+    views = [t.reshape(6, 30, 12, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+    bias = mask_to_bias((torch.rand(6, 30, generator=g) > 0.3).float()).to(cuda)[:, None, None, :]
+    got = kernels.mha(*views, bias)
+    want = kernels.mha(*[v.contiguous() for v in views], bias)
+    packed = kernels.mha_packed(*[t.contiguous() for t in qkv.chunk(3, dim=-1)], 12, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(packed, got.transpose(1, 2).reshape(6, 30, 768))
+
+
+def test_cuda_mha_launch_or_raise(cuda):
+    """Shapes and types the mha kernels do not take raise, naming the shape,
+    and never run the plain version; cross attention (k longer or shorter
+    than q) raises as the JAX kernel fails."""
+    counted = (kernels.mha, kernels.mha_packed)
+    before = [w.launches for w in counted]
+    q = torch.zeros(2, 12, 30, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head dim 64, got q \(2, 12, 30, 32\)"):
+        kernels.mha(*[torch.zeros(2, 12, 30, 32, device=cuda, dtype=torch.bfloat16)] * 3)
+    with pytest.raises(ValueError, match=r"S <= 64, got q \(2, 12, 65, 64\)"):
+        kernels.mha(*[torch.zeros(2, 12, 65, 64, device=cuda, dtype=torch.bfloat16)] * 3)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kernels.mha(*[q.half()] * 3)
+    with pytest.raises(ValueError, match="one shape"):
+        kernels.mha(q, q[:, :, :10], q[:, :, :10])
+    with pytest.raises(ValueError, match="one shape"):
+        kernels.mha_packed(q[:, 0], q[:, 0, :10], q[:, 0, :10], 1)
+    with pytest.raises(ValueError, match="does not broadcast"):
+        kernels.mha(q, q, q, torch.zeros(2, 1, 1, 29, device=cuda))
+    with pytest.raises(ValueError, match="expected cuda"):
+        kernels.mha(q, q, q, torch.zeros(2, 1, 1, 30))
+    assert [w.launches for w in counted] == before
+    kernels.mha(q, q, q)
+    kernels.mha_packed(q.transpose(1, 2).reshape(2, 30, 768), *[q.transpose(1, 2).reshape(2, 30, 768)] * 2, 12)
+    torch.cuda.synchronize()
+    assert [w.launches for w in counted] == [n + 1 for n in before]
+
+
+def test_cuda_pallas_packed_export_round_trip(cuda, tmp_path):
+    """One full-width ImageBERT-A layer exported with the "pallas_packed"
+    backend on the card, reloaded: bit-equal to the engine's default route on
+    the same batch, through the same kernels."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.batchspec import example_batch
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.serving import export_scorer, load_scorer, save_scorer
+
+    spec = get_model("imagebert_a", overrides={"num_hidden_layers": 1})
+    params = spec.init_params(0)
+    engine = ScoringEngine(spec, params, device=cuda, precision=Precision.bf16())
+    assert engine.attention_backend == "pallas_packed"
+    batch = example_batch("imagebert_a", spec.config, 8, np.random.default_rng(22))
+    meta = save_scorer(tmp_path / "art", export_scorer(spec, params, 8, Precision.bf16(), "pallas_packed", cuda),
+                       spec, 8, "pallas_packed")
+    assert meta["custom_ops"] == ["kmr::attn_core", "kmr::gemm", "kmr::layernorm"] and meta["device"] == "cuda:0"
+    scorer = load_scorer(tmp_path / "art")
+    before = kernels.gemm.launches
+    got = scorer(batch)
+    torch.cuda.synchronize()
+    assert kernels.gemm.launches == before + 4
+    want = engine.score_batch(batch).float().cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(scorer({k: v[:5] for k, v in batch.items()}), want[:5])

@@ -21,7 +21,7 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.ops.attention import mask_t
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.ops.pallas_layer import encoder_layer_pallas
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import core
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import kernels
-from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import mask_to_bias
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import attention_backend, mask_to_bias
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.encoder_layer import (
     encoder_layer,
     encoder_layer_plain,
@@ -73,24 +73,28 @@ def test_fused_route_matches_two_blocks(monkeypatch, act):
     prec = core.Precision.f32()
     for blocks in (core.KERNEL_BLOCKS, core.PLAIN_BLOCKS):
         monkeypatch.delenv("KMR_FUSED_LAYER", raising=False)
-        two = core.encoder(params, x, bias, cfg, prec, blocks)
-        monkeypatch.setenv("KMR_FUSED_LAYER", "1")
-        fused = core.encoder(params, x, bias, cfg, prec, blocks)
-        kept = core.encoder(params, x, bias, cfg, prec, blocks, fuse=False)
+        with attention_backend("pallas_packed"):  # the fused layer's backend
+            two = core.encoder(params, x, bias, cfg, prec, blocks)
+            monkeypatch.setenv("KMR_FUSED_LAYER", "1")
+            fused = core.encoder(params, x, bias, cfg, prec, blocks)
+            kept = core.encoder(params, x, bias, cfg, prec, blocks, fuse=False)
         np.testing.assert_allclose(fused.numpy(), two.numpy(), atol=1e-6, rtol=0)
         assert torch.equal(kept, two)
 
 
 def test_fused_route_gating(monkeypatch):
-    """The fused layer runs only under KMR_FUSED_LAYER=1, for a compact key
-    mask or none and a GELU the kernel has (the JAX gating)."""
+    """The fused layer runs only under KMR_FUSED_LAYER=1 on the
+    "pallas_packed" backend, for a compact key mask or none and a GELU the
+    kernel has (the JAX gating)."""
     monkeypatch.setenv("KMR_FUSED_LAYER", "1")
-    assert core.fused_layer_route(None, "gelu") and core.fused_layer_route(torch.zeros(2, 5), "gelu_erf")
-    assert core.fused_layer_route(torch.zeros(2, 1, 1, 5), "gelu")
-    assert not core.fused_layer_route(torch.zeros(2, 1, 5, 5), "gelu")
-    assert not core.fused_layer_route(None, "relu")
-    monkeypatch.setenv("KMR_FUSED_LAYER", "0")
-    assert not core.fused_layer_route(None, "gelu")
+    assert not core.fused_layer_route(None, "gelu")  # the default backend, "xla"
+    with attention_backend("pallas_packed"):
+        assert core.fused_layer_route(None, "gelu") and core.fused_layer_route(torch.zeros(2, 5), "gelu_erf")
+        assert core.fused_layer_route(torch.zeros(2, 1, 1, 5), "gelu")
+        assert not core.fused_layer_route(torch.zeros(2, 1, 5, 5), "gelu")
+        assert not core.fused_layer_route(None, "relu")
+        monkeypatch.setenv("KMR_FUSED_LAYER", "0")
+        assert not core.fused_layer_route(None, "gelu")
 
 
 def test_layer_tail_plain_is_the_blocks_tail():

@@ -20,6 +20,7 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import (
 )
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import PLAIN_BLOCKS, Precision, get_model
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import imagebert_a
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import attention_backend
 from torch_parity import TINY, imagebert_a_batch, jax_imagebert_a_params
 
 
@@ -44,7 +45,7 @@ def _jax_scores(cfg, tree, batch, prec):
 def _port_scores(cfg, tree, batch, prec):
     params = cast_matmul_weights(params_from_jax(tree), prec.compute_dtype, imagebert_a.MATMUL_KERNELS)
     batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
-    with torch.inference_mode():
+    with torch.inference_mode(), attention_backend("pallas_packed"):  # the blocks' route
         return imagebert_a.score(params, batch_t, cfg, prec).numpy(), imagebert_a.score(
             params, batch_t, cfg, prec, PLAIN_BLOCKS
         ).numpy()

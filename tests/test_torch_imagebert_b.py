@@ -26,6 +26,7 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import synthetic
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.tsv import SEN2FOREST_SRC, is_header, parse_line
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import PLAIN_BLOCKS, Precision, get_model, heads
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import imagebert_b
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import attention_backend
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.tokenization import FullTokenizer
 from torch_parity import TINY, imagebert_b_batch, jax_imagebert_b_params
 
@@ -114,7 +115,7 @@ def _port_scores(cfg, tree, batch, prec):
     params = cast_matmul_weights(imagebert_b.from_jax(params_from_jax(tree)), prec.compute_dtype,
                                  imagebert_b.MATMUL_KERNELS)
     batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
-    with torch.inference_mode():
+    with torch.inference_mode(), attention_backend("pallas_packed"):  # the blocks' route
         return (imagebert_b.score(params, batch_t, cfg, prec).numpy(),
                 imagebert_b.score(params, batch_t, cfg, prec, PLAIN_BLOCKS).numpy())
 

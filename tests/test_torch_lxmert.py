@@ -31,6 +31,7 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch import VOCAB_PATH, da
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import cast_matmul_weights, params_from_jax
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import synthetic
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import PLAIN_BLOCKS, BertConfig, Precision, get_model
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import attention_backend
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import imagebert_a, lxmert
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.tokenization import FullTokenizer
 from torch_parity import numpy_like
@@ -81,7 +82,7 @@ def _jax_scores(lcfg, tree, batch, prec):
 def _port_scores(lcfg, tree, batch, prec, blocks=None):
     params = cast_matmul_weights(params_from_jax(tree), prec.compute_dtype, lxmert.MATMUL_KERNELS)
     batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
-    with torch.inference_mode():
+    with torch.inference_mode(), attention_backend("pallas_packed"):  # the blocks' route
         if blocks is None:
             return lxmert.score(params, batch_t, lcfg, prec).numpy()
         return lxmert.score(params, batch_t, lcfg, prec, blocks).numpy()

@@ -23,7 +23,11 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.synthetic import
 )
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.tsv import SEN2FOREST_SRC
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
-from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine, resolve_device
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import (
+    ScoringEngine,
+    default_attention_backend,
+    resolve_device,
+)
 from torch_parity import JAX_PKG, TINY, TORCH_PKG, jax_imagebert_a_params, numpy_like
 
 REPO = Path(__file__).resolve().parents[1]
@@ -136,11 +140,17 @@ def test_device_policy(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ScoringEngine(spec, params)
-    assert ScoringEngine(spec, params, device="cpu").precision.compute_dtype == torch.float32
-    # f32 on CUDA is refused outright, never swapped for the plain path
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ScoringEngine(spec, params, device="cuda", precision=Precision.f32())
+    engine = ScoringEngine(spec, params, device="cpu")
+    assert engine.precision.compute_dtype == torch.float32 and engine.attention_backend == "xla"
+    # f32 on CUDA runs the plain "xla" route by rule (the JAX engine's), bf16 the kernels
+    cuda = torch.device("cuda")
+    assert default_attention_backend(cuda, Precision.f32()) == "xla"
+    assert default_attention_backend(cuda, Precision.bf16()) == "pallas_packed"
+    assert default_attention_backend(torch.device("cpu"), Precision.bf16()) == "xla"
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert ScoringEngine(spec, params, device="cpu", attention_backend="pallas").attention_backend == "pallas"
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        ScoringEngine(spec, params, device="cpu", attention_backend="triton")
 
 
 def test_port_never_imports_jax():
