@@ -55,6 +55,31 @@
    only entry point of the ``mha_packed`` kernel (no model path reaches it, as
    in the JAX package).
 
+5. Training (ImageBERT-A). Kernel checks at B=32 and B=256 (S=40, H=768, 12
+   heads, I=3072, bf16): the GEMM's transposed-weight mode and training
+   epilogues, ``ln_train``/``ln_train_bwd`` and ``attn_train``/``attn_train_bwd``
+   (``csrc/ln_train.cu``, ``csrc/attn_train.cu``) against their plain versions
+   at dropout 0 and 0.1, with and without a key mask (CARD_ATOL, CARD_RTOL;
+   F32_OUT_BAND on f32 outputs), and at rate 0.5 the dropped units of each
+   kernel equal to the hash mask's, bit for bit. Each timed at B=256 beside
+   its bound, plain version and a library yardstick; the train blocks
+   (``ops/train_blocks.py``) forward and backward the same, and held against
+   their plain oracles' autograd at B=256 (y in the ulp band, the 7 gradients
+   in relative L2 within TRAIN_GRAD_REL_L2). Then the path: ImageBERT-A at full
+   width (12 x 768), batch 256, dropout 0.1, random weights from the seed, on
+   batches of a synthetic TSV through the port's hard-negative sampler. Step 1
+   from one set of params, batch and seed on the kernel route, the plain route
+   in bf16 and the plain route in f32 (the truth, TF32 off): the kernel route's
+   gradients within TRAIN_STEP_REL_L2 of the truth in relative L2, or within
+   TRAIN_OVER_PLAIN times the bf16 plain route's own error, whichever is
+   larger, parameter by parameter. Then TRAIN_STEPS steps on the kernel route,
+   device time split into forward, backward and optimizer (CUDA events), the
+   launch counters exact at every step and the loss finite; two more steps
+   under torch.profiler (device time by kernel, the device's busy share; the
+   table in ``build/smoke/train/profile.txt``); and TRAIN_STEPS steps through
+   ``cli/train.py`` (the "imagebert_a_train" path of
+   the kernel line, host sampler included: end-to-end pairs/s).
+
 ``--seed N`` draws the inputs, data and weights from another seed (0 by
 default). Prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -66,6 +91,7 @@ The full nvcc report (ptxas registers, shared memory, spills) goes to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -113,6 +139,14 @@ CPU_SCORE_BAND = 5e-2  # bf16 kernels vs the f32 plain path on the CPU
 MHA_F32_BAND = 1e-5  # the f32 mha kernels vs their plain versions: summation order only, abs
 F32_SCORE_BAND = 1e-4  # the f32 "xla" route vs the f32 truth (plain blocks in f32), scores on the card
 N_ROWS, SEED = 2048, 0
+# training: ImageBERT-A's batch (scripts/train.py:55), a check batch, the steps of the path
+TRAIN_B, TRAIN_CHECK_B, TRAIN_STEPS, TRAIN_RATE = 256, 32, 10, 0.1
+# the train blocks vs their plain oracles' autograd, bf16: the oracle rounds its weight and GELU gradients
+# to bf16 at its casts, the kernels keep them f32, so gradients are held in relative L2
+TRAIN_GRAD_REL_L2 = 2e-2
+# one full-width step vs the f32 truth: each parameter's gradient within 5e-2 relative L2, or within 1.25 x
+# the bf16 plain route's own error, whichever is larger (the ImageBERT-B rule of the scoring phase)
+TRAIN_STEP_REL_L2, TRAIN_OVER_PLAIN = 5e-2, 1.25
 
 
 def log(msg: str) -> None:
@@ -163,7 +197,10 @@ def launch_counters() -> tuple:
         for mod in ("attention_block", "ffn_block", "cross_attention_block", "dual_cross_attention_block",
                     "encoder_layer")
     ]
-    return (*k.WRAPPERS, *blocks)
+    tb = import_module(f"{PKG}.ops.train_blocks")
+    train = [tb.ffn_block_train, tb.ffn_block_train_backward, tb.attention_block_train,
+             tb.attention_block_train_backward]
+    return (*k.WRAPPERS, *blocks, *train)
 
 
 ROUTE_FLAGS = ("KMR_DUAL_CROSS", "KMR_FUSED_LAYER")
@@ -283,12 +320,14 @@ class Smoke:
                        fb.ffn_block_plain(x, *fw, approximate_gelu=approx), CARD_ATOL, CARD_RTOL)
 
     def time_row(self, rows, name, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak,
-                 atol=CARD_ATOL, rtol=CARD_RTOL) -> None:
-        """Check kernel_fn against plain_fn once more, then time the kernel,
-        its plain version and the library call into rows[name], beside the
-        bound derived from nbytes and flops."""
+                 atol=CARD_ATOL, rtol=CARD_RTOL, check=True) -> None:
+        """Check kernel_fn against plain_fn once more (unless ``check`` is
+        false: the caller held them), then time the kernel, its plain version
+        and the library call into rows[name], beside the bound derived from
+        nbytes and flops."""
         torch = self.torch
-        self.check(f"{name} [B={MAIN_B}]", key, kernel_fn(), plain_fn(), atol, rtol)
+        if check:
+            self.check(f"{name} [B={MAIN_B}]", key, kernel_fn(), plain_fn(), atol, rtol)
         bms, by = bound_ms(nbytes, flops, peak)
         r = {
             "ms": cuda_ms(torch, kernel_fn),
@@ -1297,6 +1336,461 @@ class Smoke:
             engine.params["bert"]["encoder"], cfg, bf16, "pallas", self.key_bias(MAIN_B, B_S), B_S)
         return launches, len(batches["imagebert_b"]), rates
 
+    # ---- phase 5: training ------------------------------------------------------
+
+    def train_weights(self, kind: str) -> list:
+        """f32 master weights of one train block at full width, as the trainer holds them."""
+        torch = self.torch
+        shapes = [(H, I), (I,), (I, H), (H,)] if kind == "ffn" else [(H, 3 * H), (3 * H,), (H, H), (H,)]
+        ws = [self.randn(*sh, scale=0.02) for sh in shapes]
+        return ws + [1.0 + self.randn(H, scale=0.1), self.randn(H, scale=0.1)]
+
+    def check_rel(self, name: str, key: str, got, want, band: float) -> list[float]:
+        """Each of got's tensors against want's in relative L2 (the errors, logged);
+        a failure unless all are finite and within ``band``."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        errs = [((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item() for g, w in zip(got, want)]
+        abs_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and max(errs) <= band
+        self.errors[key] = max(self.errors.get(key, 0.0), abs_err)
+        log(f"check {name}: relative L2 per tensor {[f'{e:.3g}' for e in errs]} (band {band:g}), "
+            f"max_abs_err={abs_err:.6g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(name)
+        return errs
+
+    def train_kernel_case(self, b: int, identity_v: bool = False):
+        """The train kernels' inputs at batch b: x, a key mask's bias, qkv (with V = I in every head when
+        identity_v: ctx then holds the dropped probabilities), dctx, dy, and an f32 projection h."""
+        from importlib import import_module
+
+        torch = self.torch
+        att = import_module(f"{PKG}.ops.attention")
+        m = b * S
+        qkv = self.randn(m, 3 * H)
+        if identity_v:
+            v = torch.zeros(b, S, N, 64, device=self.dev)
+            v[:, torch.arange(S), :, torch.arange(S)] = 1.0
+            qkv[:, 2 * H:] = v.reshape(m, H)
+        mask = (torch.rand(b, S, generator=self.gen) > 0.3).float()
+        mask[:, 0] = 1.0
+        return {"x": self.randn(m, H, dtype=torch.bfloat16), "bias": att.mask_to_bias(mask).to(self.dev),
+                "qkv": qkv.to(torch.bfloat16), "dctx": self.randn(m, H, dtype=torch.bfloat16),
+                "dy": self.randn(m, H, dtype=torch.bfloat16), "h": self.randn(m, H)}
+
+    def check_train_kernels(self) -> None:
+        """The train kernels against their plain versions at TRAIN_CHECK_B and TRAIN_B, dropout 0 and
+        TRAIN_RATE, with and without a key mask; at rate 0.5 the dropped units equal the hash mask's."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        dropout = import_module(f"{PKG}.ops.dropout")
+        torch = self.torch
+        fw, aw = self.train_weights("ffn"), self.train_weights("attn")
+        w1, w2, wqkv, wo = (w.to(torch.bfloat16) for w in (fw[0], fw[2], aw[0], aw[2]))
+        for b in (TRAIN_CHECK_B, TRAIN_B):
+            c = self.train_kernel_case(b)
+            m, rows = b * S, 4 * S
+            x = c["x"]
+            g, u = k.gemm(x, w1, fw[1], "gelu_tanh_save")
+            gp, up = k.gemm_plain(x, w1, fw[1], "gelu_tanh_save")
+            self.check(f"gemm ffn-up [gelu_tanh_save, bf16 out, B={b}]", "gemm_bf16", g, gp, CARD_ATOL, CARD_RTOL)
+            self.check(f"gemm ffn-up [gelu_tanh_save, f32 u, B={b}]", "gemm_bf16", u, up, F32_OUT_BAND)
+            self.check(f"gemm ffn-down [f32, B={b}]", "gemm_bf16", k.gemm(gp, w2, fw[3], "f32"),
+                       k.gemm_plain(gp, w2, fw[3], "f32"), F32_OUT_BAND)
+            dh = c["dy"]
+            self.check(f"gemm dh@W2^T [gelu_bwd_tanh, B={b}]", "gemm_bf16",
+                       k.gemm(dh, w2, None, "gelu_bwd_tanh", aux=up, trans_b=True),
+                       k.gemm_plain(dh, w2, None, "gelu_bwd_tanh", aux=up, trans_b=True), CARD_ATOL, CARD_RTOL)
+            self.check(f"gemm du@W1^T [residual_f32, B={b}]", "gemm_bf16",
+                       k.gemm(gp, w1, None, "residual_f32", aux=c["h"], trans_b=True),
+                       k.gemm_plain(gp, w1, None, "residual_f32", aux=c["h"], trans_b=True), CARD_ATOL, CARD_RTOL)
+            self.check(f"gemm do@Wo^T [bias, no bias, B={b}]", "gemm_bf16", k.gemm(dh, wo, None, "bias", trans_b=True),
+                       k.gemm_plain(dh, wo, None, "bias", trans_b=True), CARD_ATOL, CARD_RTOL)
+            self.check(f"gemm dqkv@Wqkv^T [residual_f32, B={b}]", "gemm_bf16",
+                       k.gemm(c["qkv"], wqkv, None, "residual_f32", aux=c["h"], trans_b=True),
+                       k.gemm_plain(c["qkv"], wqkv, None, "residual_f32", aux=c["h"], trans_b=True),
+                       CARD_ATOL, CARD_RTOL)
+            gamma, beta = aw[4], aw[5]
+            for rate in (0.0, TRAIN_RATE, 0.5):
+                args = (77, rate, rows)
+                self.check(f"ln_train [rate {rate}, B={b}]", "ln_train", k.ln_train(c["h"], x, gamma, beta, *args),
+                           k.ln_train_plain(c["h"], x, gamma, beta, *args), CARD_ATOL, CARD_RTOL)
+                got = k.ln_train_bwd(c["h"], x, c["dy"], gamma, *args)
+                want = k.ln_train_bwd_plain(c["h"], x, c["dy"], gamma, *args)
+                self.check(f"ln_train_bwd dz [rate {rate}, B={b}]", "ln_train_bwd", got[0], want[0], 1e-4, 1e-4)
+                self.check(f"ln_train_bwd dh [rate {rate}, B={b}]", "ln_train_bwd", got[1], want[1], CARD_ATOL,
+                           CARD_RTOL)
+                self.check(f"ln_train_bwd partials [rate {rate}, B={b}]", "ln_train_bwd", got[2:], want[2:],
+                           F32_OUT_BAND, 1e-4)
+                if rate == 0.5:
+                    keep = dropout.hidden_keep(77, rate, m, H, rows, self.dev)
+                    same = bool(torch.equal(got[1] == 0, ~keep)) and bool(torch.equal(want[1] == 0, ~keep))
+                    log(f"check ln_train_bwd masks [rate 0.5, B={b}]: dropped units equal to the hash mask's "
+                        f"in kernel and plain version: {same}")
+                    if not same:
+                        self.failures.append(f"ln_train masks B={b}")
+                for label, bias in (("no mask", None), ("key mask", c["bias"])):
+                    a = (b, S, N, 55, rate, dropout.pick_block(b, 8))
+                    self.check(f"attn_train [rate {rate}, {label}, B={b}]", "attn_train",
+                               k.attn_train(c["qkv"], bias, *a), k.attn_train_plain(c["qkv"], bias, *a),
+                               CARD_ATOL, CARD_RTOL)
+                    self.check(f"attn_train_bwd [rate {rate}, {label}, B={b}]", "attn_train_bwd",
+                               k.attn_train_bwd(c["qkv"], c["dctx"], bias, *a),
+                               k.attn_train_bwd_plain(c["qkv"], c["dctx"], bias, *a), CARD_ATOL, CARD_RTOL)
+            ci = self.train_kernel_case(b, identity_v=True)
+            blk = dropout.pick_block(b, 8)
+            keep = dropout.probs_keep(123, 0.5, b, N, S, blk, self.dev)
+            same = True
+            for fn in (k.attn_train, k.attn_train_plain):
+                probs = fn(ci["qkv"], None, b, S, N, 123, 0.5, blk).reshape(b, S, N, 64)[..., :S].permute(0, 2, 1, 3)
+                same = same and bool(torch.equal(probs == 0, ~keep))
+            ones = torch.zeros(b * S, H, device=self.dev)  # dctx = I per head: dV holds the dropped probabilities
+            ones.view(b, S, N, 64)[:, torch.arange(S), :, torch.arange(S)] = 1.0
+            for fn in (k.attn_train_bwd, k.attn_train_bwd_plain):
+                dv = fn(ci["qkv"], ones.to(torch.bfloat16), None, b, S, N, 123, 0.5, blk)[:, 2 * H:]
+                dv = dv.reshape(b, S, N, 64)[..., :S].permute(0, 2, 3, 1)  # [b, n, query, key]
+                same = same and bool(torch.equal(dv == 0, ~keep))
+            log(f"check attn_train masks [rate 0.5, B={b}]: dropped probabilities equal to the hash mask's in "
+                f"the forward and backward kernels and their plain versions: {same}")
+            if not same:
+                self.failures.append(f"attn_train masks B={b}")
+
+    def train_block_fns(self, kind: str, x, ws, bias, dy):
+        """(forward of the kernel block, its backward, the plain oracle's forward, the oracle's autograd
+        backward, the library forward, its autograd backward) at TRAIN_RATE, each a no-argument callable."""
+        from importlib import import_module
+
+        torch = self.torch
+        F = torch.nn.functional
+        tb = import_module(f"{PKG}.ops.train_blocks")
+        dropout = import_module(f"{PKG}.ops.dropout")
+        b = x.shape[0]
+        if kind == "ffn":
+            block = dropout.pick_block(b, dropout.train_block("ffn"))
+            kernel = lambda x, *w: tb.ffn_block_train(x, *w, 42, dropout_rate=TRAIN_RATE)  # noqa: E731
+            plain = lambda x, *w: tb.ffn_block_train_plain(x, *w, 42, dropout_rate=TRAIN_RATE)  # noqa: E731
+            backward = lambda: tb.ffn_block_train_backward(dy, x, *ws[:5], 42, TRAIN_RATE, True, 1e-12, block)  # noqa: E731
+
+            def library(x, w1, b1, w2, b2, g, be):  # bf16 matmuls, GELU, F.dropout, F.layer_norm
+                hmid = F.gelu(torch.matmul(x, w1.to(torch.bfloat16)) + b1.to(torch.bfloat16), approximate="tanh")
+                hid = F.dropout(torch.matmul(hmid, w2.to(torch.bfloat16)) + b2.to(torch.bfloat16), TRAIN_RATE)
+                return F.layer_norm((hid + x).float(), (H,), g, be, 1e-12).to(torch.bfloat16)
+        else:
+            block = dropout.pick_block(b, dropout.train_block("attn"))
+            kernel = lambda x, *w: tb.attention_block_train(  # noqa: E731
+                x, *w, N, 42, bias=bias, attn_dropout_rate=TRAIN_RATE, hidden_dropout_rate=TRAIN_RATE)
+            plain = lambda x, *w: tb.attention_block_train_plain(  # noqa: E731
+                x, *w, N, 42, bias=bias, attn_dropout_rate=TRAIN_RATE, hidden_dropout_rate=TRAIN_RATE)
+            kb = None if bias is None else bias.reshape(b, S).float().contiguous()
+            backward = lambda: tb.attention_block_train_backward(  # noqa: E731
+                dy, x, *ws[:5], kb, N, 42, TRAIN_RATE, TRAIN_RATE, 1e-12, block)
+
+            def library(x, wqkv, bqkv, wo, bo, g, be):  # bf16 matmuls, SDPA with dropout, F.layer_norm
+                qkv = torch.matmul(x, wqkv.to(torch.bfloat16)) + bqkv.to(torch.bfloat16)
+                q, k_, v = (t.reshape(b, S, N, 64).transpose(1, 2) for t in qkv.split(H, dim=-1))
+                mask = None if bias is None else bias.to(torch.bfloat16).reshape(b, 1, 1, S)
+                ctx = F.scaled_dot_product_attention(q, k_, v, attn_mask=mask, dropout_p=TRAIN_RATE)
+                o = F.dropout(torch.matmul(ctx.transpose(1, 2).reshape(b, S, H), wo.to(torch.bfloat16))
+                              + bo.to(torch.bfloat16), TRAIN_RATE)
+                return F.layer_norm((o + x).float(), (H,), g, be, 1e-12).to(torch.bfloat16)
+
+        def grads_of(fn):
+            leaves = [x.detach().clone().requires_grad_(), *(w.detach().clone().requires_grad_() for w in ws)]
+            y = fn(*leaves)
+            return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+        fwd = (lambda: kernel(x, *ws), lambda: plain(x, *ws), lambda: library(x, *ws))
+        return fwd, (backward, grads_of(plain), grads_of(library))
+
+    def time_train_kernels(self) -> dict[str, dict]:
+        """At TRAIN_B: the train blocks held against their plain oracles (forward in the ulp band, the
+        backward's 7 gradients in relative L2), then every train kernel and block timed beside its bound,
+        plain version and library yardstick."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        att = import_module(f"{PKG}.ops.attention")
+        torch = self.torch
+        F = torch.nn.functional
+        b, m = TRAIN_B, TRAIN_B * S
+        rows = {}
+        x = self.randn(b, S, H, dtype=torch.bfloat16)
+        dy = self.randn(b, S, H, dtype=torch.bfloat16)
+        mask = torch.ones(b, S)
+        mask[1::3, 25:] = 0.0  # a key mask on every third pair, for the block check (ImageBERT-A passes none)
+        bias = att.mask_to_bias(mask).to(self.dev)
+        for kind in ("ffn", "attn"):
+            ws = self.train_weights(kind)
+            name = "ffn_block_train" if kind == "ffn" else "attention_block_train"
+            for label, bb in (("no mask", None), ("key mask", bias)) if kind == "attn" else (("", None),):
+                (kf, pf, _), (kb_, pb, _) = self.train_block_fns(kind, x, ws, bb, dy)
+                tag = f"[rate {TRAIN_RATE}{', ' + label if label else ''}, B={b}]"
+                self.check(f"{name} y vs plain oracle {tag}", name, kf(), pf(), CARD_ATOL, CARD_RTOL)
+                got, want = kb_(), pb()
+                if got[0].dtype != torch.bfloat16 or any(g.dtype != torch.float32 for g in got[1:]):
+                    self.failures.append(f"{name} gradient dtypes")
+                self.check_rel(f"{name}_backward dx, dW_in, db_in, dW_out, db_out, dgamma, dbeta vs the oracle's "
+                               f"autograd {tag}", f"{name}_backward", got, want, TRAIN_GRAD_REL_L2)
+            (kf, pf, lf), (kb_, pb, lb) = self.train_block_fns(kind, x, ws, None, dy)
+            wbytes = nbytes_of(ws)
+            if kind == "ffn":
+                fwd_flops, bwd_flops = 4.0 * m * H * I, 12.0 * m * H * I
+            else:
+                core = 4.0 * b * N * S * S * 64
+                fwd_flops = 2.0 * m * H * 3 * H + core + 2.0 * m * H * H
+                bwd_flops = fwd_flops + 2.0 * m * H * H + 10.0 * b * N * S * S * 64 + 2.0 * m * 3 * H * H \
+                    + 2.0 * m * H * 3 * H + 2.0 * m * H * H
+            self.time_row(rows, name, name, kf, pf, lf, 4 * m * H + wbytes, fwd_flops, PEAK_BF16_FLOPS, check=False)
+            self.time_row(rows, f"{name}_backward", f"{name}_backward", kb_, pb, lb, 6 * m * H + 2 * wbytes,
+                          bwd_flops, PEAK_BF16_FLOPS, check=False)
+
+        # the kernels inside the blocks, at the blocks' shapes (rate TRAIN_RATE, no mask)
+        c = self.train_kernel_case(b)
+        fw, aw = self.train_weights("ffn"), self.train_weights("attn")
+        w1, w2, wqkv, wo = (w.to(torch.bfloat16) for w in (fw[0], fw[2], aw[0], aw[2]))
+        gamma, beta, rows_pb = aw[4], aw[5], 4 * S
+        x2d, h32, dy2d = c["x"], c["h"], c["dy"]
+        z = h32 + x2d.float()
+        zl = z.clone().requires_grad_()
+        yl = F.layer_norm(zl, (H,), gamma, beta, 1e-12)
+        self.time_row(rows, "ln_train", "ln_train", lambda: k.ln_train(h32, x2d, gamma, beta, 77, TRAIN_RATE, rows_pb),
+                      lambda: k.ln_train_plain(h32, x2d, gamma, beta, 77, TRAIN_RATE, rows_pb),
+                      lambda: F.layer_norm(z, (H,), gamma, beta, 1e-12), m * H * 8 + 2 * H * 4, 12.0 * m * H,
+                      PEAK_F32_FLOPS, check=False)
+        parts = -(-m // k.LN_TRAIN_BWD_ROWS)
+        self.time_row(rows, "ln_train_bwd", "ln_train_bwd",
+                      lambda: k.ln_train_bwd(h32, x2d, dy2d, gamma, 77, TRAIN_RATE, rows_pb),
+                      lambda: k.ln_train_bwd_plain(h32, x2d, dy2d, gamma, 77, TRAIN_RATE, rows_pb),
+                      lambda: torch.autograd.grad(yl, (zl,), dy2d.float(), retain_graph=True),
+                      m * H * 14 + H * 4 + 2 * parts * H * 4, 20.0 * m * H, PEAK_F32_FLOPS, check=False)
+        qkv, dctx = c["qkv"], c["dctx"]
+        q, kk, v = (t.reshape(b, S, N, 64).transpose(1, 2).contiguous().requires_grad_() for t in qkv.split(H, dim=1))
+        sd = F.scaled_dot_product_attention(q, kk, v, dropout_p=TRAIN_RATE)
+        dsd = dctx.reshape(b, S, N, 64).transpose(1, 2)
+        a = (b, S, N, 55, TRAIN_RATE, 8)
+        self.time_row(rows, "attn_train", "attn_train", lambda: k.attn_train(qkv, None, *a),
+                      lambda: k.attn_train_plain(qkv, None, *a),
+                      lambda: F.scaled_dot_product_attention(q, kk, v, dropout_p=TRAIN_RATE),
+                      m * 3 * H * 2 + m * H * 2, 4.0 * b * N * S * S * 64, PEAK_BF16_FLOPS, check=False)
+        self.time_row(rows, "attn_train_bwd", "attn_train_bwd", lambda: k.attn_train_bwd(qkv, dctx, None, *a),
+                      lambda: k.attn_train_bwd_plain(qkv, dctx, None, *a),
+                      lambda: torch.autograd.grad(sd, (q, kk, v), dsd, retain_graph=True),
+                      m * 3 * H * 2 * 2 + m * H * 2, 10.0 * b * N * S * S * 64, PEAK_BF16_FLOPS, check=False)
+        # the GEMM's training launches (its other rows are the inference ones)
+        _, u = k.gemm(x2d, w1, fw[1], "gelu_tanh_save")
+        g16 = k.gemm(x2d, w1, fw[1], "gelu_tanh")
+        for label, fn, pfn, lib, mm, nn, kk_, out_bytes in (
+            ("gelu_tanh_save", lambda: k.gemm(x2d, w1, fw[1], "gelu_tanh_save"),
+             lambda: k.gemm_plain(x2d, w1, fw[1], "gelu_tanh_save"), lambda: torch.matmul(x2d, w1), m, I, H, 6),
+            ("f32", lambda: k.gemm(g16, w2, fw[3], "f32"), lambda: k.gemm_plain(g16, w2, fw[3], "f32"),
+             lambda: torch.matmul(g16, w2), m, H, I, 4),
+            ("gelu_bwd_tanh trans_b", lambda: k.gemm(dy2d, w2, None, "gelu_bwd_tanh", aux=u, trans_b=True),
+             lambda: k.gemm_plain(dy2d, w2, None, "gelu_bwd_tanh", aux=u, trans_b=True),
+             lambda: torch.matmul(dy2d, w2.T), m, I, H, 6),
+            ("residual_f32 trans_b K=3072", lambda: k.gemm(g16, w1, None, "residual_f32", aux=h32, trans_b=True),
+             lambda: k.gemm_plain(g16, w1, None, "residual_f32", aux=h32, trans_b=True),
+             lambda: torch.matmul(g16, w1.T), m, H, I, 6),
+            ("bias trans_b (dctx)", lambda: k.gemm(dy2d, wo, None, "bias", trans_b=True),
+             lambda: k.gemm_plain(dy2d, wo, None, "bias", trans_b=True), lambda: torch.matmul(dy2d, wo.T), m, H, H, 2),
+            ("residual_f32 trans_b K=2304", lambda: k.gemm(qkv, wqkv, None, "residual_f32", aux=h32, trans_b=True),
+             lambda: k.gemm_plain(qkv, wqkv, None, "residual_f32", aux=h32, trans_b=True),
+             lambda: torch.matmul(qkv, wqkv.T), m, H, 3 * H, 6),
+        ):
+            self.time_row(rows, f"gemm_bf16 train {label}", "gemm_bf16", fn, pfn, lib,
+                          mm * kk_ * 2 + kk_ * nn * 2 + mm * nn * out_bytes, 2.0 * mm * nn * kk_, PEAK_BF16_FLOPS,
+                          check=False)
+        return rows
+
+    def train_data(self, work):
+        """A synthetic TSV, its labels and query_labels.txt (every synthetic query, as tests/test_scripts.py
+        writes them) -> (tsv path, labels path, query-labels path)."""
+        from importlib import import_module
+
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        tsv, labels, qlabels = work / "train.tsv", work / "labels.txt", work / "query_labels.txt"
+        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=self.seed)) + "\n")
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        qlabels.write_text("".join(f"{300000 + i}\t{q}\tdress,others\n"
+                                   for i, q in enumerate(synthetic.SYNTHETIC_QUERIES)))
+        return tsv, labels, qlabels
+
+    def train_imagebert_a(self) -> tuple[dict, dict]:
+        """The training path at full width: the step-1 check of the kernel route against the plain routes,
+        TRAIN_STEPS timed steps with the counters read at every one, and TRAIN_STEPS steps through
+        cli/train.py with the counters around the run -> (its launches, the phase's numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        models = import_module(f"{PKG}.models")
+        tok = import_module(f"{PKG}.tokenization")
+        train = import_module(f"{PKG}.train")
+        train_cli = import_module(f"{PKG}.cli.train")
+        optim = import_module(f"{PKG}.train.optim")
+
+        work = pkg.BUILD_DIR / "smoke" / "train"
+        work.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        tsv, labels, qlabels = self.train_data(work)
+        spec = models.get_model("imagebert_a")
+        cfg = spec.config
+        if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads, cfg.hidden_dropout_prob,
+                cfg.attention_probs_dropout_prob) != (H, 12, N, TRAIN_RATE, TRAIN_RATE):
+            raise RuntimeError(f"not the full-width config with dropout {TRAIN_RATE}: {cfg}")
+        params = spec.init_params(self.seed)
+        sampler = data.HardNegativeSampler(
+            data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels)),
+            data.QueryLabelIndex.load(qlabels), data.SamplerConfig.imagebert_a(self.seed))
+        lines = tsv.read_text().splitlines()
+        examples = []
+        while len(examples) < TRAIN_STEPS * TRAIN_B:
+            examples.extend(sampler.examples(lines))
+        batches = [data.pad_batch(data.stack_examples(examples[i * TRAIN_B:(i + 1) * TRAIN_B]), TRAIN_B)
+                   for i in range(TRAIN_STEPS)]
+        # A's recipe with a short warmup and horizon, so the few steps move the parameters (the recipe's
+        # 30k-step warmup starts at LR 0)
+        tc = dataclasses.replace(train.recipe_for("imagebert_a"), num_warmup_steps=TRAIN_STEPS // 2,
+                                 num_train_steps=10 * TRAIN_STEPS)
+        log(f"train setup: {len(examples)} sampled pairs, {cfg.num_hidden_layers}x{cfg.hidden_size} params, "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # step 1 from one params/batch/seed on three routes: kernels, plain in bf16, plain in f32 (the truth)
+        bf16 = models.Precision.bf16()
+        routes = {"kernel": (bf16, models.TRAIN_KERNEL_BLOCKS), "plain_bf16": (bf16, models.TRAIN_PLAIN_BLOCKS),
+                  "plain_f32": (models.Precision.f32(), models.TRAIN_PLAIN_BLOCKS)}
+        step1 = {}
+        for route, (prec, blocks) in routes.items():
+            trainer = train.Trainer(spec, tc, precision=prec, device=self.dev, blocks=blocks)
+            state = trainer.init_state(params)
+            grads, metrics = trainer.grads(state, trainer.to_device(batches[0]), seed=1)
+            step1[route] = (metrics["loss"].item(), [g.detach() for g in grads], state.optimizer.names)
+            del trainer, state, grads
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        (loss_k, gk, names), (loss_p, gp, _), (loss_t, gt, _) = (step1[r] for r in routes)
+        worst, failed = [], []
+        for name, a, p_, t in zip(names, gk, gp, gt):
+            tn = t.float().norm().clamp_min(1e-30)
+            ek, ep = ((a.float() - t.float()).norm() / tn).item(), ((p_.float() - t.float()).norm() / tn).item()
+            worst.append((ek, ep, name))
+            if not ek <= max(TRAIN_STEP_REL_L2, TRAIN_OVER_PLAIN * ep):
+                failed.append(name)
+        worst.sort(reverse=True)
+        log(f"train step 1: loss kernel {loss_k:.6f}, plain bf16 {loss_p:.6f}, f32 truth {loss_t:.6f}; gradients "
+            f"vs the truth, relative L2 (kernel, plain bf16, name), worst 5: "
+            f"{[(f'{a:.3g}', f'{b_:.3g}', n) for a, b_, n in worst[:5]]}; band max({TRAIN_STEP_REL_L2:g}, "
+            f"{TRAIN_OVER_PLAIN:g} x plain); TF32 after the f32 route: {tf32}")
+        if failed or not all(np.isfinite([loss_k, loss_p, loss_t])) or abs(loss_k - loss_t) > 1e-2:
+            raise RuntimeError(f"step-1 gradients of the kernel route disagree with the f32 truth: {failed}")
+        del gk, gp, gt, step1
+
+        # TRAIN_STEPS steps on the kernel route, device time split, the counters read at every step
+        trainer = train.Trainer(spec, tc, precision=bf16, device=self.dev)
+        state = trainer.init_state(params)
+        start = [p.detach().clone() for p in state.leaves()]
+        counted = launch_counters()
+        expected = expected_launches(1, PER_STEP)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        split, losses = [], []
+        for i, batch in enumerate(batches):
+            dev_batch = trainer.to_device(batch)
+            torch.cuda.synchronize()
+            for w in counted:
+                w.launches = 0
+            gen = torch.Generator(device=self.dev).manual_seed(100 + i)
+            ev[0].record()
+            loss, metrics = trainer.loss_fn(state.params, dev_batch, gen)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, state.leaves(), allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.leaves(), grads)]
+            ev[2].record()
+            metrics.update(trainer.apply(state, grads))
+            ev[3].record()
+            torch.cuda.synchronize()
+            counts = {w.__name__: w.launches for w in counted}
+            if counts != expected:
+                raise RuntimeError(f"train step {i + 1} launches {counts}, expected {expected}")
+            split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+            losses.append(metrics["loss"].item())
+        moved = max((p.detach() - s0).abs().max().item() for p, s0 in zip(state.leaves(), start))
+        fwd, bwd, opt = (float(np.median([r[j] for r in split[1:]])) for j in range(3))
+        log(f"train {TRAIN_STEPS} steps on the kernel route at B={TRAIN_B}: losses {[round(v, 5) for v in losses]}; "
+            f"device ms per step (median of steps 2..{TRAIN_STEPS}): forward {fwd:.3f}, backward {bwd:.3f}, "
+            f"optimizer {opt:.3f}, total {fwd + bwd + opt:.3f} = {TRAIN_B / (fwd + bwd + opt) * 1e3:.1f} pairs/s "
+            f"on the device; max |param moved| {moved:.3g}; launches exact at every step")
+        if not all(np.isfinite(losses)) or not moved > 0:
+            raise RuntimeError("training diverged or did not move the parameters")
+        profile = self.profile_steps(trainer, state, batches[:2])
+        del trainer, state, start, grads
+
+        # the user's entry point: cli/train.py, counters around the whole run
+        torch.cuda.synchronize()
+        for w in counted:
+            w.launches = 0
+        report = train_cli.main(["--model", "imagebert_a", "--train-tsv", str(tsv), "--labels", str(labels),
+                                 "--query-labels", str(qlabels), "--steps", str(TRAIN_STEPS), "--batch-size",
+                                 str(TRAIN_B), "--out", str(work / "run"), "--checkpoint-every", "1000",
+                                 "--warmup-steps", str(tc.num_warmup_steps), "--total-steps",
+                                 str(tc.num_train_steps), "--seed", str(self.seed)])
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in counted}
+        log(f"launches imagebert_a_train (cli/train.py, {TRAIN_STEPS} steps): {json.dumps(launches)}")
+        log(f"train end to end through cli/train.py: {report['pairs']} pairs in {report['seconds']:.3f} s = "
+            f"{report['pairs_per_second']:.1f} pairs/s (host sampler included)")
+        ckpt = optim.flatten_paths(import_module(f"{PKG}.checkpoint").load_npz(work / "run" / f"step_{TRAIN_STEPS}.npz"))
+        if not all(np.isfinite(v).all() for v in ckpt.values()):
+            raise RuntimeError("the trained checkpoint holds non-finite values")
+        rates = {"step1": {"loss_kernel": loss_k, "loss_plain_bf16": loss_p, "loss_f32_truth": loss_t,
+                           "worst_rel_l2": [{"param": n, "kernel": a, "plain_bf16": b_} for a, b_, n in worst[:5]]},
+                 "losses": losses, "device_ms_per_step": {"forward": fwd, "backward": bwd, "optimizer": opt,
+                                                          "total": fwd + bwd + opt},
+                 "device_pairs_per_second": TRAIN_B / (fwd + bwd + opt) * 1e3, "cli": report, "profile": profile,
+                 "device_busy_share": profile["device_busy_ms_per_step"] / (fwd + bwd + opt)}
+        log(f"train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled kernels' sum "
+            f"over the CUDA-event step time)")
+        return launches, rates
+
+    def profile_steps(self, trainer, state, batches) -> dict:
+        """torch.profiler over train steps on the kernel route: the device time by kernel (the table goes to
+        build/smoke/train/profile.txt), per step."""
+        from importlib import import_module
+
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        dev_batches = [trainer.to_device(b) for b in batches]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i, b in enumerate(dev_batches):
+                grads, _ = trainer.grads(state, b, seed=200 + i)
+                trainer.apply(state, grads)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        averages = prof.key_averages()
+        table = averages.table(sort_by="self_device_time_total", row_limit=40)
+        (import_module(PKG).BUILD_DIR / "smoke" / "train" / "profile.txt").write_text(table)
+        # the kernels themselves (the ops that launch them carry the same time as their own "self" device time)
+        kernels = [e for e in averages if str(e.device_type).endswith("CUDA")]
+        n = len(batches)
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+        by_name: dict[str, float] = {}  # kernel names cut to 80 characters; templates that share a prefix add up
+        for e in kernels:
+            by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3 / n
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:20])
+        out = {"steps": n, "wall_ms_per_step_profiler_on": wall_ms / n, "device_busy_ms_per_step": busy_ms,
+               "kernel_ms_per_step": top}
+        log(f"train profile, {n} steps: device busy {busy_ms:.3f} ms a step (kernels' sum; wall "
+            f"{wall_ms / n:.1f} ms a step with the profiler on); ms a step by kernel: "
+            f"{json.dumps(out['kernel_ms_per_step'])}")
+        return out
+
+
+
     @staticmethod
     def ranking_agreement(batches, kern, plain) -> tuple[int, int]:
         keys = [(q, p) for bt in batches for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]
@@ -1314,6 +1808,7 @@ PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
 PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
 PER_B = f"one ImageBERT-B layer at B={MAIN_B}, S={B_S} (fused route)"
 PER_MHA = f"one attention core at B={MAIN_B}, S={S}, bf16, no bias (ImageBERT-A's; the other cases under \"shapes\")"
+PER_T = f"one ImageBERT-A training block at B={TRAIN_B}, S={S}, dropout {TRAIN_RATE}, no mask"
 KERNELS = [
     # name, source, TPU kernel it replaces, the rows of time_kernels() / time_lxmert_kernels()
     # that make up one layer's launches, and which layer that is
@@ -1340,6 +1835,20 @@ KERNELS = [
     ("mha", f"{PKG}/csrc/mha.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:49", [f"mha S={S}"], PER_MHA),
     ("mha_packed", f"{PKG}/csrc/mha.cu", f"{TPU_PKG_DIR}/ops/pallas_attention.py:136", [f"mha_packed S={S}"],
      PER_MHA),
+    # the training blocks (rows 8-11 of PERF.md's table) and the kernels inside them
+    ("ffn_block_train", f"{PKG}/ops/train_blocks.py", f"{TPU_PKG_DIR}/ops/pallas_train.py:297",
+     ["ffn_block_train"], PER_T),
+    ("ffn_block_train_backward", f"{PKG}/ops/train_blocks.py", f"{TPU_PKG_DIR}/ops/pallas_train.py:323",
+     ["ffn_block_train_backward"], PER_T),
+    ("attention_block_train", f"{PKG}/ops/train_blocks.py", f"{TPU_PKG_DIR}/ops/pallas_train.py:864",
+     ["attention_block_train"], PER_T),
+    ("attention_block_train_backward", f"{PKG}/ops/train_blocks.py", f"{TPU_PKG_DIR}/ops/pallas_train.py:897",
+     ["attention_block_train_backward"], PER_T),
+    ("ln_train", f"{PKG}/csrc/ln_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:189", ["ln_train"], PER_T),
+    ("ln_train_bwd", f"{PKG}/csrc/ln_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:218", ["ln_train_bwd"], PER_T),
+    ("attn_train", f"{PKG}/csrc/attn_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:548", ["attn_train"], PER_T),
+    ("attn_train_bwd", f"{PKG}/csrc/attn_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:811", ["attn_train_bwd"],
+     PER_T),
 ]
 # the GEMM's "f32" epilogue (ImageBERT-B's banded label conv, one launch a batch) rides in the
 # gemm_bf16 entry under this key, timed alone at B=512
@@ -1373,6 +1882,7 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
         if name == "gemm_bf16":
             out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
                                        f"512-pair ImageBERT-B batch"}
+            out[-1]["train_launches"] = {row: times[row] for row in times if row.startswith("gemm_bf16 train ")}
         if name.startswith("mha"):
             out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
     return {"kernels": out}
@@ -1474,6 +1984,13 @@ PER_BATCH = {
     "mha_packed_entry": {"mha_packed": 1},
 }
 PER_BATCH["imagebert_c"] = PER_BATCH["imagebert_b"]
+# launches per ImageBERT-A training step (12 layers): forward, attention block = QKV gemm, attn_train, out-proj
+# gemm ("f32"), ln_train; FFN block = up gemm (GELU), down gemm ("f32"), ln_train. Backward: each block's
+# forward recomputed (the FFN up gemm with the "_save" epilogue), ln_train_bwd, then the transposed-weight
+# gemms (attention: dctx and dx around attn_train_bwd; FFN: du and dx)
+PER_STEP = {"attention_block_train": 12, "ffn_block_train": 12, "attention_block_train_backward": 12,
+            "ffn_block_train_backward": 12, "gemm": 12 * (2 + 2 + 4 + 4), "attn_train": 12 + 12,
+            "attn_train_bwd": 12, "ln_train": 12 + 12, "ln_train_bwd": 12 + 12}
 PER_BATCH["imagebert_c_pallas"] = PER_BATCH["imagebert_b_pallas"]
 
 
@@ -1554,8 +2071,19 @@ def main(argv: list[str] | None = None) -> int:
         packed = smoke.drive_mha_packed()
         if packed != expected_launches(1, PER_BATCH["mha_packed_entry"]) or smoke.failures:
             raise RuntimeError(f"mha_packed entry point: launches {packed}, failures {smoke.failures}")
+        smoke.check_train_kernels()
+        if smoke.failures:
+            raise RuntimeError(f"train kernels disagree with their plain versions: {smoke.failures}")
+        times.update(smoke.time_train_kernels())
+        if smoke.failures:
+            raise RuntimeError(f"train blocks disagree with their plain oracles: {smoke.failures}")
+        train_launches, train_rates = smoke.train_imagebert_a()
+        expected = expected_launches(TRAIN_STEPS, PER_STEP)
+        if train_launches != expected:
+            raise RuntimeError(f"imagebert_a_train launches {train_launches}, expected {expected}")
+        log(json.dumps({"train_imagebert_a": train_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
-                        "mha_packed_entry": packed}
+                        "mha_packed_entry": packed, "imagebert_a_train": train_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:

@@ -8,8 +8,10 @@ PyTorch version beside it (``ops/``).
 
 Ported so far: scoring with all four scorers, ImageBERT-A, -B, -C and LXMERT
 (tokenizers, data layer, models, scoring engine, ``cli/score.py``), under
-each attention backend, and the AOT serving export (``serving/``,
-``cli/export.py``). ROADMAP.md lists what is still to come.
+each attention backend, the AOT serving export (``serving/``,
+``cli/export.py``), and ImageBERT-A training (``data/sampling.py``,
+``ops/train_blocks.py``, ``train/``, ``cli/train.py``). ROADMAP.md lists what
+is still to come.
 """
 
 __version__ = "0.1.0"

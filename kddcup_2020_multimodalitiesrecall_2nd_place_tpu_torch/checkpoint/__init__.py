@@ -1,10 +1,20 @@
-from .npz import cast_matmul_weights, flatten_tree, load_npz, params_from_jax, save_npz, tree_to, unflatten_tree
+from .npz import (
+    cast_matmul_weights,
+    flatten_tree,
+    load_npz,
+    params_from_jax,
+    params_to_jax,
+    save_npz,
+    tree_to,
+    unflatten_tree,
+)
 
 __all__ = [
     "cast_matmul_weights",
     "flatten_tree",
     "load_npz",
     "params_from_jax",
+    "params_to_jax",
     "save_npz",
     "tree_to",
     "unflatten_tree",

@@ -9,6 +9,10 @@
   the JAX package concatenates them on every call, ``models/core.py``
   :293-299, :315-316, :400-401). Leaves a model stores in another form
   are left to its spec's ``from_jax`` (ImageBERT-B's label-conv band).
+* ``params_to_jax``: the inverse for a trained ImageBERT-A tree: each fused
+  ``qkv`` split back into query/key/value, numpy leaves, so ``save_npz``
+  writes a checkpoint that the port's ``cli/score.py`` and the JAX package's
+  ``scripts/score.py`` both load.
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
   embedding tables and the heads' f32 weights stay float32.
@@ -84,6 +88,27 @@ def params_from_jax(tree: dict) -> Params:
     enc["attention"] = attention_forms(enc["attention"])
     params["cls"] = {"seq_relationship": params["cls"]["seq_relationship"]}
     return params
+
+
+def params_to_jax(params: Params) -> dict:
+    """The port's ImageBERT-A params -> the JAX package's tree layout, numpy
+    float32 leaves: the inverse of ``params_from_jax`` (``attention_forms``
+    undone: ``qkv`` [L, H, 3H] back to query, key, value [L, H, H])."""
+    def to_numpy(tree):
+        if isinstance(tree, dict):
+            return {k: to_numpy(v) for k, v in tree.items()}
+        return tree.detach().float().cpu().numpy()
+
+    tree = to_numpy(params)
+    enc = tree["bert"]["encoder"]
+    if "x_layers" in enc:
+        raise NotImplementedError("LXMERT checkpoints are not written yet, see ROADMAP.md Queue 1 item 9")
+    att = dict(enc["attention"])
+    qkv = att.pop("qkv")
+    for i, name in enumerate(("query", "key", "value")):
+        att[name] = {k: np.split(v, 3, axis=-1)[i] for k, v in qkv.items()}
+    enc["attention"] = att
+    return tree
 
 
 def cast_matmul_weights(params: Params, dtype: torch.dtype, paths) -> Params:

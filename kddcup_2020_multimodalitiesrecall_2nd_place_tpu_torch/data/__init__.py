@@ -1,17 +1,21 @@
 from .featurize import Featurizer, pad_batch, stack_examples
-from .labels import load_multimodal_labels
+from .labels import QueryLabelIndex, load_multimodal_labels
 from .pipeline import PipelineStats, PrefetchIterator, batches_from_files, iter_batches
+from .sampling import HardNegativeSampler, SamplerConfig
 from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, MAX_QUERY_LEN_L, RawExample, parse_line
 
 __all__ = [
     "Featurizer",
+    "HardNegativeSampler",
     "MAX_BOXES",
     "MAX_LABEL_TOKENS",
     "MAX_QUERY_LEN_AB",
     "MAX_QUERY_LEN_L",
     "PipelineStats",
     "PrefetchIterator",
+    "QueryLabelIndex",
     "RawExample",
+    "SamplerConfig",
     "batches_from_files",
     "iter_batches",
     "load_multimodal_labels",

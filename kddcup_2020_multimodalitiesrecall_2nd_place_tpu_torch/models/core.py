@@ -10,7 +10,12 @@
   package: under "pallas_packed" the fused blocks of ``ops/`` (``Blocks``),
   or with ``KMR_FUSED_LAYER=1`` one fused encoder layer each; under "xla" and
   "pallas" the unfused route of plain products around ``ops/attention.py:mha``
-  (its ``models/core.py`` :331-360 and :497-504),
+  (its ``models/core.py`` :331-360 and :497-504). Given per-layer dropout
+  seeds (training), the self-attention and FFN blocks are the train blocks of
+  ``ops/train_blocks.py`` (``TrainBlocks``) on every backend, as the JAX
+  package takes its fused train blocks whenever it trains
+  (``models/core.py`` :192-235, :449-477),
+* ``dropout`` of the embeddings (training), drawn from a ``torch.Generator``,
 * embedding and pooler pieces, and initialisers (truncated normal,
   stddev=initializer_range, as ``pixelmodel.py:418-420``).
 
@@ -47,6 +52,12 @@ from ..ops.ffn_block import ffn_block as ffn_block_op
 from ..ops.ffn_block import ffn_block_plain
 from ..ops.kernels import gemm_plain, layernorm_plain
 from ..ops.library import gemm
+from ..ops.train_blocks import (
+    attention_block_train,
+    attention_block_train_plain,
+    ffn_block_train,
+    ffn_block_train_plain,
+)
 
 Params = dict[str, Any]
 
@@ -118,6 +129,20 @@ KERNEL_BLOCKS = Blocks(attention_block_op, ffn_block_op, cross_attention_block_o
 # the oracles, on any device (chip_smoke.py holds the kernels against them)
 PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain, cross_attention_block_plain,
                       dual_cross_attention_block_plain, encoder_layer_plain, gemm_plain)
+
+
+class TrainBlocks(NamedTuple):
+    """The self-attention and FFN blocks an encoder trains with: with dropout,
+    their masks from per-layer seeds, and a backward."""
+
+    attention: Callable[..., torch.Tensor]
+    ffn: Callable[..., torch.Tensor]
+
+
+# the autograd Functions over the kernels (plain versions on CPU tensors)
+TRAIN_KERNEL_BLOCKS = TrainBlocks(attention_block_train, ffn_block_train)
+# the plain differentiable oracles, on any device (chip_smoke.py runs one step on both)
+TRAIN_PLAIN_BLOCKS = TrainBlocks(attention_block_train_plain, ffn_block_train_plain)
 
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
 GELU = {"gelu": gelu_tanh, "gelu_erf": gelu_erf}
@@ -202,6 +227,21 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12, out_dtype=None) -
     return layernorm_plain(x, p["gamma"], p["beta"], eps, out_dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with a keep mask drawn from ``gen`` (on x's device), as
+    the JAX package's ``models/core.py`` :153-157 draws it with jax.random."""
+    if rate <= 0.0 or gen is None:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def layer_seeds(gen: torch.Generator, n_layers: int) -> list[tuple[int, int]]:
+    """One (attention, FFN) pair of 32-bit dropout seeds per layer, from ``gen``."""
+    seeds = torch.randint(-2**31, 2**31 - 1, (n_layers, 2), generator=gen, device=gen.device)
+    return [(a, f) for a, f in seeds.tolist()]
+
+
 # --------------------------------------------------------------------------
 # blocks and encoder
 # --------------------------------------------------------------------------
@@ -229,8 +269,17 @@ def unfused_attention(p: Params, x, ctx, bias, cfg: BertConfig, prec: Precision)
     return layer_norm(p["output"]["LayerNorm"], o + x.float(), out_dtype=dt)
 
 
-def attention_block(p: Params, x, bias, cfg: BertConfig, prec: Precision, blocks: Blocks = KERNEL_BLOCKS):
-    """Post-LN self-attention block of one layer (no dropout: inference)."""
+def attention_block(p: Params, x, bias, cfg: BertConfig, prec: Precision, blocks: Blocks = KERNEL_BLOCKS,
+                    seed: int | None = None):
+    """Post-LN self-attention block of one layer: inference, or with a dropout
+    ``seed`` the train block of ``blocks`` (a ``TrainBlocks``)."""
+    if seed is not None:
+        out = p["output"]
+        return blocks.attention(
+            x, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
+            out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads, seed, bias=bias,
+            attn_dropout_rate=cfg.attention_probs_dropout_prob, hidden_dropout_rate=cfg.hidden_dropout_prob,
+        )
     if not packed_attention_active():
         return unfused_attention(p, x, None, bias, cfg, prec)
     out = p["output"]
@@ -274,16 +323,23 @@ def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: Bert
 
 
 def ffn_block(p: Params, x, cfg: BertConfig, prec: Precision, blocks: Blocks = KERNEL_BLOCKS,
-              act: str | None = None):
-    """Post-LN feed-forward block of one layer (no dropout: inference): the
-    fused block under "pallas_packed", else dense -> GELU -> dense -> residual
-    -> LN (the JAX package's ``models/core.py`` :497-504). ``act`` overrides
+              act: str | None = None, seed: int | None = None):
+    """Post-LN feed-forward block of one layer, inference: the fused block
+    under "pallas_packed", else dense -> GELU -> dense -> residual -> LN (the
+    JAX package's ``models/core.py`` :497-504); with a dropout ``seed``, the
+    train block of ``blocks`` (a ``TrainBlocks``). ``act`` overrides
     ``cfg.hidden_act`` (LXMERT runs ``gelu_erf`` under a config that says
     ``gelu``, as the JAX package's ``models/core.py`` :440-448)."""
     act_name = act or cfg.hidden_act
     if act_name not in GELU_APPROXIMATE:
         raise NotImplementedError(f"activation {act_name!r} is not yet ported, see ROADMAP.md")
     out = p["output"]
+    if seed is not None:
+        return blocks.ffn(
+            x, p["intermediate"]["kernel"], p["intermediate"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
+            out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], seed, dropout_rate=cfg.hidden_dropout_prob,
+            approximate_gelu=GELU_APPROXIMATE[act_name],
+        )
     if not packed_attention_active():
         dt = prec.compute_dtype
         hmid = GELU[act_name](dense(p["intermediate"], x, prec)).to(dt)
@@ -299,6 +355,17 @@ def ffn_block(p: Params, x, cfg: BertConfig, prec: Precision, blocks: Blocks = K
 def layer_slice(tree: Params, i: int) -> Params:
     """Layer i of a tree of [L]-stacked leaves."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def unbind_layers(tree: Params) -> list[Params]:
+    """The layers of a tree of [L]-stacked leaves, by ``torch.unbind``, whose
+    backward stacks the L gradients once (L index selections would each
+    scatter into a zero tensor of the whole stack)."""
+    if not isinstance(tree, dict):
+        return list(torch.unbind(tree))
+    parts = {k: unbind_layers(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def num_layers(p: Params) -> int:
@@ -336,12 +403,22 @@ def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, prec: 
 
 
 def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
-            blocks: Blocks = KERNEL_BLOCKS, act: str | None = None, fuse: bool = True) -> torch.Tensor:
+            blocks: Blocks = KERNEL_BLOCKS, act: str | None = None, fuse: bool = True,
+            seeds: list[tuple[int, int]] | None = None) -> torch.Tensor:
     """The post-LN stack; the f32 embedding output is cast to the compute
     dtype on entry (the JAX package's ``models/core.py`` :673). ``fuse=False``
     keeps the two blocks whatever ``KMR_FUSED_LAYER`` says (LXMERT's L and R
-    stacks, as the JAX package's ``models/lxmert.py`` :245-259)."""
+    stacks, as the JAX package's ``models/lxmert.py`` :245-259). With
+    ``seeds`` (one (attention, FFN) dropout-seed pair per layer) it trains:
+    each layer is the two train blocks of ``blocks``, a ``TrainBlocks``; the
+    blocks recompute their intermediates in the backward, so no layer needs
+    checkpointing (the JAX package's ``models/core.py`` :653-671)."""
     x = x.to(prec.compute_dtype)
+    if seeds is not None:
+        for layer, (attn_seed, ffn_seed) in zip(unbind_layers(p), seeds, strict=True):
+            x = attention_block(layer["attention"], x, bias, cfg, prec, blocks, seed=attn_seed)
+            x = ffn_block(layer["ffn"], x, cfg, prec, blocks, act, seed=ffn_seed)
+        return x
     for i in range(num_layers(p)):
         layer = layer_slice(p, i)
         x = encoder_layer(layer["attention"], layer["ffn"], x, bias, cfg, prec, blocks, act, fuse)

@@ -13,7 +13,8 @@
   ``models/heads.py`` :197-210: its two denses round their inputs to the
   compute dtype, like every ``dense``.
 
-The MLM head follows with training."""
+``nsp_loss`` is ImageBERT-A's training loss; the MLM head is not ported yet
+(ROADMAP.md Queue 1 item 9)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,14 @@ def nsp_logits(p: Params, pooled: torch.Tensor) -> torch.Tensor:
 
 def nsp_probs(p: Params, pooled: torch.Tensor) -> torch.Tensor:
     return torch.softmax(nsp_logits(p, pooled), dim=-1)
+
+
+def nsp_loss(p: Params, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of the NSP head against 0/1 labels (the JAX
+    package's ``models/heads.py`` :60-63)."""
+    log_probs = torch.log_softmax(nsp_logits(p, pooled), dim=-1)
+    one_hot = torch.nn.functional.one_hot(labels.long(), 2).float()
+    return -(one_hot * log_probs).sum(dim=-1).mean()
 
 
 AM_MARGIN = 0.35

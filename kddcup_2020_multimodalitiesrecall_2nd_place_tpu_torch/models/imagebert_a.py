@@ -14,21 +14,27 @@ encoder runs with no bias. Head: binary NSP softmax, score = probs[:, 1].
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..data.tsv import MAX_BOXES, MAX_QUERY_LEN_AB
 from . import heads
 from .core import (
     KERNEL_BLOCKS,
+    TRAIN_KERNEL_BLOCKS,
     BertConfig,
     Blocks,
     Params,
     Precision,
+    TrainBlocks,
     dense,
     dense_init,
+    dropout,
     embeddings_init,
     encoder,
     encoder_init,
     layer_norm,
+    layer_seeds,
+    num_layers,
     pooler,
     trunc_normal,
 )
@@ -74,7 +80,7 @@ def _label_mix(emb_table: torch.Tensor, mix: torch.Tensor, label_ids: torch.Tens
     the JAX package computes it (``models/imagebert_a.py`` :67-86): one f32
     contraction of each token's H dims with kron(I_96, mix) [H, 96].
     """
-    e = emb_table[label_ids].float()  # [B, 10, 8, H]
+    e = F.embedding(label_ids, emb_table).float()  # [B, 10, 8, H]
     b, n, t, h = e.shape
     g = h // t  # 96 groups of 8 consecutive dims per token
     mix_mat = torch.kron(torch.eye(g, dtype=e.dtype, device=e.device), mix.float())  # [H, g]
@@ -82,32 +88,48 @@ def _label_mix(emb_table: torch.Tensor, mix: torch.Tensor, label_ids: torch.Tens
     return mixed.reshape(b, MAX_BOXES, h)
 
 
-def embed(p: Params, batch: dict, cfg: BertConfig, prec: Precision) -> torch.Tensor:
-    """-> [B, 40, H] float32 transformer input."""
+def embed(p: Params, batch: dict, cfg: BertConfig, prec: Precision,
+          gen: torch.Generator | None = None) -> torch.Tensor:
+    """-> [B, 40, H] float32 transformer input; with ``gen`` the text part
+    gets its hidden dropout."""
     emb = p["bert"]["embeddings"]
     table = emb["word_embeddings"]
-    text = table[batch["input_ids"].long()]  # [B, 20, H]
-    text = text + emb["token_type_embeddings"][batch["segment_ids"].long()]
+    # F.embedding, not indexing: the same gather, and a backward that sums duplicate ids
+    # (every padding id 0) in one sorted pass where index_put's accumulate serializes them
+    text = F.embedding(batch["input_ids"].long(), table)  # [B, 20, H]
+    text = text + F.embedding(batch["segment_ids"].long(), emb["token_type_embeddings"])
     text = text + emb["position_embeddings"][:TEXT_LEN][None]
-    text = layer_norm(emb["LayerNorm"], text)
+    text = dropout(layer_norm(emb["LayerNorm"], text), cfg.hidden_dropout_prob, gen)
     feat = dense(p["featureemb"], batch["features"], prec)  # [B, 10, H]
     label = _label_mix(table, emb["word_embeddings_labelembedding"], batch["label_ids"].long())
     return torch.cat([text.float(), feat.float(), label.float()], dim=1)
 
 
 def apply(p: Params, batch: dict, cfg: BertConfig, prec: Precision | None = None,
-          blocks: Blocks = KERNEL_BLOCKS) -> dict:
-    """Inference forward pass (dropout off, as the reference zeroes it when
-    not training: pixelmodel.py:178-180). ``blocks`` picks the per-layer
-    block functions: the kernel wrappers, or the plain oracles."""
+          blocks: Blocks | TrainBlocks | None = None, train: bool = False,
+          gen: torch.Generator | None = None) -> dict:
+    """Forward pass. Inference (``train=False``): dropout off, as the reference
+    zeroes it when not training (pixelmodel.py:178-180); ``blocks`` (a
+    ``Blocks``) picks the per-layer block functions, the kernels' or the plain
+    oracles. Training (``train=True``, the JAX package's ``apply`` with an
+    rng, :116-139): dropout from ``gen``, a ``torch.Generator`` on the batch's
+    device, which draws each layer's dropout seeds and then the embedding
+    mask; ``blocks`` is a ``TrainBlocks``, by default the kernels'."""
     prec = prec if prec is not None else Precision.f32()
-    x = embed(p, batch, cfg, prec)
-    seq = encoder(p["bert"]["encoder"], x, None, cfg, prec, blocks=blocks)
+    seeds = None
+    if train:
+        if gen is None:
+            raise ValueError("training draws its dropout from a torch.Generator: pass gen=")
+        blocks = TRAIN_KERNEL_BLOCKS if blocks is None else blocks
+        seeds = layer_seeds(gen, num_layers(p["bert"]["encoder"]))
+    blocks = KERNEL_BLOCKS if blocks is None else blocks
+    x = embed(p, batch, cfg, prec, gen if train else None)
+    seq = encoder(p["bert"]["encoder"], x, None, cfg, prec, blocks=blocks, seeds=seeds)
     pooled = pooler(p["bert"]["pooler"], seq, prec)
     probs = heads.nsp_probs(p["cls"]["seq_relationship"], pooled)
     return {"sequence": seq, "pooled": pooled, "probs": probs, "score": probs[:, 1]}
 
 
 def score(p: Params, batch: dict, cfg: BertConfig, prec: Precision | None = None,
-          blocks: Blocks = KERNEL_BLOCKS) -> torch.Tensor:
+          blocks: Blocks | None = None) -> torch.Tensor:
     return apply(p, batch, cfg, prec, blocks)["score"]

@@ -1,11 +1,12 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
-library ``build/kernels/<name>-<hash>.so``, where the hash covers the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded. All missing libraries are compiled at once, one nvcc process per
-source, the first time any kernel is needed; nothing is built or imported
-when this module is imported (the CPU tests import every module).
+library ``build/kernels/<name>-<hash>.so``, where the hash covers the source,
+every header of ``csrc/`` (``dropout_hash.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. All missing
+libraries are compiled at once, one nvcc process per source, the first time
+any kernel is needed; nothing is built or imported when this module is
+imported (the CPU tests import every module).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception naming the kernel.
@@ -24,7 +25,7 @@ from pathlib import Path
 from .. import BUILD_DIR, PACKAGE_ROOT
 
 CSRC = PACKAGE_ROOT / "csrc"
-SOURCES = ("gemm_bf16", "attn_core", "layernorm", "layer_tail", "mha")
+SOURCES = ("gemm_bf16", "attn_core", "layernorm", "layer_tail", "mha", "ln_train", "attn_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +49,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / "kernels" / f"{name}-{digest}.so"
 
 

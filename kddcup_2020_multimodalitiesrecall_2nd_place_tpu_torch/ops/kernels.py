@@ -23,6 +23,19 @@ Two more, ``csrc/mha.cu``, are bare attention on their own: ``mha`` (q, k, v
 [B, N, S, Dh] at any strides, the "pallas" attention backend) and
 ``mha_packed`` (q, k, v [B, S, H], heads in column blocks), bf16 or f32.
 
+The training blocks (``train_blocks.py``) add two kernels, each with a
+forward and a backward entry point, and the GEMM's transposed-weight mode
+(``trans_b``: a @ w^T) and its training epilogues:
+
+* ``ln_train`` / ``ln_train_bwd`` ``csrc/ln_train.cu``: the hidden dropout,
+  residual and LayerNorm closing a train block, and its backward (dz, the
+  dropped dh, per-CTA dgamma/dbeta partials).
+* ``attn_train`` / ``attn_train_bwd`` ``csrc/attn_train.cu``: per-head
+  attention with the probability dropout, and its backward (dqkv).
+
+Their dropout masks are the JAX package's interpret-mode hash masks
+(``dropout.py``, ``csrc/dropout_hash.cuh``).
+
 On a CPU tensor each wrapper runs its plain version. On a CUDA tensor it
 launches its kernel or raises; there is no fallback. ``<wrapper>.launches``
 counts kernel launches (never plain calls), so a run can show that its path
@@ -38,11 +51,15 @@ import ctypes
 import torch
 
 from . import _build
-from .activations import gelu_erf, gelu_tanh
+from .activations import gelu_bwd, gelu_erf, gelu_tanh
 from .attention import merge_heads, mha_xla, split_heads
+from .dropout import dropout_cutoff, hidden_keep, keep_scale, probs_keep
 
-EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "residual": 3, "f32": 4}
+EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "residual": 3, "f32": 4, "gelu_tanh_save": 5,
+             "gelu_erf_save": 6, "gelu_bwd_tanh": 7, "gelu_bwd_erf": 8, "residual_f32": 9}
 F32_OUT = ("residual", "f32")  # the epilogues that write f32
+SAVE = ("gelu_tanh_save", "gelu_erf_save")  # also write u = acc + bias (f32): -> (out, u)
+AUX_IN = ("gelu_bwd_tanh", "gelu_bwd_erf", "residual_f32")  # read an f32 [M, N] aux input
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -58,57 +75,79 @@ def _check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch
 
 
 # ---------------------------------------------------------------------------
-# gemm: out = epilogue(a @ w + bias)
+# gemm: out = epilogue(a @ w + bias), or a @ w^T with trans_b
 # ---------------------------------------------------------------------------
 
 
-def gemm_plain(a, w, bias, epilogue: str = "bias", residual=None) -> torch.Tensor:
-    """f32 product of a and w (w rounded to a's dtype first), + f32 bias;
-    "residual" adds residual and "f32" adds nothing, both staying f32; the
-    others end in a's dtype."""
-    y = torch.matmul(a.float(), w.to(a.dtype).float()) + bias.float()
+def gemm_plain(a, w, bias, epilogue: str = "bias", residual=None, aux=None, trans_b: bool = False):
+    """f32 product of a and w (or w^T; w rounded to a's dtype first), + f32
+    bias unless None; "residual" adds residual and "f32" adds nothing, both
+    staying f32; the "_save" epilogues return (gelu in a's dtype, the f32
+    pre-activation); "gelu_bwd_*" multiply by gelu'(aux) and "residual_f32"
+    adds aux; all others end in a's dtype."""
+    wt = w.to(a.dtype).float()
+    y = torch.matmul(a.float(), wt.T if trans_b else wt)
+    if bias is not None:
+        y = y + bias.float()
     if epilogue == "residual":
         return y + residual.float()
     if epilogue == "f32":
         return y
-    if epilogue == "gelu_tanh":
+    if epilogue in SAVE:
+        return (gelu_tanh(y) if epilogue == "gelu_tanh_save" else gelu_erf(y)).to(a.dtype), y
+    if epilogue in ("gelu_bwd_tanh", "gelu_bwd_erf"):
+        y = y * gelu_bwd(aux, epilogue == "gelu_bwd_tanh")
+    elif epilogue == "residual_f32":
+        y = y + aux.float()
+    elif epilogue == "gelu_tanh":
         y = gelu_tanh(y)
     elif epilogue == "gelu_erf":
         y = gelu_erf(y)
     return y.to(a.dtype)
 
 
-def gemm(a, w, bias, epilogue: str = "bias", residual=None) -> torch.Tensor:
-    """a [M, K] bf16, w [K, N] bf16, bias [N] f32 (+ residual [M, N] bf16)
-    -> [M, N] bf16, or f32 for the "residual" and "f32" epilogues."""
+def gemm(a, w, bias, epilogue: str = "bias", residual=None, aux=None, trans_b: bool = False):
+    """a [M, K] bf16, w [K, N] bf16 (or [N, K] with trans_b, read as its
+    transpose), bias [N] f32 or None (+ residual [M, N] bf16, or aux [M, N]
+    f32) -> [M, N] bf16, or f32 for the "residual" and "f32" epilogues; the
+    "_save" epilogues -> (bf16 [M, N], f32 u [M, N])."""
     _require(epilogue in EPILOGUES, f"unknown epilogue {epilogue!r}")
     _require((epilogue == "residual") == (residual is not None),
              "a residual goes with the 'residual' epilogue and only with it")
+    _require((epilogue in AUX_IN) == (aux is not None),
+             f"an aux input goes with the {AUX_IN} epilogues and only with them")
     if not a.is_cuda:
-        return gemm_plain(a, w, bias, epilogue, residual)
+        return gemm_plain(a, w, bias, epilogue, residual, aux, trans_b)
     m, k = a.shape
-    k2, n = w.shape
-    _require(k == k2, f"inner dims differ: a {tuple(a.shape)}, w {tuple(w.shape)}")
+    n, k2 = w.shape if trans_b else w.shape[::-1]
+    _require(k == k2, f"inner dims differ: a {tuple(a.shape)}, w {tuple(w.shape)}, trans_b={trans_b}")
     lib = _build.load("gemm_bf16")
     tile_n, tile_k = lib.kmr_gemm_tile_n(), lib.kmr_gemm_tile_k()
     _require(n % tile_n == 0 and k % tile_k == 0,
              f"gemm_bf16 needs N % {tile_n} == 0 and K % {tile_k} == 0, got N={n}, K={k}")
     _require(m > 0, "empty gemm")
-    for t, name, dt in ((a, "a", torch.bfloat16), (w, "w", torch.bfloat16), (bias, "bias", torch.float32)):
+    for t, name, dt in ((a, "a", torch.bfloat16), (w, "w", torch.bfloat16)):
         _check_operand(t, name, dt, a.device)
-    _require(tuple(bias.shape) == (n,), f"bias shape {tuple(bias.shape)} != ({n},)")
+    if bias is not None:
+        _check_operand(bias, "bias", torch.float32, a.device)
+        _require(tuple(bias.shape) == (n,), f"bias shape {tuple(bias.shape)} != ({n},)")
     if residual is not None:
         _check_operand(residual, "residual", torch.bfloat16, a.device)
         _require(tuple(residual.shape) == (m, n), "residual shape must equal the output's")
+    if aux is not None:
+        _check_operand(aux, "aux", torch.float32, a.device)
+        _require(tuple(aux.shape) == (m, n), "aux shape must equal the output's")
     out = torch.empty(m, n, dtype=torch.float32 if epilogue in F32_OUT else torch.bfloat16,
                       device=a.device)
-    fn = _build.bind("gemm_bf16", "kmr_gemm_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(_build.ptr(a), _build.ptr(w), _build.ptr(bias),
-            _build.ptr(residual) if residual is not None else None, _build.ptr(out),
-            m, n, k, EPILOGUES[epilogue], _build.stream_of(a))
+    if epilogue in SAVE:
+        aux = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    fn = _build.bind("gemm_bf16", "kmr_gemm_bf16", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    opt = lambda t: _build.ptr(t) if t is not None else None  # noqa: E731
+    rc = fn(_build.ptr(a), _build.ptr(w), opt(bias), opt(residual), opt(aux), _build.ptr(out),
+            m, n, k, EPILOGUES[epilogue], int(trans_b), _build.stream_of(a))
     _build.check(rc, "gemm_bf16")
     gemm.launches += 1
-    return out
+    return (out, aux) if epilogue in SAVE else out
 
 
 gemm.launches = 0
@@ -435,4 +474,230 @@ def mha_packed(q, k, v, num_heads: int, bias=None) -> torch.Tensor:
 
 mha_packed.launches = 0
 
-WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm, layer_tail, mha, mha_packed)
+# ---------------------------------------------------------------------------
+# ln_train: the train blocks' hidden dropout + residual + LayerNorm, fwd and bwd
+# ---------------------------------------------------------------------------
+
+LN_TRAIN_BWD_ROWS = 64  # rows of one dgamma/dbeta partial (csrc/ln_train.cu's BWD_ROWS)
+
+
+def _drop_args(rate: float) -> tuple[int, float, int]:
+    """(cutoff, scale, on) of a dropout rate, as the kernels take them."""
+    return dropout_cutoff(rate), keep_scale(rate), int(rate > 0.0)
+
+
+def _seed32(seed: int) -> int:
+    """A seed's low 32 bits as the C int the kernels take (they read its bits as uint32)."""
+    v = int(seed) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _hidden_dropped(h, seed: int, rate: float, rows_per_block: int):
+    """(keep ? h * scale : 0 in f32, keep) or (h in f32, None) at rate 0."""
+    h = h.float()
+    if rate <= 0.0:
+        return h, None
+    keep = hidden_keep(seed, rate, h.shape[0], h.shape[1], rows_per_block, h.device)
+    return torch.where(keep, h * keep_scale(rate), 0.0), keep
+
+
+def _row_parts(t: torch.Tensor) -> torch.Tensor:
+    """[M, H] -> [ceil(M / 64), H] sums of each 64 rows (the kernel's partials)."""
+    m, h = t.shape
+    pad = -m % LN_TRAIN_BWD_ROWS
+    return torch.cat([t, t.new_zeros(pad, h)]).reshape(-1, LN_TRAIN_BWD_ROWS, h).sum(1)
+
+
+def ln_train_plain(h, x, gamma, beta, seed: int, rate: float, rows_per_block: int,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """h [M, H] f32, x [M, H] -> LN(drop(h) + x) in x's dtype, drop() the hidden
+    draw of each grid block of rows_per_block rows (the JAX package's
+    ``ops/pallas_train.py`` :189-197, :626-634)."""
+    hd, _ = _hidden_dropped(h, seed, rate, rows_per_block)
+    return layernorm_plain(hd + x.float(), gamma, beta, eps, out_dtype=x.dtype)
+
+
+def ln_train_bwd_plain(h, x, dy, gamma, seed: int, rate: float, rows_per_block: int, eps: float = 1e-12):
+    """-> (dz [M, H] f32, dh [M, H] in x's dtype, dgamma and dbeta partials
+    [ceil(M / 64), H] f32): the LayerNorm backward through z = drop(h) + x,
+    dh = keep ? dz * scale : 0 (:223-238, :780-795)."""
+    hd, keep = _hidden_dropped(h, seed, rate, rows_per_block)
+    z = hd + x.float()
+    mean = z.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((z - mean).square().mean(dim=-1, keepdim=True) + eps)
+    zn = (z - mean) * inv
+    dyf = dy.float()
+    g = dyf * gamma.float()
+    dz = (g - g.mean(dim=-1, keepdim=True) - zn * (g * zn).mean(dim=-1, keepdim=True)) * inv
+    dh = dz.clone() if keep is None else torch.where(keep, dz * keep_scale(rate), 0.0)
+    return dz, dh.to(x.dtype), _row_parts(dyf * zn), _row_parts(dyf)
+
+
+def _ln_train_checks(lib, h, x, gamma, m: int, hid: int, rows_per_block: int) -> None:
+    _require(hid % 128 == 0 and hid <= lib.kmr_ln_train_max_hidden(),
+             f"ln_train takes H % 128 == 0 and H <= {lib.kmr_ln_train_max_hidden()}, got {hid}")
+    _require(m > 0 and rows_per_block > 0 and m % rows_per_block == 0,
+             f"ln_train takes M a multiple of rows_per_block, got M={m}, rows_per_block={rows_per_block}")
+    _check_operand(h, "h", torch.float32, h.device)
+    _check_operand(x, "x", torch.bfloat16, h.device)
+    _require(tuple(x.shape) == (m, hid), f"x shape {tuple(x.shape)} != {(m, hid)}")
+    _check_operand(gamma, "gamma", torch.float32, h.device)
+    _require(tuple(gamma.shape) == (hid,), "gamma must be [H]")
+
+
+def ln_train(h, x, gamma, beta, seed: int, rate: float, rows_per_block: int, eps: float = 1e-12) -> torch.Tensor:
+    """h [M, H] f32, x [M, H] bf16, gamma/beta [H] f32 -> y [M, H] bf16."""
+    if not h.is_cuda:
+        return ln_train_plain(h, x, gamma, beta, seed, rate, rows_per_block, eps)
+    lib = _build.load("ln_train")
+    m, hid = h.shape
+    _ln_train_checks(lib, h, x, gamma, m, hid, rows_per_block)
+    _check_operand(beta, "beta", torch.float32, h.device)
+    _require(tuple(beta.shape) == (hid,), "beta must be [H]")
+    y = torch.empty(m, hid, dtype=torch.bfloat16, device=h.device)
+    fn = _build.bind("ln_train", "kmr_ln_train_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                     + [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    rc = fn(_build.ptr(h), _build.ptr(x), _build.ptr(gamma), _build.ptr(beta), _build.ptr(y), m, hid, eps,
+            _seed32(seed), *_drop_args(rate), rows_per_block, _build.stream_of(h))
+    _build.check(rc, "ln_train")
+    ln_train.launches += 1
+    return y
+
+
+ln_train.launches = 0
+
+
+def ln_train_bwd(h, x, dy, gamma, seed: int, rate: float, rows_per_block: int, eps: float = 1e-12):
+    """h [M, H] f32, x and dy [M, H] bf16, gamma [H] f32 -> (dz [M, H] f32, dh
+    [M, H] bf16, dgamma and dbeta partials [ceil(M / 64), H] f32)."""
+    if not h.is_cuda:
+        return ln_train_bwd_plain(h, x, dy, gamma, seed, rate, rows_per_block, eps)
+    lib = _build.load("ln_train")
+    m, hid = h.shape
+    _ln_train_checks(lib, h, x, gamma, m, hid, rows_per_block)
+    _check_operand(dy, "dy", torch.bfloat16, h.device)
+    _require(tuple(dy.shape) == (m, hid), f"dy shape {tuple(dy.shape)} != {(m, hid)}")
+    _require(lib.kmr_ln_train_bwd_rows() == LN_TRAIN_BWD_ROWS, "ln_train.cu's partial rows changed")
+    parts = -(-m // LN_TRAIN_BWD_ROWS)
+    dz = torch.empty(m, hid, dtype=torch.float32, device=h.device)
+    dh = torch.empty(m, hid, dtype=torch.bfloat16, device=h.device)
+    pg = torch.empty(parts, hid, dtype=torch.float32, device=h.device)
+    pb = torch.empty(parts, hid, dtype=torch.float32, device=h.device)
+    fn = _build.bind("ln_train", "kmr_ln_train_bwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                     + [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    rc = fn(_build.ptr(h), _build.ptr(x), _build.ptr(dy), _build.ptr(gamma), _build.ptr(dz), _build.ptr(dh),
+            _build.ptr(pg), _build.ptr(pb), m, hid, eps, _seed32(seed), *_drop_args(rate), rows_per_block,
+            _build.stream_of(h))
+    _build.check(rc, "ln_train")
+    ln_train_bwd.launches += 1
+    return dz, dh, pg, pb
+
+
+ln_train_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# attn_train: the train block's per-head attention with probability dropout
+# ---------------------------------------------------------------------------
+
+
+def _train_probs(q, k, key_bias, seed: int, rate: float, block: int):
+    """q, k [B, N, S, Dh] -> (probs f32, keep or None, bf16(dropped probs) in
+    q's dtype), as ``_attn_recompute_heads`` (:548-576)."""
+    b, n, s, dh = q.shape
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / dh**0.5)
+    if key_bias is not None:
+        scores = scores + key_bias.float()[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    if rate <= 0.0:
+        return probs, None, probs.to(q.dtype)
+    keep = probs_keep(seed, rate, b, n, s, block, q.device)
+    return probs, keep, torch.where(keep, probs * keep_scale(rate), 0.0).to(q.dtype)
+
+
+def _qkv_heads(qkv, b: int, s: int, num_heads: int):
+    h = qkv.shape[1] // 3
+    return [split_heads(t, num_heads) for t in qkv.reshape(b, s, 3 * h).split(h, dim=-1)]
+
+
+def attn_train_plain(qkv, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
+                     block: int) -> torch.Tensor:
+    """qkv [B*S, 3H] -> ctx [B*S, H] in qkv's dtype: bf16(bf16(dropped probs) @ V) per head (:607-622)."""
+    q, k, v = _qkv_heads(qkv, b, s, num_heads)
+    _, _, pd = _train_probs(q, k, key_bias, seed, rate, block)
+    ctx = torch.matmul(pd.float(), v.float()).to(qkv.dtype)
+    return merge_heads(ctx).reshape(b * s, -1)
+
+
+def attn_train_bwd_plain(qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
+                         block: int) -> torch.Tensor:
+    """qkv [B*S, 3H], dctx [B*S, H] -> dqkv [B*S, 3H] in qkv's dtype (:811-849)."""
+    dt = qkv.dtype
+    q, k, v = _qkv_heads(qkv, b, s, num_heads)
+    probs, keep, pd = _train_probs(q, k, key_bias, seed, rate, block)
+    dc = split_heads(dctx.reshape(b, s, -1), num_heads).float()
+    dv = torch.matmul(pd.float().transpose(-1, -2), dc).to(dt)
+    dprobs = torch.matmul(dc, v.float().transpose(-1, -2))
+    if keep is not None:
+        dprobs = torch.where(keep, dprobs * keep_scale(rate), 0.0)
+    ds = (probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True)) * (1.0 / q.shape[-1]**0.5)).to(dt)
+    dq = torch.matmul(ds.float(), k.float()).to(dt)
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float()).to(dt)
+    return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).reshape(b * s, -1)
+
+
+def _attn_train_call(symbol: str, qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
+                     block: int) -> torch.Tensor:
+    lib = _build.load("attn_train")
+    h = qkv.shape[1] // 3
+    _require(h == num_heads * lib.kmr_attn_train_head_dim(),
+             f"attn_train takes head dim {lib.kmr_attn_train_head_dim()}, got {h // num_heads}")
+    _require(1 <= s <= lib.kmr_attn_train_max_seq(), f"attn_train takes S <= {lib.kmr_attn_train_max_seq()}, got {s}")
+    _require(1 <= b <= 65535 and block >= 1 and b % block == 0,
+             f"attn_train takes 1..65535 pairs in whole blocks, got B={b}, block={block}")
+    _rows(qkv, "qkv", (b * s, 3 * h))
+    bias = _key_bias_ptr(key_bias, "key_bias", b, s, qkv.device)
+    if dctx is not None:
+        _rows(dctx, "dctx", (b * s, h))
+    out = torch.empty(b * s, h if dctx is None else 3 * h, dtype=torch.bfloat16, device=qkv.device)
+    if dctx is None:
+        fn = _build.bind("attn_train", symbol, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                         + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        rc = fn(_build.ptr(qkv), bias, _build.ptr(out), b, s, h, num_heads, block, _seed32(seed),
+                *_drop_args(rate), _build.stream_of(qkv))
+    else:
+        fn = _build.bind("attn_train", symbol, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        rc = fn(_build.ptr(qkv), bias, _build.ptr(dctx), _build.ptr(out), b, s, h, num_heads, block,
+                _seed32(seed), *_drop_args(rate), _build.stream_of(qkv))
+    _build.check(rc, "attn_train")
+    return out
+
+
+def attn_train(qkv, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float, block: int) -> torch.Tensor:
+    """qkv [B*S, 3H] bf16, key_bias [B, S] f32 or None -> ctx [B*S, H] bf16;
+    dropout masks drawn per grid block of ``block`` pairs."""
+    if not qkv.is_cuda:
+        return attn_train_plain(qkv, key_bias, b, s, num_heads, seed, rate, block)
+    out = _attn_train_call("kmr_attn_train_fwd", qkv, None, key_bias, b, s, num_heads, seed, rate, block)
+    attn_train.launches += 1
+    return out
+
+
+attn_train.launches = 0
+
+
+def attn_train_bwd(qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
+                   block: int) -> torch.Tensor:
+    """qkv [B*S, 3H] bf16, dctx [B*S, H] bf16 -> dqkv [B*S, 3H] bf16."""
+    if not qkv.is_cuda:
+        return attn_train_bwd_plain(qkv, dctx, key_bias, b, s, num_heads, seed, rate, block)
+    out = _attn_train_call("kmr_attn_train_bwd", qkv, dctx, key_bias, b, s, num_heads, seed, rate, block)
+    attn_train_bwd.launches += 1
+    return out
+
+
+attn_train_bwd.launches = 0
+
+WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm, layer_tail, mha, mha_packed,
+            ln_train, ln_train_bwd, attn_train, attn_train_bwd)

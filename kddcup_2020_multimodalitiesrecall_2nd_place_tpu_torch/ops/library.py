@@ -23,13 +23,26 @@ from . import kernels
 
 
 @torch.library.custom_op("kmr::gemm", mutates_args=())
-def gemm(a: Tensor, w: Tensor, bias: Tensor, epilogue: str = "bias", residual: Optional[Tensor] = None) -> Tensor:
-    return kernels.gemm(a, w, bias, epilogue, residual)
+def gemm(a: Tensor, w: Tensor, bias: Optional[Tensor], epilogue: str = "bias", residual: Optional[Tensor] = None,
+         aux: Optional[Tensor] = None, trans_b: bool = False) -> Tensor:
+    return kernels.gemm(a, w, bias, epilogue, residual, aux, trans_b)
 
 
 @gemm.register_fake
-def _(a, w, bias, epilogue="bias", residual=None):
-    return a.new_empty(a.shape[0], w.shape[1], dtype=torch.float32 if epilogue in kernels.F32_OUT else a.dtype)
+def _(a, w, bias, epilogue="bias", residual=None, aux=None, trans_b=False):
+    n = w.shape[0] if trans_b else w.shape[1]
+    return a.new_empty(a.shape[0], n, dtype=torch.float32 if epilogue in kernels.F32_OUT else a.dtype)
+
+
+@torch.library.custom_op("kmr::gemm_gelu_save", mutates_args=())
+def gemm_gelu_save(a: Tensor, w: Tensor, bias: Tensor, approximate_gelu: bool = True) -> tuple[Tensor, Tensor]:
+    """(bf16 gelu(a @ w + bias), its f32 pre-activation u): the GEMM's "_save" epilogues."""
+    return kernels.gemm(a, w, bias, "gelu_tanh_save" if approximate_gelu else "gelu_erf_save")
+
+
+@gemm_gelu_save.register_fake
+def _(a, w, bias, approximate_gelu=True):
+    return a.new_empty(a.shape[0], w.shape[1]), a.new_empty(a.shape[0], w.shape[1], dtype=torch.float32)
 
 
 @torch.library.custom_op("kmr::attn_core", mutates_args=())
@@ -108,3 +121,49 @@ def mha_packed(q: Tensor, k: Tensor, v: Tensor, num_heads: int, bias: Optional[T
 def _(q, k, v, num_heads, bias=None):
     kernels.same_length("mha_packed", q, k, v)
     return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("kmr::ln_train", mutates_args=())
+def ln_train(h: Tensor, x: Tensor, gamma: Tensor, beta: Tensor, seed: int, rate: float, rows_per_block: int,
+             eps: float = 1e-12) -> Tensor:
+    return kernels.ln_train(h, x, gamma, beta, seed, rate, rows_per_block, eps)
+
+
+@ln_train.register_fake
+def _(h, x, gamma, beta, seed, rate, rows_per_block, eps=1e-12):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("kmr::ln_train_bwd", mutates_args=())
+def ln_train_bwd(h: Tensor, x: Tensor, dy: Tensor, gamma: Tensor, seed: int, rate: float, rows_per_block: int,
+                 eps: float = 1e-12) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    return kernels.ln_train_bwd(h, x, dy, gamma, seed, rate, rows_per_block, eps)
+
+
+@ln_train_bwd.register_fake
+def _(h, x, dy, gamma, seed, rate, rows_per_block, eps=1e-12):
+    parts = -(-h.shape[0] // kernels.LN_TRAIN_BWD_ROWS)
+    return (h.new_empty(h.shape), x.new_empty(x.shape), h.new_empty(parts, h.shape[1]),
+            h.new_empty(parts, h.shape[1]))
+
+
+@torch.library.custom_op("kmr::attn_train", mutates_args=())
+def attn_train(qkv: Tensor, key_bias: Optional[Tensor], b: int, s: int, num_heads: int, seed: int, rate: float,
+               block: int) -> Tensor:
+    return kernels.attn_train(qkv, key_bias, b, s, num_heads, seed, rate, block)
+
+
+@attn_train.register_fake
+def _(qkv, key_bias, b, s, num_heads, seed, rate, block):
+    return qkv.new_empty(b * s, qkv.shape[1] // 3)
+
+
+@torch.library.custom_op("kmr::attn_train_bwd", mutates_args=())
+def attn_train_bwd(qkv: Tensor, dctx: Tensor, key_bias: Optional[Tensor], b: int, s: int, num_heads: int, seed: int,
+                   rate: float, block: int) -> Tensor:
+    return kernels.attn_train_bwd(qkv, dctx, key_bias, b, s, num_heads, seed, rate, block)
+
+
+@attn_train_bwd.register_fake
+def _(qkv, dctx, key_bias, b, s, num_heads, seed, rate, block):
+    return qkv.new_empty(qkv.shape)

@@ -1,0 +1,112 @@
+"""Optimizers, LR schedules and clipping of the reference training setups,
+the port of the JAX package's ``train/optim.py``, as plain torch ``foreach``
+ops over the parameter tree (no optimizer library).
+
+* ``BertAdamW``: Google-BERT's AdamWeightDecayOptimizer
+  (``imagebert_lds/src/optimization.py:128-213``): Adam **without bias
+  correction**, decoupled weight decay added to the update *before* the LR
+  multiply, decay excluded for any parameter whose path holds LayerNorm,
+  layer_norm or bias (``decay_mask``). The port's fused ``qkv/bias`` is
+  excluded and ``qkv/kernel`` decayed, as their query/key/value parts are in
+  the JAX tree.
+* ``polynomial_warmup_schedule``: linear warmup, then linear decay to 0
+  (``optimization.py:25-67``).
+* ``exponential_staircase_schedule``: 0.94 every 2500 steps, staircase
+  (zk ``train_normal.py:133-137``).
+* ``clip_by_global_norm`` (``run_pretraining_predict_score.py:234-286``, 1.0)
+  and ``clip_by_value`` (``train_normal.py:93``, +-1), in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+DECAY_EXCLUDE_SUBSTRINGS = ("LayerNorm", "layer_norm", "bias")
+# AdamWeightDecayOptimizer's settings in the reference (optimization.py:59-65)
+WEIGHT_DECAY_RATE, BETA_1, BETA_2, EPSILON = 0.01, 0.9, 0.999, 1e-6
+
+
+def flatten_paths(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """{"a/b/c": leaf} of a nested dict, in its insertion order."""
+    out: dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_paths(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def decay_mask(params: dict) -> dict[str, bool]:
+    """path -> True where weight decay applies (TF re.search semantics: a
+    substring test, so ``output_bias`` and slim's ``biases`` are excluded too)."""
+    return {name: not any(s in name for s in DECAY_EXCLUDE_SUBSTRINGS) for name in flatten_paths(params)}
+
+
+def polynomial_warmup_schedule(init_lr: float, num_train_steps: int,
+                               num_warmup_steps: int) -> Callable[[int], float]:
+    def schedule(step: int) -> float:
+        decayed = init_lr * (1.0 - min(step / num_train_steps, 1.0))
+        if num_warmup_steps and step < num_warmup_steps:
+            return init_lr * step / num_warmup_steps
+        return decayed
+
+    return schedule
+
+
+def exponential_staircase_schedule(init_lr: float, decay_steps: int = 2500,
+                                   decay_rate: float = 0.94) -> Callable[[int], float]:
+    def schedule(step: int) -> float:
+        return init_lr * decay_rate ** (step // decay_steps)
+
+    return schedule
+
+
+class BertAdamW:
+    """BERT Adam over the leaves of a parameter tree: m = b1 m + (1 - b1) g,
+    v = b2 v + (1 - b2) g^2, update = m / (sqrt(v) + eps) (+ wd * p where
+    decayed), p -= lr(step) * update. ``step`` counts the updates made."""
+
+    def __init__(self, params: dict, learning_rate: Callable[[int], float]):
+        named = flatten_paths(params)
+        mask = decay_mask(params)
+        self.names = list(named)
+        self.lr = learning_rate
+        self.m = [torch.zeros_like(p) for p in named.values()]
+        self.v = [torch.zeros_like(p) for p in named.values()]
+        self.decayed = [i for i, n in enumerate(self.names) if mask[n]]
+        self.step = 0
+
+    @torch.no_grad()
+    def update(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> float:
+        """One step on ``params`` (the leaves in ``names`` order) in place; -> the LR used."""
+        lr = self.lr(self.step)
+        torch._foreach_mul_(self.m, BETA_1)
+        torch._foreach_add_(self.m, grads, alpha=1.0 - BETA_1)
+        torch._foreach_mul_(self.v, BETA_2)
+        torch._foreach_addcmul_(self.v, grads, grads, value=1.0 - BETA_2)
+        denom = torch._foreach_sqrt(self.v)
+        torch._foreach_add_(denom, EPSILON)
+        upd = torch._foreach_div(self.m, denom)
+        torch._foreach_add_([upd[i] for i in self.decayed], [params[i] for i in self.decayed], alpha=WEIGHT_DECAY_RATE)
+        torch._foreach_add_(params, upd, alpha=-lr)
+        self.step += 1
+        return lr
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float = 1.0) -> torch.Tensor:
+    """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``;
+    -> the norm before clipping (a 0-d tensor, no host sync)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+@torch.no_grad()
+def clip_by_value(grads: list[torch.Tensor], clip: float = 1.0) -> None:
+    for g in grads:
+        g.clamp_(-clip, clip)

@@ -1,0 +1,170 @@
+"""Training engine on one device, the port of the JAX package's
+``train/trainer.py``.
+
+Per-model recipes mirror the reference training scripts (``recipe_for``):
+
+* ImageBERT-A: BERT-Adam (poly decay + warmup), global-norm clip 1.0, NSP
+  loss (+ the Multi-Similarity term of its fine-tune) -- ported.
+* ImageBERT-B/C: plain Adam with the 0.94/2500 staircase, per-value clip
+  +-1, AM-softmax loss, EMA 0.997; LXMERT: Adam and cross entropy on
+  ``logit_fc`` -- their recipes are here, their losses and B's Adam are not
+  ported yet (``make_loss_fn`` and ``make_optimizer`` raise, naming the
+  ROADMAP item).
+
+A step is the JAX package's two phases: ``grads`` (forward and backward of
+the loss) and ``apply`` (clip, optimizer, EMA), with the same metrics
+(``loss``, ``accuracy``, ``grad_norm``). Parameters are float32 leaves on the
+device in the port's tree layout (query/key/value fused as ``qkv``); matmul
+inputs are rounded to ``precision.compute_dtype`` inside the model, whose
+encoder blocks are the train blocks of ``blocks`` (the kernels' by default).
+Dropout comes from a ``torch.Generator`` seeded per step from the caller's
+int. Data parallelism across devices is not ported (ROADMAP.md Queue 1 item
+12).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..checkpoint.npz import unflatten_tree
+from ..models import ModelSpec, Precision, heads
+from ..models.core import TRAIN_KERNEL_BLOCKS, Params, TrainBlocks
+from ..parallel.engine import default_precision, resolve_device
+from .ema import Ema
+from .losses import ms_loss
+from .optim import BertAdamW, clip_by_global_norm, clip_by_value, flatten_paths, polynomial_warmup_schedule
+
+TRAINED = ("imagebert_a",)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 2e-5
+    num_train_steps: int = 100_000
+    num_warmup_steps: int = 30_000
+    optimizer: str = "bert_adamw"  # or "adam_staircase" (not yet ported)
+    clip: str = "global_norm"  # "global_norm" | "value" | "none"
+    clip_value: float = 1.0
+    ema_decay: float | None = None
+    ms_loss_weight: float = 0.0
+
+
+def recipe_for(model_name: str) -> TrainConfig:
+    if model_name == "imagebert_a":
+        return TrainConfig(learning_rate=2e-5, optimizer="bert_adamw", clip="global_norm")
+    if model_name in ("imagebert_b", "imagebert_c"):
+        return TrainConfig(learning_rate=2e-5, optimizer="adam_staircase", clip="value", ema_decay=0.997)
+    if model_name == "lxmert":
+        return TrainConfig(learning_rate=1e-4, optimizer="bert_adamw", clip="global_norm")
+    if model_name == "two_tower":
+        return TrainConfig(learning_rate=1e-4, optimizer="bert_adamw", num_warmup_steps=1000, clip="global_norm")
+    raise ValueError(model_name)
+
+
+def make_optimizer(tc: TrainConfig, params: Params) -> BertAdamW:
+    if tc.optimizer == "bert_adamw":
+        return BertAdamW(params, polynomial_warmup_schedule(tc.learning_rate, tc.num_train_steps,
+                                                            tc.num_warmup_steps))
+    raise NotImplementedError(f"optimizer {tc.optimizer!r} is not yet ported, see ROADMAP.md Queue 1 item 9")
+
+
+def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
+                 blocks: TrainBlocks = TRAIN_KERNEL_BLOCKS) -> Callable:
+    """-> loss_fn(params, batch, gen) -> (loss, metrics): ImageBERT-A's NSP
+    loss, plus ``ms_loss_weight`` times the Multi-Similarity loss of the
+    pooled output (the JAX package's ``train/trainer.py`` :174-183)."""
+    if model.name not in TRAINED:
+        raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 9")
+
+    def loss_fn(params: Params, batch: dict, gen: torch.Generator):
+        out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen)
+        labels = batch["labels"]
+        loss = heads.nsp_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
+        if tc.ms_loss_weight:
+            loss = loss + tc.ms_loss_weight * ms_loss(labels, out["pooled"])
+        accuracy = (out["probs"].argmax(dim=-1) == labels.long()).float().mean()
+        return loss, {"loss": loss.detach(), "accuracy": accuracy}
+
+    return loss_fn
+
+
+@dataclass
+class TrainState:
+    params: Params  # f32 leaves on the device, requiring grad
+    optimizer: BertAdamW
+    ema: Ema | None
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.step
+
+    def leaves(self) -> list[torch.Tensor]:
+        return list(flatten_paths(self.params).values())
+
+
+class Trainer:
+    """One model trained on one device (cuda unless the caller asks for cpu)."""
+
+    def __init__(self, model: ModelSpec, tc: TrainConfig | None = None, precision: Precision | None = None,
+                 device=None, blocks: TrainBlocks = TRAIN_KERNEL_BLOCKS):
+        self.model = model
+        self.tc = tc if tc is not None else recipe_for(model.name)
+        self.device = resolve_device(device)
+        self.precision = precision if precision is not None else default_precision(self.device)
+        self.loss_fn = make_loss_fn(model, self.tc, self.precision, blocks)
+
+    def init_state(self, params: Params | None = None, seed: int = 0) -> TrainState:
+        """Fresh optimizer state over ``params`` (or the model's random init from ``seed``), copied to the device."""
+        params = params if params is not None else self.model.init_params(seed)
+
+        def leaf(t):
+            return t.detach().to(self.device, torch.float32).clone().requires_grad_()
+
+        def to_leaves(tree):
+            return {k: to_leaves(v) if isinstance(v, dict) else leaf(v) for k, v in tree.items()}
+
+        params = to_leaves(params)
+        leaves = list(flatten_paths(params).values())
+        return TrainState(params, make_optimizer(self.tc, params),
+                          Ema(leaves, self.tc.ema_decay) if self.tc.ema_decay else None)
+
+    def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        keys = (*self.model.input_keys, "labels")
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in keys}
+
+    def grads(self, state: TrainState, batch: dict, seed: int) -> tuple[list[torch.Tensor], dict]:
+        """Phase 1: the loss and its gradient w.r.t. every leaf (zeros where unused)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        leaves = state.leaves()
+        loss, metrics = self.loss_fn(state.params, batch, gen)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)], metrics
+
+    def apply(self, state: TrainState, grads: list[torch.Tensor]) -> dict:
+        """Phase 2: clip, optimizer update and EMA, in place."""
+        metrics = {}
+        if self.tc.clip == "global_norm":
+            metrics["grad_norm"] = clip_by_global_norm(grads, self.tc.clip_value)
+        elif self.tc.clip == "value":
+            clip_by_value(grads, self.tc.clip_value)
+        leaves = state.leaves()
+        state.optimizer.update(leaves, grads)
+        if state.ema is not None:
+            state.ema.update(leaves)
+        return metrics
+
+    def train_step(self, state: TrainState, batch: dict[str, np.ndarray], seed: int) -> dict:
+        """One step on a host batch; -> metrics as 0-d device tensors."""
+        grads, metrics = self.grads(state, self.to_device(batch), seed)
+        metrics.update(self.apply(state, grads))
+        return metrics
+
+    def eval_params(self, state: TrainState) -> Params:
+        """The parameters to score or save with: the EMA shadows when kept."""
+        if state.ema is None:
+            return state.params
+        return unflatten_tree(dict(zip(state.optimizer.names, state.ema.shadow)))

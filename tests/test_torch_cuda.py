@@ -15,7 +15,7 @@ rounding of an output or of an intermediate.
 import pytest
 import torch
 
-from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import kernels
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import dropout, kernels, train_blocks
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import mask_to_bias
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention_block import (
     attention_block,
@@ -422,3 +422,149 @@ def test_cuda_pallas_packed_export_round_trip(cuda, tmp_path):
     want = engine.score_batch(batch).float().cpu().numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(scorer({k: v[:5] for k, v in batch.items()}), want[:5])
+
+
+# ---- the training kernels (csrc/ln_train.cu, csrc/attn_train.cu, gemm_bf16's transposed-weight mode) ----
+
+TRAIN_RATES = [0.0, 0.1, 0.5]
+# (trans_b, epilogue, M, N, K, with bias): the products of the train blocks' forward and backward
+GEMM_TRAIN_CASES = [
+    (False, "gelu_tanh_save", 333, 3072, 768, True), (False, "gelu_erf_save", 333, 3072, 768, True),
+    (False, "f32", 333, 768, 3072, True), (True, "bias", 333, 768, 768, False),
+    (True, "gelu_bwd_tanh", 333, 3072, 768, False), (True, "gelu_bwd_erf", 333, 3072, 768, False),
+    (True, "residual_f32", 333, 768, 3072, False), (True, "residual_f32", 333, 768, 2304, False),
+]
+
+
+def rel_l2(got, want) -> float:
+    torch.cuda.synchronize()
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("trans_b,epilogue,m,n,k,with_bias", GEMM_TRAIN_CASES)
+def test_cuda_gemm_train_epilogues(cuda, trans_b, epilogue, m, n, k, with_bias):
+    g = torch.Generator(device="cpu").manual_seed(8)
+    a = torch.randn(m, k, generator=g).to(cuda, torch.bfloat16)
+    w = (0.05 * torch.randn(*((n, k) if trans_b else (k, n)), generator=g)).to(cuda, torch.bfloat16)
+    bias = torch.randn(n, generator=g).to(cuda) if with_bias else None
+    aux = torch.randn(m, n, generator=g).to(cuda) if epilogue in kernels.AUX_IN else None
+    got = kernels.gemm(a, w, bias, epilogue, aux=aux, trans_b=trans_b)
+    want = kernels.gemm_plain(a, w, bias, epilogue, aux=aux, trans_b=trans_b)
+    if epilogue in kernels.SAVE:
+        assert within_band(got[0], want[0]) and within_band(got[1], want[1], atol=1e-3, rtol=0.0)
+    elif epilogue == "f32":
+        assert within_band(got, want, atol=1e-3, rtol=0.0)
+    else:
+        assert within_band(got, want)
+
+
+@pytest.mark.parametrize("rate", TRAIN_RATES)
+def test_cuda_ln_train_matches_plain(cuda, rate):
+    g = torch.Generator(device="cpu").manual_seed(9)
+    m, h, rows = 8 * 40, 768, 4 * 40
+    hh = torch.randn(m, h, generator=g).to(cuda)
+    x = torch.randn(m, h, generator=g).to(cuda, torch.bfloat16)
+    dy = torch.randn(m, h, generator=g).to(cuda, torch.bfloat16)
+    gamma, beta = (1.0 + 0.1 * torch.randn(h, generator=g)).to(cuda), (0.1 * torch.randn(h, generator=g)).to(cuda)
+    assert within_band(kernels.ln_train(hh, x, gamma, beta, 77, rate, rows),
+                       kernels.ln_train_plain(hh, x, gamma, beta, 77, rate, rows))
+    got = kernels.ln_train_bwd(hh, x, dy, gamma, 77, rate, rows)
+    want = kernels.ln_train_bwd_plain(hh, x, dy, gamma, 77, rate, rows)
+    assert within_band(got[0], want[0], atol=1e-4, rtol=1e-4)  # dz, f32
+    assert within_band(got[1], want[1])  # dh, bf16
+    assert within_band(got[2], want[2], atol=1e-3, rtol=1e-4) and within_band(got[3], want[3], atol=1e-3, rtol=1e-4)
+    # the same units dropped: dh is 0 exactly where the hash drops
+    assert torch.equal(got[1] == 0, want[1] == 0)
+    if rate > 0:
+        assert torch.equal(got[1] == 0, ~dropout.hidden_keep(77, rate, m, h, rows, cuda))
+
+
+def _attn_train_case(device, seed, b=8, s=40, n=12, identity_v=False):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn(b * s, 3 * n * 64, generator=g)
+    if identity_v:  # each head's V rows are the identity: ctx = the dropped probs themselves
+        v = torch.zeros(b, s, n, 64)
+        v[:, torch.arange(s), :, torch.arange(s)] = 1.0
+        qkv[:, 2 * n * 64:] = v.reshape(b * s, n * 64)
+    m = (torch.rand(b, s, generator=g) > 0.3).float()
+    m[:, 0] = 1.0
+    dctx = torch.randn(b * s, n * 64, generator=g)
+    return qkv.to(device, torch.bfloat16), mask_to_bias(m).to(device), dctx.to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("block", [8, 4])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("rate", TRAIN_RATES)
+def test_cuda_attn_train_matches_plain(cuda, rate, with_mask, block):
+    qkv, bias, dctx = _attn_train_case(cuda, 10)
+    bias = bias if with_mask else None
+    args = (8, 40, 12, 55, rate, block)
+    assert within_band(kernels.attn_train(qkv, bias, *args), kernels.attn_train_plain(qkv, bias, *args))
+    assert within_band(kernels.attn_train_bwd(qkv, dctx, bias, *args),
+                       kernels.attn_train_bwd_plain(qkv, dctx, bias, *args))
+
+
+def test_cuda_attn_train_drops_the_hash_units(cuda):
+    """With V = I per head, ctx holds the dropped probabilities: the kernel zeroes
+    exactly the units of head h's draw, at rate 0.5."""
+    qkv, _, _ = _attn_train_case(cuda, 11, identity_v=True)
+    b, s, n = 8, 40, 12
+    got = kernels.attn_train(qkv, None, b, s, n, 123, 0.5, 8).reshape(b, s, n, 64)[..., :s].permute(0, 2, 1, 3)
+    want = kernels.attn_train_plain(qkv, None, b, s, n, 123, 0.5, 8).reshape(b, s, n, 64)[..., :s].permute(0, 2, 1, 3)
+    keep = dropout.probs_keep(123, 0.5, b, n, s, 8, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got == 0, ~keep) and torch.equal(want == 0, ~keep)
+
+
+def _train_block_case(device, kind, seed, b=8, s=40, h=768, i=3072):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, s, h, generator=g).to(device, torch.bfloat16)
+    shapes = [(h, i), (i,), (i, h), (h,)] if kind == "ffn" else [(h, 3 * h), (3 * h,), (h, h), (h,)]
+    ws = [(0.02 * torch.randn(*sh, generator=g)).to(device) for sh in shapes]
+    ws += [(1.0 + 0.1 * torch.randn(h, generator=g)).to(device), (0.1 * torch.randn(h, generator=g)).to(device)]
+    dy = torch.randn(b, s, h, generator=g).to(device, torch.bfloat16)
+    return x, ws, dy
+
+
+def _block_grads(fn, x, ws, dy):
+    xt, wt = x.clone().requires_grad_(), [w.clone().requires_grad_() for w in ws]
+    y = fn(xt, *wt)
+    y.backward(dy)
+    return y.detach(), [t.grad for t in (xt, *wt)]
+
+
+# kernel Function vs the plain oracle's autograd, bf16: the oracle rounds its weight and GELU
+# gradients to bf16 at its casts, the Function keeps them f32, so the gradients agree in relative L2
+TRAIN_GRAD_REL_L2 = 2e-2
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["ffn", "attn"])
+def test_cuda_train_blocks_match_the_oracle(cuda, kind, rate):
+    x, ws, dy = _train_block_case(cuda, kind, 12)
+    if kind == "ffn":
+        fns = [lambda x, *w, f=f: f(x, *w, 42, dropout_rate=rate)
+               for f in (train_blocks.ffn_block_train, train_blocks.ffn_block_train_plain)]
+    else:
+        mask = torch.ones(8, 40, device=cuda)
+        mask[1, 30:] = 0.0
+        bias = mask_to_bias(mask)
+        fns = [lambda x, *w, f=f: f(x, *w, 12, 42, bias=bias, attn_dropout_rate=rate, hidden_dropout_rate=rate)
+               for f in (train_blocks.attention_block_train, train_blocks.attention_block_train_plain)]
+    (y, grads), (wy, wgrads) = (_block_grads(f, x, ws, dy) for f in fns)
+    assert within_band(y, wy)
+    assert grads[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in grads[1:])
+    errs = [rel_l2(g, w) for g, w in zip(grads, wgrads)]
+    assert max(errs) <= TRAIN_GRAD_REL_L2, errs
+
+
+def test_cuda_train_blocks_launch_or_raise(cuda):
+    x, ws, dy = _train_block_case(cuda, "ffn", 13)
+    counters = (train_blocks.ffn_block_train, train_blocks.ffn_block_train_backward, kernels.gemm,
+                kernels.ln_train, kernels.ln_train_bwd)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="dtype"):
+        train_blocks.ffn_block_train(x.float(), *ws, 1)  # f32 activations on the card
+    _block_grads(lambda x, *w: train_blocks.ffn_block_train(x, *w, 1, dropout_rate=0.1), x, ws, dy)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 2 + 4, 1, 1]
