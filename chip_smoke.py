@@ -79,6 +79,24 @@
    table in ``build/smoke/train/profile.txt``); and TRAIN_STEPS steps through
    ``cli/train.py`` (the "imagebert_a_train" path of
    the kernel line, host sampler included: end-to-end pairs/s).
+6. Training (LXMERT). Kernel checks at B=32 and B=256, 23<-10 and 10<-23
+   (H=768, 12 heads, bf16, seeded key masks with some visn rows all masked):
+   ``attn_train_cross``/``attn_train_cross_bwd`` (``csrc/attn_train.cu``'s
+   cross entry points) against their plain versions at dropout 0 and 0.1,
+   with and without the key mask (CARD_ATOL, CARD_RTOL), and at rate 0.5 the
+   dropped units equal to the hash mask's, bit for bit. The train cross block
+   (``ops/train_blocks.py:cross_attention_block_train``) forward and backward
+   against its plain oracle's autograd at B=256 (y in the ulp band, its 10
+   gradients within TRAIN_GRAD_REL_L2); each timed at B=256 beside its bound,
+   plain version and library yardstick. Then the path ("lxmert_train"):
+   LXMERT 9/5/5 x 768, batch 256, dropout 0.1, random weights from the seed,
+   batches of the LXMERT featurizer over the synthetic TSV with labels drawn
+   from the seed, through ``train.Trainer``: step 1 on the kernel route, the
+   plain route in bf16 and the f32 truth, held as ImageBERT-A's; one step
+   with ``am_loss`` (the ``logit_W`` head gets a gradient); TRAIN_STEPS steps
+   on the kernel route with the split device time and the launch counters
+   exact at every step; two profiled steps (the table in
+   ``build/smoke/train/lxmert_profile.txt``).
 
 ``--seed N`` draws the inputs, data and weights from another seed (0 by
 default). Prints the card's name and power limit, a ``{"kernels": [...]}``
@@ -112,6 +130,7 @@ HBM_BYTES_PER_S = 3.35e12
 CHECK_B, MAIN_B, S, H, N, I = 256, 512, 40, 768, 12, 3072
 LX_F, LX_T = 23, 10  # LXMERT's lang and visn stream lengths
 LX_DEPTHS = (9, 5, 5)  # l_layers, r_layers, x_layers
+LX_DIRECTIONS = (("lang<-visn", LX_F, LX_T), ("visn<-lang", LX_T, LX_F))  # an x-layer's cross blocks: (F, T)
 B_S = 30  # ImageBERT-B/C's sequence: 20 query + 10 image tokens
 CONV_BLOCKS = 48  # [H, H] blocks of the 8x8 label-conv band inside the kernel's reach
 # bf16 outputs: |d| <= CARD_ATOL + CARD_RTOL * |plain| elementwise, i.e. two bf16 ulps of the
@@ -199,7 +218,8 @@ def launch_counters() -> tuple:
     ]
     tb = import_module(f"{PKG}.ops.train_blocks")
     train = [tb.ffn_block_train, tb.ffn_block_train_backward, tb.attention_block_train,
-             tb.attention_block_train_backward]
+             tb.attention_block_train_backward, tb.cross_attention_block_train,
+             tb.cross_attention_block_train_backward]
     return (*k.WRAPPERS, *blocks, *train)
 
 
@@ -830,7 +850,7 @@ class Smoke:
         torch = self.torch
         core = import_module(f"{PKG}.models.core")
         att = import_module(f"{PKG}.ops.attention")
-        lp = core.layer_slice(enc_params, 0)
+        lp = core.unbind_layers(enc_params)[0]
         x = self.randn(MAIN_B, s, H, dtype=prec.compute_dtype)
         with torch.inference_mode(), att.attention_backend(backend):
             a_ms = cuda_ms(torch, lambda: core.attention_block(lp["attention"], x, bias, cfg, prec), iters=10)
@@ -1441,7 +1461,7 @@ class Smoke:
                                k.attn_train_bwd_plain(c["qkv"], c["dctx"], bias, *a), CARD_ATOL, CARD_RTOL)
             ci = self.train_kernel_case(b, identity_v=True)
             blk = dropout.pick_block(b, 8)
-            keep = dropout.probs_keep(123, 0.5, b, N, S, blk, self.dev)
+            keep = dropout.cross_probs_keep(123, 0.5, b, N, S, S, blk, self.dev)
             same = True
             for fn in (k.attn_train, k.attn_train_plain):
                 probs = fn(ci["qkv"], None, b, S, N, 123, 0.5, blk).reshape(b, S, N, 64)[..., :S].permute(0, 2, 1, 3)
@@ -1659,16 +1679,58 @@ class Smoke:
         log(f"train setup: {len(examples)} sampled pairs, {cfg.num_hidden_layers}x{cfg.hidden_size} params, "
             f"{time.perf_counter() - t0:.1f} s")
 
-        # step 1 from one params/batch/seed on three routes: kernels, plain in bf16, plain in f32 (the truth)
+        step1 = self.step1_against_truth(spec, tc, params, batches[0], "train")
+        trainer = train.Trainer(spec, tc, precision=models.Precision.bf16(), device=self.dev)
+        state = trainer.init_state(params)
+        _, steps = self.timed_train_steps(trainer, state, batches, PER_STEP, "train")
+        profile = self.profile_steps(trainer, state, batches[:2])
+        del trainer, state
+
+        # the user's entry point: cli/train.py, counters around the whole run
+        torch.cuda.synchronize()
+        counted = launch_counters()
+        for w in counted:
+            w.launches = 0
+        report = train_cli.main(["--model", "imagebert_a", "--train-tsv", str(tsv), "--labels", str(labels),
+                                 "--query-labels", str(qlabels), "--steps", str(TRAIN_STEPS), "--batch-size",
+                                 str(TRAIN_B), "--out", str(work / "run"), "--checkpoint-every", "1000",
+                                 "--warmup-steps", str(tc.num_warmup_steps), "--total-steps",
+                                 str(tc.num_train_steps), "--seed", str(self.seed)])
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in counted}
+        log(f"launches imagebert_a_train (cli/train.py, {TRAIN_STEPS} steps): {json.dumps(launches)}")
+        log(f"train end to end through cli/train.py: {report['pairs']} pairs in {report['seconds']:.3f} s = "
+            f"{report['pairs_per_second']:.1f} pairs/s (host sampler included)")
+        ckpt = optim.flatten_paths(import_module(f"{PKG}.checkpoint").load_npz(work / "run" / f"step_{TRAIN_STEPS}.npz"))
+        if not all(np.isfinite(v).all() for v in ckpt.values()):
+            raise RuntimeError("the trained checkpoint holds non-finite values")
+        rates = {"step1": step1, **steps, "cli": report, "profile": profile,
+                 "device_busy_share": profile["device_busy_ms_per_step"] / steps["device_ms_per_step"]["total"]}
+        log(f"train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled kernels' sum "
+            f"over the CUDA-event step time)")
+        return launches, rates
+
+    def step1_against_truth(self, spec, tc, params, batch, tag: str) -> dict:
+        """Step 1 from one params/batch/seed on three routes: the kernels, plain in bf16 and plain in f32 (the
+        truth, TF32 off). Fails unless each parameter's gradient on the kernel route is within TRAIN_STEP_REL_L2
+        of the truth in relative L2, or within TRAIN_OVER_PLAIN times the bf16 plain route's own error, whichever
+        is larger, and the losses are finite and within 1e-2 -> the losses and the worst 5 parameters."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        models = import_module(f"{PKG}.models")
+        train = import_module(f"{PKG}.train")
         bf16 = models.Precision.bf16()
         routes = {"kernel": (bf16, models.TRAIN_KERNEL_BLOCKS), "plain_bf16": (bf16, models.TRAIN_PLAIN_BLOCKS),
                   "plain_f32": (models.Precision.f32(), models.TRAIN_PLAIN_BLOCKS)}
         step1 = {}
-        for route, (prec, blocks) in routes.items():
+        for route_name, (prec, blocks) in routes.items():
             trainer = train.Trainer(spec, tc, precision=prec, device=self.dev, blocks=blocks)
             state = trainer.init_state(params)
-            grads, metrics = trainer.grads(state, trainer.to_device(batches[0]), seed=1)
-            step1[route] = (metrics["loss"].item(), [g.detach() for g in grads], state.optimizer.names)
+            grads, metrics = trainer.grads(state, trainer.to_device(batch), seed=1)
+            step1[route_name] = (metrics["loss"].item(), [g.detach() for g in grads], state.optimizer.names)
             del trainer, state, grads
         tf32 = torch.backends.cuda.matmul.allow_tf32
         (loss_k, gk, names), (loss_p, gp, _), (loss_t, gt, _) = (step1[r] for r in routes)
@@ -1680,20 +1742,26 @@ class Smoke:
             if not ek <= max(TRAIN_STEP_REL_L2, TRAIN_OVER_PLAIN * ep):
                 failed.append(name)
         worst.sort(reverse=True)
-        log(f"train step 1: loss kernel {loss_k:.6f}, plain bf16 {loss_p:.6f}, f32 truth {loss_t:.6f}; gradients "
+        log(f"{tag} step 1: loss kernel {loss_k:.6f}, plain bf16 {loss_p:.6f}, f32 truth {loss_t:.6f}; gradients "
             f"vs the truth, relative L2 (kernel, plain bf16, name), worst 5: "
             f"{[(f'{a:.3g}', f'{b_:.3g}', n) for a, b_, n in worst[:5]]}; band max({TRAIN_STEP_REL_L2:g}, "
             f"{TRAIN_OVER_PLAIN:g} x plain); TF32 after the f32 route: {tf32}")
         if failed or not all(np.isfinite([loss_k, loss_p, loss_t])) or abs(loss_k - loss_t) > 1e-2:
-            raise RuntimeError(f"step-1 gradients of the kernel route disagree with the f32 truth: {failed}")
-        del gk, gp, gt, step1
+            raise RuntimeError(f"{tag}: step-1 gradients of the kernel route disagree with the f32 truth: {failed}")
+        return {"loss_kernel": loss_k, "loss_plain_bf16": loss_p, "loss_f32_truth": loss_t,
+                "worst_rel_l2": [{"param": n, "kernel": a, "plain_bf16": b_} for a, b_, n in worst[:5]]}
 
-        # TRAIN_STEPS steps on the kernel route, device time split, the counters read at every step
-        trainer = train.Trainer(spec, tc, precision=bf16, device=self.dev)
-        state = trainer.init_state(params)
+    def timed_train_steps(self, trainer, state, batches, per_step: dict, tag: str) -> tuple[dict, dict]:
+        """One step per batch on the kernel route, the device time split into forward, backward and optimizer by
+        CUDA events; every launch counter set to 0 before each step, read after it and held to ``per_step``
+        -> (the launches summed over the steps, the numbers)."""
+        import numpy as np
+
+        torch = self.torch
         start = [p.detach().clone() for p in state.leaves()]
         counted = launch_counters()
-        expected = expected_launches(1, PER_STEP)
+        expected = expected_launches(1, per_step)
+        total = dict.fromkeys(expected, 0)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         split, losses = [], []
         for i, batch in enumerate(batches):
@@ -1713,50 +1781,26 @@ class Smoke:
             torch.cuda.synchronize()
             counts = {w.__name__: w.launches for w in counted}
             if counts != expected:
-                raise RuntimeError(f"train step {i + 1} launches {counts}, expected {expected}")
+                raise RuntimeError(f"{tag} step {i + 1} launches {counts}, expected {expected}")
+            total = {name: total[name] + n for name, n in counts.items()}
             split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
             losses.append(metrics["loss"].item())
         moved = max((p.detach() - s0).abs().max().item() for p, s0 in zip(state.leaves(), start))
         fwd, bwd, opt = (float(np.median([r[j] for r in split[1:]])) for j in range(3))
-        log(f"train {TRAIN_STEPS} steps on the kernel route at B={TRAIN_B}: losses {[round(v, 5) for v in losses]}; "
-            f"device ms per step (median of steps 2..{TRAIN_STEPS}): forward {fwd:.3f}, backward {bwd:.3f}, "
-            f"optimizer {opt:.3f}, total {fwd + bwd + opt:.3f} = {TRAIN_B / (fwd + bwd + opt) * 1e3:.1f} pairs/s "
+        n, b = len(batches), len(batches[0]["labels"])
+        log(f"{tag} {n} steps on the kernel route at B={b}: losses {[round(v, 5) for v in losses]}; "
+            f"device ms per step (median of steps 2..{n}): forward {fwd:.3f}, backward {bwd:.3f}, "
+            f"optimizer {opt:.3f}, total {fwd + bwd + opt:.3f} = {b / (fwd + bwd + opt) * 1e3:.1f} pairs/s "
             f"on the device; max |param moved| {moved:.3g}; launches exact at every step")
         if not all(np.isfinite(losses)) or not moved > 0:
-            raise RuntimeError("training diverged or did not move the parameters")
-        profile = self.profile_steps(trainer, state, batches[:2])
-        del trainer, state, start, grads
+            raise RuntimeError(f"{tag}: training diverged or did not move the parameters")
+        return total, {"losses": losses, "device_ms_per_step": {"forward": fwd, "backward": bwd, "optimizer": opt,
+                                                                "total": fwd + bwd + opt},
+                       "device_pairs_per_second": b / (fwd + bwd + opt) * 1e3}
 
-        # the user's entry point: cli/train.py, counters around the whole run
-        torch.cuda.synchronize()
-        for w in counted:
-            w.launches = 0
-        report = train_cli.main(["--model", "imagebert_a", "--train-tsv", str(tsv), "--labels", str(labels),
-                                 "--query-labels", str(qlabels), "--steps", str(TRAIN_STEPS), "--batch-size",
-                                 str(TRAIN_B), "--out", str(work / "run"), "--checkpoint-every", "1000",
-                                 "--warmup-steps", str(tc.num_warmup_steps), "--total-steps",
-                                 str(tc.num_train_steps), "--seed", str(self.seed)])
-        torch.cuda.synchronize()
-        launches = {w.__name__: w.launches for w in counted}
-        log(f"launches imagebert_a_train (cli/train.py, {TRAIN_STEPS} steps): {json.dumps(launches)}")
-        log(f"train end to end through cli/train.py: {report['pairs']} pairs in {report['seconds']:.3f} s = "
-            f"{report['pairs_per_second']:.1f} pairs/s (host sampler included)")
-        ckpt = optim.flatten_paths(import_module(f"{PKG}.checkpoint").load_npz(work / "run" / f"step_{TRAIN_STEPS}.npz"))
-        if not all(np.isfinite(v).all() for v in ckpt.values()):
-            raise RuntimeError("the trained checkpoint holds non-finite values")
-        rates = {"step1": {"loss_kernel": loss_k, "loss_plain_bf16": loss_p, "loss_f32_truth": loss_t,
-                           "worst_rel_l2": [{"param": n, "kernel": a, "plain_bf16": b_} for a, b_, n in worst[:5]]},
-                 "losses": losses, "device_ms_per_step": {"forward": fwd, "backward": bwd, "optimizer": opt,
-                                                          "total": fwd + bwd + opt},
-                 "device_pairs_per_second": TRAIN_B / (fwd + bwd + opt) * 1e3, "cli": report, "profile": profile,
-                 "device_busy_share": profile["device_busy_ms_per_step"] / (fwd + bwd + opt)}
-        log(f"train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled kernels' sum "
-            f"over the CUDA-event step time)")
-        return launches, rates
-
-    def profile_steps(self, trainer, state, batches) -> dict:
+    def profile_steps(self, trainer, state, batches, table_name: str = "profile.txt") -> dict:
         """torch.profiler over train steps on the kernel route: the device time by kernel (the table goes to
-        build/smoke/train/profile.txt), per step."""
+        build/smoke/train/<table_name>), per step."""
         from importlib import import_module
 
         from torch.profiler import ProfilerActivity, profile
@@ -1773,7 +1817,7 @@ class Smoke:
         wall_ms = (time.perf_counter() - t0) * 1e3
         averages = prof.key_averages()
         table = averages.table(sort_by="self_device_time_total", row_limit=40)
-        (import_module(PKG).BUILD_DIR / "smoke" / "train" / "profile.txt").write_text(table)
+        (import_module(PKG).BUILD_DIR / "smoke" / "train" / table_name).write_text(table)
         # the kernels themselves (the ops that launch them carry the same time as their own "self" device time)
         kernels = [e for e in averages if str(e.device_type).endswith("CUDA")]
         n = len(batches)
@@ -1790,6 +1834,237 @@ class Smoke:
         return out
 
 
+
+    # ---- phase 6: LXMERT training -------------------------------------------------
+
+    def cross_train_case(self, b: int, f: int, t: int, identity: bool = False):
+        """The cross train kernels' inputs at batch b, f queries over t keys: q [b*f, H], kv [b*t, 2H], the key
+        stream's seeded mask rows (``key_bias``: LXMERT's; its visn rows include pairs with every key masked) and
+        dctx. With ``identity`` V and dctx are the identity per head, so ctx holds the dropped probabilities and
+        dV their transpose."""
+        torch = self.torch
+        q, kv, dctx = (self.randn(*shape) for shape in ((b * f, H), (b * t, 2 * H), (b * f, H)))
+        if identity:
+            v = torch.zeros(b, t, N, 64, device=self.dev)
+            v[:, torch.arange(t), :, torch.arange(t)] = 1.0
+            kv[:, H:] = v.reshape(b * t, H)
+            dctx = torch.zeros(b, f, N, 64, device=self.dev)
+            dctx[:, torch.arange(f), :, torch.arange(f)] = 1.0
+        return {"q": q.to(torch.bfloat16), "kv": kv.to(torch.bfloat16), "bias": self.key_bias(b, t),
+                "dctx": dctx.reshape(b * f, H).to(torch.bfloat16)}
+
+    def check_cross_train_kernels(self) -> None:
+        """attn_train_cross and its backward against their plain versions at TRAIN_CHECK_B and TRAIN_B, both
+        directions, dropout 0 and TRAIN_RATE, with and without the key mask; at rate 0.5 the dropped units
+        equal the hash mask's, in the forward and backward kernels and their plain versions."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        dropout = import_module(f"{PKG}.ops.dropout")
+        torch = self.torch
+        for b in (TRAIN_CHECK_B, TRAIN_B):
+            blk = dropout.pick_block(b, 8)
+            for label, f, t in LX_DIRECTIONS:
+                c = self.cross_train_case(b, f, t)
+                for rate in (0.0, TRAIN_RATE):
+                    for mlabel, bias in (("no mask", None), ("key mask", c["bias"])):
+                        a = (b, f, t, N, 55, rate, blk)
+                        tag = f"[{label}, rate {rate}, {mlabel}, B={b}]"
+                        self.check(f"attn_train_cross {tag}", "attn_train_cross",
+                                   k.attn_train_cross(c["q"], c["kv"], bias, *a),
+                                   k.attn_train_cross_plain(c["q"], c["kv"], bias, *a), CARD_ATOL, CARD_RTOL)
+                        self.check(f"attn_train_cross_bwd dq, dkv {tag}", "attn_train_cross_bwd",
+                                   k.attn_train_cross_bwd(c["q"], c["kv"], c["dctx"], bias, *a),
+                                   k.attn_train_cross_bwd_plain(c["q"], c["kv"], c["dctx"], bias, *a),
+                                   CARD_ATOL, CARD_RTOL)
+                ci = self.cross_train_case(b, f, t, identity=True)
+                keep = dropout.cross_probs_keep(123, 0.5, b, N, f, t, blk, self.dev)
+                same = True
+                for fn in (k.attn_train_cross, k.attn_train_cross_plain):
+                    probs = fn(ci["q"], ci["kv"], None, b, f, t, N, 123, 0.5, blk)
+                    probs = probs.reshape(b, f, N, 64)[..., :t].permute(0, 2, 1, 3)  # [b, n, query, key]
+                    same = same and bool(torch.equal(probs == 0, ~keep))
+                for fn in (k.attn_train_cross_bwd, k.attn_train_cross_bwd_plain):
+                    dv = fn(ci["q"], ci["kv"], ci["dctx"], None, b, f, t, N, 123, 0.5, blk)[1][:, H:]
+                    dv = dv.reshape(b, t, N, 64)[..., :f].permute(0, 2, 3, 1)  # [b, n, query, key]
+                    same = same and bool(torch.equal(dv == 0, ~keep))
+                log(f"check attn_train_cross masks [{label}, rate 0.5, B={b}]: dropped probabilities equal to the "
+                    f"hash mask's in the forward and backward kernels and their plain versions: {same}")
+                if not same:
+                    self.failures.append(f"attn_train_cross masks {label} B={b}")
+
+    def cross_block_fns(self, x, ctx, ws, bias, dy):
+        """(forward of the train cross block, its backward, the plain oracle's forward, the oracle's autograd
+        backward, the library forward, its autograd backward) at TRAIN_RATE, each a no-argument callable."""
+        from importlib import import_module
+
+        torch = self.torch
+        F = torch.nn.functional
+        tb = import_module(f"{PKG}.ops.train_blocks")
+        dropout = import_module(f"{PKG}.ops.dropout")
+        b, f, _ = x.shape
+        t = ctx.shape[1]
+        block = dropout.pick_block(b, dropout.train_block("attn"))
+        kw = dict(bias=bias, attn_dropout_rate=TRAIN_RATE, hidden_dropout_rate=TRAIN_RATE)
+        kernel = lambda x, c, *w: tb.cross_attention_block_train(x, c, *w, N, 42, **kw)  # noqa: E731
+        plain = lambda x, c, *w: tb.cross_attention_block_train_plain(x, c, *w, N, 42, **kw)  # noqa: E731
+        backward = lambda: tb.cross_attention_block_train_backward(  # noqa: E731
+            dy, x, ctx, *ws[:7], bias, N, 42, TRAIN_RATE, TRAIN_RATE, 1e-12, block)
+
+        def library(x, c, wq, bq, wkv, bkv, wo, bo, g, be):  # bf16 matmuls, SDPA with mask and dropout, F.layer_norm
+            q = torch.matmul(x, wq.to(torch.bfloat16)) + bq.to(torch.bfloat16)
+            kv = torch.matmul(c, wkv.to(torch.bfloat16)) + bkv.to(torch.bfloat16)
+            qh = q.reshape(b, f, N, 64).transpose(1, 2)
+            kh, vh = (z.reshape(b, t, N, 64).transpose(1, 2) for z in kv.split(H, dim=-1))
+            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias.to(torch.bfloat16).reshape(b, 1, 1, t),
+                                               dropout_p=TRAIN_RATE)
+            o = F.dropout(torch.matmul(o.transpose(1, 2).reshape(b, f, H), wo.to(torch.bfloat16))
+                          + bo.to(torch.bfloat16), TRAIN_RATE)
+            return F.layer_norm((o + x).float(), (H,), g, be, 1e-12).to(torch.bfloat16)
+
+        def grads_of(fn):
+            leaves = [x.detach().clone().requires_grad_(), ctx.detach().clone().requires_grad_(),
+                      *(w.detach().clone().requires_grad_() for w in ws)]
+            y = fn(*leaves)
+            return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+        fwd = (lambda: kernel(x, ctx, *ws), lambda: plain(x, ctx, *ws), lambda: library(x, ctx, *ws))
+        return fwd, (backward, grads_of(plain), grads_of(library))
+
+    def time_cross_train_kernels(self) -> dict[str, dict]:
+        """At TRAIN_B, both directions: the train cross block held against its plain oracle (y in the ulp band,
+        its 10 gradients in relative L2), then the block, forward and backward, and the kernels inside it timed
+        beside their bounds, plain versions and library yardsticks."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        torch = self.torch
+        F = torch.nn.functional
+        b = TRAIN_B
+        shapes = [(H, H), (H,), (H, 2 * H), (2 * H,), (H, H), (H,)]
+        ws = [self.randn(*sh, scale=0.02) for sh in shapes] + [1.0 + self.randn(H, scale=0.1),
+                                                                self.randn(H, scale=0.1)]
+        wbytes = nbytes_of(ws)
+        rows = {}
+        for label, f, t in LX_DIRECTIONS:
+            x, ctx = self.randn(b, f, H, dtype=torch.bfloat16), self.randn(b, t, H, dtype=torch.bfloat16)
+            dy = self.randn(b, f, H, dtype=torch.bfloat16)
+            bias = self.key_bias(b, t)
+            (kf, pf, lf), (kb_, pb, lb) = self.cross_block_fns(x, ctx, ws, bias, dy)
+            name, tag = "cross_attention_block_train", f"[{label}, rate {TRAIN_RATE}, key mask, B={b}]"
+            self.check(f"{name} y vs plain oracle {tag}", name, kf(), pf(), CARD_ATOL, CARD_RTOL)
+            got, want = kb_(), pb()
+            if any(g.dtype != torch.bfloat16 for g in got[:2]) or any(g.dtype != torch.float32 for g in got[2:]):
+                self.failures.append(f"{name} gradient dtypes")
+            self.check_rel(f"{name}_backward dx, dctx, dWq, dbq, dWkv, dbkv, dWo, dbo, dgamma, dbeta vs the "
+                           f"oracle's autograd {tag}", f"{name}_backward", got, want, TRAIN_GRAD_REL_L2)
+            mf, mt, core = b * f, b * t, 4.0 * b * N * f * t * 64
+            fwd_flops = 2.0 * mf * H * H + 2.0 * mt * H * 2 * H + core + 2.0 * mf * H * H
+            bwd_flops = (fwd_flops + 2.0 * mf * H * H + 2.5 * core + 2.0 * mf * H * H + 2.0 * mt * 2 * H * H
+                         + 2.0 * mf * H * H + 2.0 * mt * H * 2 * H + 2.0 * mf * H * H)
+            act = 2 * (mf + mt) * H  # x and ctx, bf16
+            self.time_row(rows, f"{name} {label}", name, kf, pf, lf, act + wbytes + bias.numel() * 4 + 2 * mf * H,
+                          fwd_flops, PEAK_BF16_FLOPS, check=False)
+            self.time_row(rows, f"{name}_backward {label}", f"{name}_backward", kb_, pb, lb,
+                          2 * act + 2 * mf * H + 2 * wbytes + bias.numel() * 4, bwd_flops, PEAK_BF16_FLOPS,
+                          check=False)
+
+            # the kernels inside the block, at its shapes (rate TRAIN_RATE, the key mask)
+            c = self.cross_train_case(b, f, t)
+            q, kv, dctx = c["q"], c["kv"], c["dctx"]
+            qh = q.reshape(b, f, N, 64).transpose(1, 2).contiguous().requires_grad_()
+            kh, vh = (z.reshape(b, t, N, 64).transpose(1, 2).contiguous().requires_grad_() for z in kv.split(H, 1))
+            mask = bias.to(torch.bfloat16).reshape(b, 1, 1, t)
+            sd = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=TRAIN_RATE)
+            dsd = dctx.reshape(b, f, N, 64).transpose(1, 2)
+            a = (b, f, t, N, 55, TRAIN_RATE, 8)
+            self.time_row(rows, f"attn_train_cross {label}", "attn_train_cross",
+                          lambda q=q, kv=kv, bias=bias, a=a: k.attn_train_cross(q, kv, bias, *a),
+                          lambda q=q, kv=kv, bias=bias, a=a: k.attn_train_cross_plain(q, kv, bias, *a),
+                          lambda qh=qh, kh=kh, vh=vh, mask=mask: F.scaled_dot_product_attention(
+                              qh, kh, vh, attn_mask=mask, dropout_p=TRAIN_RATE),
+                          nbytes_of((q, kv, bias)) + mf * H * 2, core, PEAK_BF16_FLOPS, check=False)
+            self.time_row(rows, f"attn_train_cross_bwd {label}", "attn_train_cross_bwd",
+                          lambda q=q, kv=kv, d=dctx, bias=bias, a=a: k.attn_train_cross_bwd(q, kv, d, bias, *a),
+                          lambda q=q, kv=kv, d=dctx, bias=bias, a=a: k.attn_train_cross_bwd_plain(q, kv, d, bias, *a),
+                          lambda sd=sd, qh=qh, kh=kh, vh=vh, dsd=dsd: torch.autograd.grad(
+                              sd, (qh, kh, vh), dsd, retain_graph=True),
+                          2 * nbytes_of((q, kv)) + nbytes_of((dctx, bias)), 2.5 * core, PEAK_BF16_FLOPS,
+                          check=False)
+        return rows
+
+    def train_lxmert(self) -> tuple[dict, dict]:
+        """The LXMERT training path at full width through train.Trainer: the step-1 check against the f32
+        truth, one step with am_loss, TRAIN_STEPS timed steps with the counters read at every one, two
+        profiled steps -> (the launches summed over the timed steps, the phase's numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        models = import_module(f"{PKG}.models")
+        tok = import_module(f"{PKG}.tokenization")
+        train = import_module(f"{PKG}.train")
+
+        work = pkg.BUILD_DIR / "smoke" / "train"
+        work.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        spec = models.get_model("lxmert")
+        cfg = spec.config
+        shape = (cfg.bert.hidden_size, cfg.bert.num_attention_heads, cfg.l_layers, cfg.r_layers, cfg.x_layers,
+                 cfg.bert.hidden_dropout_prob, cfg.bert.attention_probs_dropout_prob)
+        if shape != (H, N, *LX_DEPTHS, TRAIN_RATE, TRAIN_RATE):
+            raise RuntimeError(f"not the full-width LXMERT config with dropout {TRAIN_RATE}: {cfg}")
+        params = spec.init_params(self.seed)
+        tsv, labels = work / "pairs_lxmert.tsv", work / "labels.txt"
+        tsv.write_text("\n".join(synthetic.make_tsv(N_ROWS, seed=self.seed)) + "\n")
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        featurizer = data.Featurizer(tok.FullTokenizer.hf_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels))
+        rng = np.random.default_rng(self.seed)
+        staged = list(data.batches_from_files([tsv], featurizer.lxmert, TRAIN_B))
+        batches = []
+        for i in range(TRAIN_STEPS):
+            batch = dict(staged[i % len(staged)])
+            batch["labels"] = rng.integers(0, 2, TRAIN_B).astype(np.int32)
+            batches.append(batch)
+        tc = dataclasses.replace(train.recipe_for("lxmert"), num_warmup_steps=TRAIN_STEPS // 2,
+                                 num_train_steps=10 * TRAIN_STEPS)
+        optim = import_module(f"{PKG}.train.optim")
+        n_params = sum(v.numel() for v in optim.flatten_paths(spec.train_params(params)).values())
+        log(f"lxmert train setup: {len(staged)} featurized {TRAIN_B}-pair batches, LXMERT {LX_DEPTHS}x{H}, "
+            f"{n_params} trained parameters, {time.perf_counter() - t0:.1f} s")
+
+        step1 = self.step1_against_truth(spec, tc, params, batches[0], "lxmert train")
+        bf16 = models.Precision.bf16()
+        am = train.Trainer(spec, dataclasses.replace(tc, am_loss=True), precision=bf16, device=self.dev)
+        state = am.init_state(params)
+        grads, metrics = am.grads(state, am.to_device(batches[0]), seed=1)
+        g_w = dict(zip(state.optimizer.names, grads))["logit_W"].abs().max().item()
+        am_loss = metrics["loss"].item()
+        log(f"lxmert train step 1 with am_loss: loss {am_loss:.6f}, max |d logit_W| {g_w:.4g}")
+        if not np.isfinite(am_loss) or not g_w > 0:
+            raise RuntimeError("the am_loss step gave a non-finite loss or no logit_W gradient")
+        del am, state, grads
+
+        trainer = train.Trainer(spec, tc, precision=bf16, device=self.dev)
+        state = trainer.init_state(params)
+        launches, steps = self.timed_train_steps(trainer, state, batches, PER_STEP_LXMERT, "lxmert train")
+        log(f"launches lxmert_train ({TRAIN_STEPS} steps, summed): {json.dumps(launches)}")
+        profile = self.profile_steps(trainer, state, batches[:2], "lxmert_profile.txt")
+        va = trainer.eval_params(state)["bert"]["encoder"]["x_layers"]["visual_attention"]
+        if not all(torch.equal(va["qkv"][n], torch.cat([va["query"][n], va["kv"][n]], dim=-1))
+                   for n in ("kernel", "bias")):
+            raise RuntimeError("eval_params' visual_attention/qkv is not cat(query, kv)")
+        del trainer, state
+        rates = {"step1": step1, "am_loss_step1": {"loss": am_loss, "max_abs_logit_W_grad": g_w}, **steps,
+                 "profile": profile,
+                 "device_busy_share": profile["device_busy_ms_per_step"] / steps["device_ms_per_step"]["total"]}
+        log(f"lxmert train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled "
+            f"kernels' sum over the CUDA-event step time)")
+        return launches, rates
 
     @staticmethod
     def ranking_agreement(batches, kern, plain) -> tuple[int, int]:
@@ -1809,6 +2084,8 @@ PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
 PER_B = f"one ImageBERT-B layer at B={MAIN_B}, S={B_S} (fused route)"
 PER_MHA = f"one attention core at B={MAIN_B}, S={S}, bf16, no bias (ImageBERT-A's; the other cases under \"shapes\")"
 PER_T = f"one ImageBERT-A training block at B={TRAIN_B}, S={S}, dropout {TRAIN_RATE}, no mask"
+PER_XT = (f"one LXMERT x-layer's two train cross blocks at B={TRAIN_B} ({LX_F}<-{LX_T} and {LX_T}<-{LX_F}), "
+          f"dropout {TRAIN_RATE}, key masks")
 KERNELS = [
     # name, source, TPU kernel it replaces, the rows of time_kernels() / time_lxmert_kernels()
     # that make up one layer's launches, and which layer that is
@@ -1849,6 +2126,16 @@ KERNELS = [
     ("attn_train", f"{PKG}/csrc/attn_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:548", ["attn_train"], PER_T),
     ("attn_train_bwd", f"{PKG}/csrc/attn_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:811", ["attn_train_bwd"],
      PER_T),
+    # LXMERT's train cross block (rows 12-13) and its attention kernel
+    ("cross_attention_block_train", f"{PKG}/ops/train_blocks.py", f"{TPU_PKG_DIR}/ops/pallas_train.py:1264",
+     [f"cross_attention_block_train {d[0]}" for d in LX_DIRECTIONS], PER_XT),
+    ("cross_attention_block_train_backward", f"{PKG}/ops/train_blocks.py",
+     f"{TPU_PKG_DIR}/ops/pallas_train.py:1300", [f"cross_attention_block_train_backward {d[0]}" for d in LX_DIRECTIONS],
+     PER_XT),
+    ("attn_train_cross", f"{PKG}/csrc/attn_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:1041",
+     [f"attn_train_cross {d[0]}" for d in LX_DIRECTIONS], PER_XT),
+    ("attn_train_cross_bwd", f"{PKG}/csrc/attn_train.cu", f"{TPU_PKG_DIR}/ops/pallas_train.py:1213",
+     [f"attn_train_cross_bwd {d[0]}" for d in LX_DIRECTIONS], PER_XT),
 ]
 # the GEMM's "f32" epilogue (ImageBERT-B's banded label conv, one launch a batch) rides in the
 # gemm_bf16 entry under this key, timed alone at B=512
@@ -1992,6 +2279,18 @@ PER_STEP = {"attention_block_train": 12, "ffn_block_train": 12, "attention_block
             "ffn_block_train_backward": 12, "gemm": 12 * (2 + 2 + 4 + 4), "attn_train": 12 + 12,
             "attn_train_bwd": 12, "ln_train": 12 + 12, "ln_train_bwd": 12 + 12}
 PER_BATCH["imagebert_c_pallas"] = PER_BATCH["imagebert_b_pallas"]
+# launches per LXMERT training step (9/5/5). Forward: 24 self-attention and 24 FFN train blocks (the L and R
+# stacks' 14 layers, the x-layers' 10 stream layers), as ImageBERT-A's, and 10 cross train blocks (Q, KV and
+# out-proj gemms, attn_train_cross, ln_train). Backward: every block but the last x-layer's visn stream (its
+# visn<-lang cross block, self-attention and FFN), whose output no loss reads (the pooler reads lang), so
+# autograd never runs those three: 23 + 23 + 9. A cross backward recomputes its three gemms and attn_train_cross,
+# then ln_train_bwd, the dctx_out gemm, attn_train_cross_bwd, the dx and dctx gemms (9 gemms in all)
+PER_STEP_LXMERT = {"attention_block_train": 24, "ffn_block_train": 24, "cross_attention_block_train": 10,
+                   "attention_block_train_backward": 23, "ffn_block_train_backward": 23,
+                   "cross_attention_block_train_backward": 9,
+                   "gemm": 24 * 2 + 24 * 2 + 10 * 3 + 23 * 4 + 23 * 4 + 9 * 6,
+                   "attn_train": 24 + 23, "attn_train_bwd": 23, "attn_train_cross": 10 + 9, "attn_train_cross_bwd": 9,
+                   "ln_train": 24 + 24 + 10, "ln_train_bwd": 23 + 23 + 9}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2082,8 +2381,20 @@ def main(argv: list[str] | None = None) -> int:
         if train_launches != expected:
             raise RuntimeError(f"imagebert_a_train launches {train_launches}, expected {expected}")
         log(json.dumps({"train_imagebert_a": train_rates}))
+        smoke.check_cross_train_kernels()
+        if smoke.failures:
+            raise RuntimeError(f"cross train kernels disagree with their plain versions: {smoke.failures}")
+        times.update(smoke.time_cross_train_kernels())
+        if smoke.failures:
+            raise RuntimeError(f"the train cross block disagrees with its plain oracle: {smoke.failures}")
+        lx_train_launches, lx_train_rates = smoke.train_lxmert()
+        expected = expected_launches(TRAIN_STEPS, PER_STEP_LXMERT)
+        if lx_train_launches != expected:
+            raise RuntimeError(f"lxmert_train launches {lx_train_launches}, expected {expected}")
+        log(json.dumps({"train_lxmert": lx_train_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
-                        "mha_packed_entry": packed, "imagebert_a_train": train_launches}
+                        "mha_packed_entry": packed, "imagebert_a_train": train_launches,
+                        "lxmert_train": lx_train_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:

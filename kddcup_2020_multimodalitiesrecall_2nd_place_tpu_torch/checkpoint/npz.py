@@ -9,10 +9,12 @@
   the JAX package concatenates them on every call, ``models/core.py``
   :293-299, :315-316, :400-401). Leaves a model stores in another form
   are left to its spec's ``from_jax`` (ImageBERT-B's label-conv band).
-* ``params_to_jax``: the inverse for a trained ImageBERT-A tree: each fused
-  ``qkv`` split back into query/key/value, numpy leaves, so ``save_npz``
-  writes a checkpoint that the port's ``cli/score.py`` and the JAX package's
-  ``scripts/score.py`` both load.
+* ``params_to_jax``: the inverse for an ImageBERT-A or LXMERT tree: each
+  fused ``qkv`` split back into query/key/value (LXMERT's
+  ``visual_attention`` from its ``query`` and ``kv``, which training updates,
+  never from ``qkv``), numpy leaves, so ``save_npz`` writes a checkpoint that
+  the port's ``cli/score.py`` and the JAX package's ``scripts/score.py`` both
+  load.
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
   embedding tables and the heads' f32 weights stay float32.
@@ -70,9 +72,9 @@ def params_from_jax(tree: dict) -> Params:
     ImageBERT-B's ``kdd_conv1`` taps stay as in the JAX tree: its spec's
     ``from_jax`` bands them (the AM head's ``am_kernel`` stays f32).
 
-    Leaves the JAX apply never reads for scoring (the MLM and NSP heads of
-    LXMERT and its AM head's ``logit_W``, the MLM and word-match heads of the
-    ImageBERTs) are dropped."""
+    Leaves the port never reads (the MLM and NSP heads of LXMERT, the MLM and
+    word-match heads of the ImageBERTs) are dropped; LXMERT's AM head
+    ``logit_W`` is kept (``am_loss`` trains it)."""
     params = _to_torch(tree)
     enc = params["bert"]["encoder"]
     if "x_layers" in enc:
@@ -84,16 +86,30 @@ def params_from_jax(tree: dict) -> Params:
         xs["visual_attention"] = attention_forms(xs["visual_attention"], cross=True)
         for name in ("lang_self_att", "visn_self_att"):
             xs[name] = attention_forms(xs[name])
-        return {"bert": params["bert"], "logit_fc": params["logit_fc"]}
+        return {k: params[k] for k in ("bert", "logit_fc", "logit_W") if k in params}
     enc["attention"] = attention_forms(enc["attention"])
     params["cls"] = {"seq_relationship": params["cls"]["seq_relationship"]}
     return params
 
 
+def _split_attention(att: dict) -> dict:
+    """``attention_forms`` undone: query/key/value from ``query`` and ``kv``
+    where the tree has them (a cross attention), else from ``qkv``."""
+    out = {k: v for k, v in att.items() if k not in ("qkv", "query", "kv")}
+    if "kv" in att:
+        out["query"] = att["query"]
+        fused, names = att["kv"], ("key", "value")
+    else:
+        fused, names = att["qkv"], ("query", "key", "value")
+    for i, name in enumerate(names):
+        out[name] = {k: np.split(v, len(names), axis=-1)[i] for k, v in fused.items()}
+    return out
+
+
 def params_to_jax(params: Params) -> dict:
-    """The port's ImageBERT-A params -> the JAX package's tree layout, numpy
-    float32 leaves: the inverse of ``params_from_jax`` (``attention_forms``
-    undone: ``qkv`` [L, H, 3H] back to query, key, value [L, H, H])."""
+    """The port's ImageBERT-A or LXMERT params (with or without LXMERT's
+    ``visual_attention/qkv``) -> the JAX package's tree layout, numpy float32
+    leaves: the inverse of ``params_from_jax``."""
     def to_numpy(tree):
         if isinstance(tree, dict):
             return {k: to_numpy(v) for k, v in tree.items()}
@@ -102,12 +118,13 @@ def params_to_jax(params: Params) -> dict:
     tree = to_numpy(params)
     enc = tree["bert"]["encoder"]
     if "x_layers" in enc:
-        raise NotImplementedError("LXMERT checkpoints are not written yet, see ROADMAP.md Queue 1 item 9")
-    att = dict(enc["attention"])
-    qkv = att.pop("qkv")
-    for i, name in enumerate(("query", "key", "value")):
-        att[name] = {k: np.split(v, 3, axis=-1)[i] for k, v in qkv.items()}
-    enc["attention"] = att
+        for stack in ("layer", "r_layers"):
+            enc[stack]["attention"] = _split_attention(enc[stack]["attention"])
+        xs = enc["x_layers"]
+        for name in ("visual_attention", "lang_self_att", "visn_self_att"):
+            xs[name] = _split_attention(xs[name])
+        return tree
+    enc["attention"] = _split_attention(enc["attention"])
     return tree
 
 

@@ -18,6 +18,10 @@ blocks); ``--device cpu`` runs the plain versions in f32. Example:
 The other models' training, ``--packed-dir``, ``--distributed``,
 ``--resume``/``--init-from``, ``--distill-from``, ``--valid-tsv`` and
 ``--mlm-weight`` are not ported yet and exit 2 naming the ROADMAP item.
+LXMERT trains through ``train.Trainer`` (as the JAX package trains it, on
+batches in its featurizer's layout), not here: the JAX CLI cannot train it
+either (no sampler yields LXMERT's layout, ROADMAP.md Queue 3, JAX fault 3),
+so ``--model lxmert`` exits 2 until that sampler exists.
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
             ap.error(f"{flag} is not yet ported, see ROADMAP.md {item}")
     if args.mlm_weight:
         ap.error("--mlm-weight (the MLM head) is not yet ported, see ROADMAP.md Queue 1 item 9")
+    if args.model == "lxmert":
+        ap.error("--model lxmert: no sampler yields LXMERT's batch layout, in the JAX package either "
+                 "(ROADMAP.md Queue 3, JAX fault 3); LXMERT trains through train.Trainer")
     if args.model != "imagebert_a":
         ap.error(f"training {args.model} is not yet ported (ImageBERT-A is), see ROADMAP.md Queue 1 item 9")
     if not args.train_tsv:

@@ -8,7 +8,8 @@
 // Grid block j of a launch (``block`` pairs) seeds the hash with
 // int32(seed + j * 1000003) and indexes its elements from 0: the hidden draw
 // (draw 0) over [block * S, H], head i's probability draw (draw 1 + i) over
-// [block, S, S]. A unit is kept iff its bits >= the cutoff.
+// [block, S, S] ([block, F, T] in cross attention). The index does not depend
+// on the extents. A unit is kept iff its bits >= the cutoff.
 
 #pragma once
 

@@ -11,10 +11,11 @@
   or with ``KMR_FUSED_LAYER=1`` one fused encoder layer each; under "xla" and
   "pallas" the unfused route of plain products around ``ops/attention.py:mha``
   (its ``models/core.py`` :331-360 and :497-504). Given per-layer dropout
-  seeds (training), the self-attention and FFN blocks are the train blocks of
-  ``ops/train_blocks.py`` (``TrainBlocks``) on every backend, as the JAX
-  package takes its fused train blocks whenever it trains
-  (``models/core.py`` :192-235, :449-477),
+  seeds (training), the self-attention, cross-attention and FFN blocks are
+  the train blocks of ``ops/train_blocks.py`` (``TrainBlocks``) on every
+  backend, and ``KMR_DUAL_CROSS`` and ``KMR_FUSED_LAYER`` are ignored, as the
+  JAX package takes its fused train blocks whenever it trains
+  (``models/core.py`` :192-280, :388-392, :449-477),
 * ``dropout`` of the embeddings (training), drawn from a ``torch.Generator``,
 * embedding and pooler pieces, and initialisers (truncated normal,
   stddev=initializer_range, as ``pixelmodel.py:418-420``).
@@ -55,6 +56,8 @@ from ..ops.library import gemm
 from ..ops.train_blocks import (
     attention_block_train,
     attention_block_train_plain,
+    cross_attention_block_train,
+    cross_attention_block_train_plain,
     ffn_block_train,
     ffn_block_train_plain,
 )
@@ -132,17 +135,19 @@ PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain, cross_attention_bl
 
 
 class TrainBlocks(NamedTuple):
-    """The self-attention and FFN blocks an encoder trains with: with dropout,
-    their masks from per-layer seeds, and a backward."""
+    """The self-attention, FFN and cross-attention blocks a model trains
+    with: with dropout, their masks from per-block seeds, and a backward."""
 
     attention: Callable[..., torch.Tensor]
     ffn: Callable[..., torch.Tensor]
+    cross: Callable[..., torch.Tensor]
 
 
 # the autograd Functions over the kernels (plain versions on CPU tensors)
-TRAIN_KERNEL_BLOCKS = TrainBlocks(attention_block_train, ffn_block_train)
+TRAIN_KERNEL_BLOCKS = TrainBlocks(attention_block_train, ffn_block_train, cross_attention_block_train)
 # the plain differentiable oracles, on any device (chip_smoke.py runs one step on both)
-TRAIN_PLAIN_BLOCKS = TrainBlocks(attention_block_train_plain, ffn_block_train_plain)
+TRAIN_PLAIN_BLOCKS = TrainBlocks(attention_block_train_plain, ffn_block_train_plain,
+                                 cross_attention_block_train_plain)
 
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
 GELU = {"gelu": gelu_tanh, "gelu_erf": gelu_erf}
@@ -236,10 +241,12 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def layer_seeds(gen: torch.Generator, n_layers: int) -> list[tuple[int, int]]:
-    """One (attention, FFN) pair of 32-bit dropout seeds per layer, from ``gen``."""
-    seeds = torch.randint(-2**31, 2**31 - 1, (n_layers, 2), generator=gen, device=gen.device)
-    return [(a, f) for a, f in seeds.tolist()]
+def block_seeds(gen: torch.Generator, n_layers: int, per_layer: int) -> list[tuple[int, ...]]:
+    """``per_layer`` 32-bit dropout seeds for each of ``n_layers`` layers (an
+    encoder layer's are its (attention, FFN) pair), from ``gen`` in one draw
+    (one host sync)."""
+    seeds = torch.randint(-2**31, 2**31 - 1, (n_layers, per_layer), generator=gen, device=gen.device)
+    return [tuple(row) for row in seeds.tolist()]
 
 
 # --------------------------------------------------------------------------
@@ -290,26 +297,35 @@ def attention_block(p: Params, x, bias, cfg: BertConfig, prec: Precision, blocks
 
 
 def cross_attention_block(p: Params, x, ctx, bias, cfg: BertConfig, prec: Precision,
-                          blocks: Blocks = KERNEL_BLOCKS):
-    """Post-LN cross-attention block: x attends to ctx, ``bias`` masks ctx's keys."""
+                          blocks: Blocks = KERNEL_BLOCKS, seed: int | None = None):
+    """Post-LN cross-attention block: x attends to ctx, ``bias`` masks ctx's
+    keys; with a dropout ``seed`` the train block of ``blocks`` (a ``TrainBlocks``)."""
+    out = p["output"]
+    weights = (p["query"]["kernel"], p["query"]["bias"], p["kv"]["kernel"], p["kv"]["bias"],
+               out["dense"]["kernel"], out["dense"]["bias"], out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"])
+    if seed is not None:
+        return blocks.cross(
+            x, ctx, *weights, cfg.num_attention_heads, seed, bias=bias,
+            attn_dropout_rate=cfg.attention_probs_dropout_prob, hidden_dropout_rate=cfg.hidden_dropout_prob,
+        )
     if not packed_attention_active():
         return unfused_attention(p, x, ctx, bias, cfg, prec)
-    out = p["output"]
-    return blocks.cross(
-        x, ctx, p["query"]["kernel"], p["query"]["bias"], p["kv"]["kernel"], p["kv"]["bias"],
-        out["dense"]["kernel"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
-        out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
-    )
+    return blocks.cross(x, ctx, *weights, cfg.num_attention_heads, bias)
 
 
 def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: BertConfig, prec: Precision,
-                                blocks: Blocks = KERNEL_BLOCKS):
+                                blocks: Blocks = KERNEL_BLOCKS, seeds: tuple[int, int] | None = None):
     """Both shared-weight cross directions of an LXMERT x-layer
     (``lxmert/src/lxrt/modeling.py:460-464``): lang <- visn under the visn key
     mask and visn <- lang under the lang key mask, both from the pre-cross
     streams. ``KMR_DUAL_CROSS=1`` on the "pallas_packed" backend runs them as
     one dual block (one attention launch for both directions), as the JAX
-    package's ``models/core.py`` :388-417 does; the default is two cross blocks."""
+    package's ``models/core.py`` :388-417 does; the default is two cross
+    blocks. With ``seeds`` (one dropout seed per direction) it trains: two
+    cross train blocks, whatever ``KMR_DUAL_CROSS`` says (JAX :388-392)."""
+    if seeds is not None:
+        return (cross_attention_block(p, l, v, visn_bias, cfg, prec, blocks, seed=seeds[0]),
+                cross_attention_block(p, v, l, lang_bias, cfg, prec, blocks, seed=seeds[1]))
     if (packed_attention_active() and os.environ.get("KMR_DUAL_CROSS", "0") == "1"
             and (lang_bias is None) == (visn_bias is None)):
         out = p["output"]
@@ -352,11 +368,6 @@ def ffn_block(p: Params, x, cfg: BertConfig, prec: Precision, blocks: Blocks = K
     )
 
 
-def layer_slice(tree: Params, i: int) -> Params:
-    """Layer i of a tree of [L]-stacked leaves."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-
 def unbind_layers(tree: Params) -> list[Params]:
     """The layers of a tree of [L]-stacked leaves, by ``torch.unbind``, whose
     backward stacks the L gradients once (L index selections would each
@@ -383,13 +394,16 @@ def fused_layer_route(bias, act_name: str) -> bool:
 
 
 def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, prec: Precision,
-                  blocks: Blocks = KERNEL_BLOCKS, act: str | None = None, fuse: bool = True) -> torch.Tensor:
+                  blocks: Blocks = KERNEL_BLOCKS, act: str | None = None, fuse: bool = True,
+                  seeds: tuple[int, int] | None = None) -> torch.Tensor:
     """One post-LN layer: the attention block then the FFN block (the
     default), or with ``fuse`` and ``KMR_FUSED_LAYER=1`` one fused encoder
     layer, as the JAX package's ``models/core.py`` :612-628 (whose fused
-    layer measured slower on its TPU, hence opt-in)."""
+    layer measured slower on its TPU, hence opt-in). With ``seeds`` (its
+    (attention, FFN) dropout seeds) it trains: the two train blocks of
+    ``blocks``, a ``TrainBlocks``, whatever ``KMR_FUSED_LAYER`` says."""
     act_name = act or cfg.hidden_act
-    if fuse and fused_layer_route(bias, act_name):
+    if seeds is None and fuse and fused_layer_route(bias, act_name):
         out = att_p["output"]
         ffn_out = ffn_p["output"]
         return blocks.layer(
@@ -399,7 +413,9 @@ def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, prec: 
             ffn_out["LayerNorm"]["gamma"], ffn_out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
             approximate_gelu=GELU_APPROXIMATE[act_name],
         )
-    return ffn_block(ffn_p, attention_block(att_p, x, bias, cfg, prec, blocks), cfg, prec, blocks, act)
+    attn_seed, ffn_seed = (None, None) if seeds is None else seeds
+    x = attention_block(att_p, x, bias, cfg, prec, blocks, seed=attn_seed)
+    return ffn_block(ffn_p, x, cfg, prec, blocks, act, seed=ffn_seed)
 
 
 def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
@@ -414,14 +430,9 @@ def encoder(p: Params, x, bias, cfg: BertConfig, prec: Precision,
     blocks recompute their intermediates in the backward, so no layer needs
     checkpointing (the JAX package's ``models/core.py`` :653-671)."""
     x = x.to(prec.compute_dtype)
-    if seeds is not None:
-        for layer, (attn_seed, ffn_seed) in zip(unbind_layers(p), seeds, strict=True):
-            x = attention_block(layer["attention"], x, bias, cfg, prec, blocks, seed=attn_seed)
-            x = ffn_block(layer["ffn"], x, cfg, prec, blocks, act, seed=ffn_seed)
-        return x
-    for i in range(num_layers(p)):
-        layer = layer_slice(p, i)
-        x = encoder_layer(layer["attention"], layer["ffn"], x, bias, cfg, prec, blocks, act, fuse)
+    layers = unbind_layers(p)
+    for layer, s in zip(layers, seeds if seeds is not None else [None] * len(layers), strict=True):
+        x = encoder_layer(layer["attention"], layer["ffn"], x, bias, cfg, prec, blocks, act, fuse, seeds=s)
     return x
 
 

@@ -13,8 +13,9 @@
   ``models/heads.py`` :197-210: its two denses round their inputs to the
   compute dtype, like every ``dense``.
 
-``nsp_loss`` is ImageBERT-A's training loss; the MLM head is not ported yet
-(ROADMAP.md Queue 1 item 9)."""
+``nsp_loss`` is ImageBERT-A's training loss, ``cross_entropy`` LXMERT's (on
+``logit_fc``, or on ``am_margin_logits`` of its ``logit_W`` cosines); the MLM
+head is not ported yet (ROADMAP.md Queue 1 item 9)."""
 
 from __future__ import annotations
 
@@ -39,12 +40,17 @@ def nsp_probs(p: Params, pooled: torch.Tensor) -> torch.Tensor:
     return torch.softmax(nsp_logits(p, pooled), dim=-1)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of [B, 2] logits against 0/1 labels, in f32."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    one_hot = torch.nn.functional.one_hot(labels.long(), 2).float()
+    return -(one_hot * log_probs).sum(dim=-1).mean()
+
+
 def nsp_loss(p: Params, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy of the NSP head against 0/1 labels (the JAX
     package's ``models/heads.py`` :60-63)."""
-    log_probs = torch.log_softmax(nsp_logits(p, pooled), dim=-1)
-    one_hot = torch.nn.functional.one_hot(labels.long(), 2).float()
-    return -(one_hot * log_probs).sum(dim=-1).mean()
+    return cross_entropy(nsp_logits(p, pooled), labels)
 
 
 AM_MARGIN = 0.35

@@ -26,6 +26,7 @@ from .core import (
     Params,
     Precision,
     TrainBlocks,
+    block_seeds,
     dense,
     dense_init,
     dropout,
@@ -33,7 +34,6 @@ from .core import (
     encoder,
     encoder_init,
     layer_norm,
-    layer_seeds,
     num_layers,
     pooler,
     trunc_normal,
@@ -121,7 +121,7 @@ def apply(p: Params, batch: dict, cfg: BertConfig, prec: Precision | None = None
         if gen is None:
             raise ValueError("training draws its dropout from a torch.Generator: pass gen=")
         blocks = TRAIN_KERNEL_BLOCKS if blocks is None else blocks
-        seeds = layer_seeds(gen, num_layers(p["bert"]["encoder"]))
+        seeds = block_seeds(gen, num_layers(p["bert"]["encoder"]), 2)
     blocks = KERNEL_BLOCKS if blocks is None else blocks
     x = embed(p, batch, cfg, prec, gen if train else None)
     seq = encoder(p["bert"]["encoder"], x, None, cfg, prec, blocks=blocks, seeds=seeds)

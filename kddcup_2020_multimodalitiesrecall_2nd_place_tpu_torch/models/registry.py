@@ -37,6 +37,10 @@ class ModelSpec:
     sen2forest: bool = False  # the featurizer rewrites queries first (ImageBERT-C)
     # the model's own step after checkpoint.params_from_jax (ImageBERT-B bands its label conv)
     from_jax: Callable[[Params], Params] = _as_loaded
+    # the tree a trainer holds, and back to the tree scored and saved (LXMERT trains visual_attention
+    # as query and kv, and rebuilds its qkv)
+    train_params: Callable[[Params], Params] = _as_loaded
+    eval_params: Callable[[Params], Params] = _as_loaded
 
     def init_params(self, seed: int = 0) -> Params:
         return self.init(torch.Generator().manual_seed(seed))
@@ -75,6 +79,8 @@ def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
             featurizer_layout="lxmert",
             input_keys=lxmert.INPUT_KEYS,
             matmul_kernels=lxmert.MATMUL_KERNELS,
+            train_params=lxmert.train_params,
+            eval_params=lxmert.eval_params,
         )
     if name in ("imagebert_b", "imagebert_c"):
         return ModelSpec(

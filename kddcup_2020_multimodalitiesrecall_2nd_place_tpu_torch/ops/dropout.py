@@ -16,7 +16,9 @@ are the JAX package's interpret-mode masks bit for bit, at any rate.
   hash with ``int32(seed + j * 1000003)`` and indexes its elements from 0
   (block-local). The hidden draw (draw 0) of a block covers its
   ``[block * S, H]`` rows; head ``i``'s attention-probability draw (draw
-  ``1 + i``) covers ``[block, S, S]``.
+  ``1 + i``) covers ``[block, S, S]``, or ``[block, F, T]`` in the cross
+  block (whose hidden draw covers ``[block * F, H]``). The index is
+  sum_d iota_d * mult_d, so it does not depend on the extents.
 * The block size decides the masks, so it is resolved as the JAX package
   resolves it (``_env_block``, ``_pick_block``, :279-288, :383-414):
   ``KMR_TRAIN_BLOCK_FFN`` / ``KMR_TRAIN_BLOCK_ATTN``, then
@@ -96,11 +98,13 @@ def hidden_keep(seed: int, rate: float, rows: int, h: int, rows_per_block: int, 
     return (bits >= dropout_cutoff(rate)).reshape(rows, h)
 
 
-def probs_keep(seed: int, rate: float, b: int, num_heads: int, s: int, block: int, device=None) -> torch.Tensor:
-    """Keep mask [b, num_heads, s, s] of the attention probabilities: head i
-    draws 1 + i over each grid block's [block, s, s]."""
+def cross_probs_keep(seed: int, rate: float, b: int, num_heads: int, f: int, t: int, block: int,
+                     device=None) -> torch.Tensor:
+    """Keep mask [b, num_heads, f, t] of the attention probabilities of f
+    queries over t keys: head i draws 1 + i over each grid block's
+    [block, f, t] (``_cross_recompute_heads``, :1061-1064)."""
     cutoff = dropout_cutoff(rate)
-    heads = [(block_bits(seed, 1 + i, (block, s, s), b // block, device) >= cutoff).reshape(b, s, s)
+    heads = [(block_bits(seed, 1 + i, (block, f, t), b // block, device) >= cutoff).reshape(b, f, t)
              for i in range(num_heads)]
     return torch.stack(heads, dim=1)
 

@@ -31,7 +31,10 @@ forward and a backward entry point, and the GEMM's transposed-weight mode
   residual and LayerNorm closing a train block, and its backward (dz, the
   dropped dh, per-CTA dgamma/dbeta partials).
 * ``attn_train`` / ``attn_train_bwd`` ``csrc/attn_train.cu``: per-head
-  attention with the probability dropout, and its backward (dqkv).
+  attention with the probability dropout, and its backward (dqkv); its
+  cross entry points ``attn_train_cross`` / ``attn_train_cross_bwd`` take Q
+  [B*F, H] against a fused K/V [B*T, 2H] and write dq and dkv (the train
+  cross block of the LXMERT x-layers).
 
 Their dropout masks are the JAX package's interpret-mode hash masks
 (``dropout.py``, ``csrc/dropout_hash.cuh``).
@@ -47,13 +50,14 @@ order.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .activations import gelu_bwd, gelu_erf, gelu_tanh
 from .attention import merge_heads, mha_xla, split_heads
-from .dropout import dropout_cutoff, hidden_keep, keep_scale, probs_keep
+from .dropout import cross_probs_keep, dropout_cutoff, hidden_keep, keep_scale
 
 EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "residual": 3, "f32": 4, "gelu_tanh_save": 5,
              "gelu_erf_save": 6, "gelu_bwd_tanh": 7, "gelu_bwd_erf": 8, "residual_f32": 9}
@@ -602,76 +606,121 @@ ln_train_bwd.launches = 0
 
 
 def _train_probs(q, k, key_bias, seed: int, rate: float, block: int):
-    """q, k [B, N, S, Dh] -> (probs f32, keep or None, bf16(dropped probs) in
-    q's dtype), as ``_attn_recompute_heads`` (:548-576)."""
-    b, n, s, dh = q.shape
+    """q [B, N, F, Dh], k [B, N, T, Dh] -> (probs f32, keep or None,
+    bf16(dropped probs) in q's dtype), as ``_attn_recompute_heads`` and
+    ``_cross_recompute_heads`` (:548-576, :1041-1067)."""
+    b, n, f, dh = q.shape
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / dh**0.5)
     if key_bias is not None:
         scores = scores + key_bias.float()[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
     if rate <= 0.0:
         return probs, None, probs.to(q.dtype)
-    keep = probs_keep(seed, rate, b, n, s, block, q.device)
+    keep = cross_probs_keep(seed, rate, b, n, f, k.shape[2], block, q.device)
     return probs, keep, torch.where(keep, probs * keep_scale(rate), 0.0).to(q.dtype)
 
 
-def _qkv_heads(qkv, b: int, s: int, num_heads: int):
-    h = qkv.shape[1] // 3
-    return [split_heads(t, num_heads) for t in qkv.reshape(b, s, 3 * h).split(h, dim=-1)]
+def _cross_heads(q, kv, b: int, f: int, t: int, num_heads: int):
+    h = q.shape[1]
+    return [split_heads(x.reshape(b, s, h), num_heads) for x, s in ((q, f), (kv[:, :h], t), (kv[:, h:], t))]
 
 
-def attn_train_plain(qkv, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
-                     block: int) -> torch.Tensor:
-    """qkv [B*S, 3H] -> ctx [B*S, H] in qkv's dtype: bf16(bf16(dropped probs) @ V) per head (:607-622)."""
-    q, k, v = _qkv_heads(qkv, b, s, num_heads)
-    _, _, pd = _train_probs(q, k, key_bias, seed, rate, block)
-    ctx = torch.matmul(pd.float(), v.float()).to(qkv.dtype)
-    return merge_heads(ctx).reshape(b * s, -1)
+def attn_train_cross_plain(q, kv, key_bias, b: int, f: int, t: int, num_heads: int, seed: int, rate: float,
+                           block: int) -> torch.Tensor:
+    """q [B*F, H], kv [B*T, 2H] (keys then values) -> ctx [B*F, H] in q's
+    dtype: bf16(bf16(dropped probs) @ V) per head (:607-622, :1101-1115)."""
+    qh, k, v = _cross_heads(q, kv, b, f, t, num_heads)
+    _, _, pd = _train_probs(qh, k, key_bias, seed, rate, block)
+    ctx = torch.matmul(pd.float(), v.float()).to(q.dtype)
+    return merge_heads(ctx).reshape(b * f, -1)
 
 
-def attn_train_bwd_plain(qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
-                         block: int) -> torch.Tensor:
-    """qkv [B*S, 3H], dctx [B*S, H] -> dqkv [B*S, 3H] in qkv's dtype (:811-849)."""
-    dt = qkv.dtype
-    q, k, v = _qkv_heads(qkv, b, s, num_heads)
-    probs, keep, pd = _train_probs(q, k, key_bias, seed, rate, block)
-    dc = split_heads(dctx.reshape(b, s, -1), num_heads).float()
+def attn_train_cross_bwd_plain(q, kv, dctx, key_bias, b: int, f: int, t: int, num_heads: int, seed: int,
+                               rate: float, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B*F, H], kv [B*T, 2H], dctx [B*F, H] -> (dq [B*F, H], dkv [B*T, 2H])
+    in q's dtype (:811-849, :1213-1247)."""
+    dt = q.dtype
+    qh, k, v = _cross_heads(q, kv, b, f, t, num_heads)
+    probs, keep, pd = _train_probs(qh, k, key_bias, seed, rate, block)
+    dc = split_heads(dctx.reshape(b, f, -1), num_heads).float()
     dv = torch.matmul(pd.float().transpose(-1, -2), dc).to(dt)
     dprobs = torch.matmul(dc, v.float().transpose(-1, -2))
     if keep is not None:
         dprobs = torch.where(keep, dprobs * keep_scale(rate), 0.0)
-    ds = (probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True)) * (1.0 / q.shape[-1]**0.5)).to(dt)
+    ds = (probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True)) * (1.0 / qh.shape[-1]**0.5)).to(dt)
     dq = torch.matmul(ds.float(), k.float()).to(dt)
-    dk = torch.matmul(ds.float().transpose(-1, -2), q.float()).to(dt)
-    return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).reshape(b * s, -1)
+    dk = torch.matmul(ds.float().transpose(-1, -2), qh.float()).to(dt)
+    dkv = torch.cat([merge_heads(dk), merge_heads(dv)], dim=-1).reshape(b * t, -1)
+    return merge_heads(dq).reshape(b * f, -1), dkv
 
 
-def _attn_train_call(symbol: str, qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
+def attn_train_plain(qkv, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
                      block: int) -> torch.Tensor:
-    lib = _build.load("attn_train")
+    """qkv [B*S, 3H] -> ctx [B*S, H] in qkv's dtype: the cross case with F = T = S."""
     h = qkv.shape[1] // 3
+    return attn_train_cross_plain(qkv[:, :h], qkv[:, h:], key_bias, b, s, s, num_heads, seed, rate, block)
+
+
+def attn_train_bwd_plain(qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float,
+                         block: int) -> torch.Tensor:
+    """qkv [B*S, 3H], dctx [B*S, H] -> dqkv [B*S, 3H] in qkv's dtype."""
+    h = qkv.shape[1] // 3
+    dq, dkv = attn_train_cross_bwd_plain(qkv[:, :h], qkv[:, h:], dctx, key_bias, b, s, s, num_heads, seed, rate,
+                                         block)
+    return torch.cat([dq, dkv], dim=-1)
+
+
+def _attn_train_checks(lib, h: int, num_heads: int, b: int, block: int, lengths) -> None:
     _require(h == num_heads * lib.kmr_attn_train_head_dim(),
              f"attn_train takes head dim {lib.kmr_attn_train_head_dim()}, got {h // num_heads}")
-    _require(1 <= s <= lib.kmr_attn_train_max_seq(), f"attn_train takes S <= {lib.kmr_attn_train_max_seq()}, got {s}")
+    for s in lengths:
+        _require(1 <= s <= lib.kmr_attn_train_max_seq(),
+                 f"attn_train takes S <= {lib.kmr_attn_train_max_seq()}, got {s}")
     _require(1 <= b <= 65535 and block >= 1 and b % block == 0,
              f"attn_train takes 1..65535 pairs in whole blocks, got B={b}, block={block}")
-    _rows(qkv, "qkv", (b * s, 3 * h))
-    bias = _key_bias_ptr(key_bias, "key_bias", b, s, qkv.device)
-    if dctx is not None:
-        _rows(dctx, "dctx", (b * s, h))
-    out = torch.empty(b * s, h if dctx is None else 3 * h, dtype=torch.bfloat16, device=qkv.device)
-    if dctx is None:
-        fn = _build.bind("attn_train", symbol, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                         + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        rc = fn(_build.ptr(qkv), bias, _build.ptr(out), b, s, h, num_heads, block, _seed32(seed),
-                *_drop_args(rate), _build.stream_of(qkv))
+
+
+def _attn_train_call(q, kv, dctx, key_bias, b: int, f: int, t: int, num_heads: int, seed: int, rate: float,
+                     block: int) -> list[torch.Tensor]:
+    """One launch of attn_train.cu's forward (``dctx`` None) or backward. Self-attention passes the
+    [B*S, 3H] QKV buffer as ``q`` and ``kv`` None (f = t = S) and gets [ctx] or [dqkv]; cross attention
+    passes q [B*F, H] and kv [B*T, 2H] and gets [ctx] or [dq, dkv]."""
+    lib = _build.load("attn_train")
+    packed = kv is None
+    h = q.shape[1] // 3 if packed else q.shape[1]
+    _attn_train_checks(lib, h, num_heads, b, block, (f, t))
+    if packed:
+        _rows(q, "qkv", (b * f, 3 * h))
+        src, k_col, ldq, ldkv = q, h, 3 * h, 3 * h
     else:
-        fn = _build.bind("attn_train", symbol, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                         + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        rc = fn(_build.ptr(qkv), bias, _build.ptr(dctx), _build.ptr(out), b, s, h, num_heads, block,
-                _seed32(seed), *_drop_args(rate), _build.stream_of(qkv))
+        _rows(q, "q", (b * f, h))
+        _rows(kv, "kv", (b * t, 2 * h))
+        _require(kv.device == q.device, "q and kv must be on one device")
+        src, k_col, ldq, ldkv = kv, 0, h, 2 * h
+    ptrs = [_build.ptr(q), _build.ptr(src, k_col), _build.ptr(src, k_col + h),
+            _key_bias_ptr(key_bias, "key_bias", b, t, q.device)]
+    new = functools.partial(torch.empty, dtype=torch.bfloat16, device=q.device)
+    if dctx is None:
+        outs = [new(b * f, h)]
+        ptrs.append(_build.ptr(outs[0]))
+        lds, symbol = (ldq, ldkv, h), "kmr_attn_train_fwd"
+    else:
+        _rows(dctx, "dctx", (b * f, h))
+        if packed:
+            outs = [new(b * f, 3 * h)]
+            dq, dkv, lds = outs[0], outs[0], (ldq, ldkv, 3 * h, 3 * h)
+        else:
+            outs = [new(b * f, h), new(b * t, 2 * h)]
+            (dq, dkv), lds = outs, (ldq, ldkv, h, 2 * h)
+        ptrs += [_build.ptr(dctx), _build.ptr(dq), _build.ptr(dkv, k_col), _build.ptr(dkv, k_col + h)]
+        symbol = "kmr_attn_train_bwd"
+    # pointers; B, Sq, Sk, H, num_heads, the row strides, block, seed; cutoff, scale, on, stream
+    argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (7 + len(lds))
+                + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = _build.bind("attn_train", symbol, argtypes)
+    rc = fn(*ptrs, b, f, t, h, num_heads, *lds, block, _seed32(seed), *_drop_args(rate), _build.stream_of(q))
     _build.check(rc, "attn_train")
-    return out
+    return outs
 
 
 def attn_train(qkv, key_bias, b: int, s: int, num_heads: int, seed: int, rate: float, block: int) -> torch.Tensor:
@@ -679,7 +728,7 @@ def attn_train(qkv, key_bias, b: int, s: int, num_heads: int, seed: int, rate: f
     dropout masks drawn per grid block of ``block`` pairs."""
     if not qkv.is_cuda:
         return attn_train_plain(qkv, key_bias, b, s, num_heads, seed, rate, block)
-    out = _attn_train_call("kmr_attn_train_fwd", qkv, None, key_bias, b, s, num_heads, seed, rate, block)
+    (out,) = _attn_train_call(qkv, None, None, key_bias, b, s, s, num_heads, seed, rate, block)
     attn_train.launches += 1
     return out
 
@@ -692,12 +741,41 @@ def attn_train_bwd(qkv, dctx, key_bias, b: int, s: int, num_heads: int, seed: in
     """qkv [B*S, 3H] bf16, dctx [B*S, H] bf16 -> dqkv [B*S, 3H] bf16."""
     if not qkv.is_cuda:
         return attn_train_bwd_plain(qkv, dctx, key_bias, b, s, num_heads, seed, rate, block)
-    out = _attn_train_call("kmr_attn_train_bwd", qkv, dctx, key_bias, b, s, num_heads, seed, rate, block)
+    (out,) = _attn_train_call(qkv, None, dctx, key_bias, b, s, s, num_heads, seed, rate, block)
     attn_train_bwd.launches += 1
     return out
 
 
 attn_train_bwd.launches = 0
 
+
+def attn_train_cross(q, kv, key_bias, b: int, f: int, t: int, num_heads: int, seed: int, rate: float,
+                     block: int) -> torch.Tensor:
+    """q [B*F, H] bf16, kv [B*T, 2H] bf16 (keys then values), key_bias [B, T]
+    f32 or None -> ctx [B*F, H] bf16; masks drawn per grid block of ``block``
+    pairs over [block, F, T]."""
+    if not q.is_cuda:
+        return attn_train_cross_plain(q, kv, key_bias, b, f, t, num_heads, seed, rate, block)
+    (out,) = _attn_train_call(q, kv, None, key_bias, b, f, t, num_heads, seed, rate, block)
+    attn_train_cross.launches += 1
+    return out
+
+
+attn_train_cross.launches = 0
+
+
+def attn_train_cross_bwd(q, kv, dctx, key_bias, b: int, f: int, t: int, num_heads: int, seed: int, rate: float,
+                         block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B*F, H], kv [B*T, 2H], dctx [B*F, H] bf16 -> (dq [B*F, H], dkv
+    [B*T, 2H]) bf16, dk and dv at kv's columns."""
+    if not q.is_cuda:
+        return attn_train_cross_bwd_plain(q, kv, dctx, key_bias, b, f, t, num_heads, seed, rate, block)
+    dq, dkv = _attn_train_call(q, kv, dctx, key_bias, b, f, t, num_heads, seed, rate, block)
+    attn_train_cross_bwd.launches += 1
+    return dq, dkv
+
+
+attn_train_cross_bwd.launches = 0
+
 WRAPPERS = (gemm, attn_core, attn_core_cross, attn_core_dual, layernorm, layer_tail, mha, mha_packed,
-            ln_train, ln_train_bwd, attn_train, attn_train_bwd)
+            ln_train, ln_train_bwd, attn_train, attn_train_bwd, attn_train_cross, attn_train_cross_bwd)

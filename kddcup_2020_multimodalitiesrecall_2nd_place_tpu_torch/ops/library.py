@@ -167,3 +167,25 @@ def attn_train_bwd(qkv: Tensor, dctx: Tensor, key_bias: Optional[Tensor], b: int
 @attn_train_bwd.register_fake
 def _(qkv, dctx, key_bias, b, s, num_heads, seed, rate, block):
     return qkv.new_empty(qkv.shape)
+
+
+@torch.library.custom_op("kmr::attn_train_cross", mutates_args=())
+def attn_train_cross(q: Tensor, kv: Tensor, key_bias: Optional[Tensor], b: int, f: int, t: int, num_heads: int,
+                     seed: int, rate: float, block: int) -> Tensor:
+    return kernels.attn_train_cross(q, kv, key_bias, b, f, t, num_heads, seed, rate, block)
+
+
+@attn_train_cross.register_fake
+def _(q, kv, key_bias, b, f, t, num_heads, seed, rate, block):
+    return q.new_empty(b * f, q.shape[1])
+
+
+@torch.library.custom_op("kmr::attn_train_cross_bwd", mutates_args=())
+def attn_train_cross_bwd(q: Tensor, kv: Tensor, dctx: Tensor, key_bias: Optional[Tensor], b: int, f: int, t: int,
+                         num_heads: int, seed: int, rate: float, block: int) -> tuple[Tensor, Tensor]:
+    return kernels.attn_train_cross_bwd(q, kv, dctx, key_bias, b, f, t, num_heads, seed, rate, block)
+
+
+@attn_train_cross_bwd.register_fake
+def _(q, kv, dctx, key_bias, b, f, t, num_heads, seed, rate, block):
+    return q.new_empty(q.shape), kv.new_empty(kv.shape)

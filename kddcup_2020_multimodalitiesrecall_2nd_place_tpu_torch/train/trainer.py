@@ -5,18 +5,22 @@ Per-model recipes mirror the reference training scripts (``recipe_for``):
 
 * ImageBERT-A: BERT-Adam (poly decay + warmup), global-norm clip 1.0, NSP
   loss (+ the Multi-Similarity term of its fine-tune) -- ported.
+* LXMERT: BERT-Adam, global-norm clip 1.0, cross entropy on ``logit_fc``,
+  or with ``am_loss`` on the AM-margin logits of the ``logit_W`` cosines --
+  ported.
 * ImageBERT-B/C: plain Adam with the 0.94/2500 staircase, per-value clip
-  +-1, AM-softmax loss, EMA 0.997; LXMERT: Adam and cross entropy on
-  ``logit_fc`` -- their recipes are here, their losses and B's Adam are not
-  ported yet (``make_loss_fn`` and ``make_optimizer`` raise, naming the
-  ROADMAP item).
+  +-1, AM-softmax loss, EMA 0.997 -- the recipe is here, its loss and Adam
+  are not ported yet (``make_loss_fn`` and ``make_optimizer`` raise, naming
+  the ROADMAP item).
 
 A step is the JAX package's two phases: ``grads`` (forward and backward of
 the loss) and ``apply`` (clip, optimizer, EMA), with the same metrics
 (``loss``, ``accuracy``, ``grad_norm``). Parameters are float32 leaves on the
-device in the port's tree layout (query/key/value fused as ``qkv``); matmul
-inputs are rounded to ``precision.compute_dtype`` inside the model, whose
-encoder blocks are the train blocks of ``blocks`` (the kernels' by default).
+device in the port's tree layout (query/key/value fused as ``qkv``; the
+spec's ``train_params`` keeps LXMERT's ``visual_attention`` as ``query`` and
+``kv`` only, and ``eval_params`` rebuilds its ``qkv``); matmul inputs are
+rounded to ``precision.compute_dtype`` inside the model, whose encoder
+blocks are the train blocks of ``blocks`` (the kernels' by default).
 Dropout comes from a ``torch.Generator`` seeded per step from the caller's
 int. Data parallelism across devices is not ported (ROADMAP.md Queue 1 item
 12).
@@ -38,7 +42,7 @@ from .ema import Ema
 from .losses import ms_loss
 from .optim import BertAdamW, clip_by_global_norm, clip_by_value, flatten_paths, polynomial_warmup_schedule
 
-TRAINED = ("imagebert_a",)
+TRAINED = ("imagebert_a", "lxmert")
 
 
 @dataclass(frozen=True)
@@ -51,6 +55,8 @@ class TrainConfig:
     clip_value: float = 1.0
     ema_decay: float | None = None
     ms_loss_weight: float = 0.0
+    # LXMERT --taskAMSloss: train the cosine logit_W head instead of logit_fc (tasks/kdd_model.py:207-210)
+    am_loss: bool = False
 
 
 def recipe_for(model_name: str) -> TrainConfig:
@@ -76,14 +82,22 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
                  blocks: TrainBlocks = TRAIN_KERNEL_BLOCKS) -> Callable:
     """-> loss_fn(params, batch, gen) -> (loss, metrics): ImageBERT-A's NSP
     loss, plus ``ms_loss_weight`` times the Multi-Similarity loss of the
-    pooled output (the JAX package's ``train/trainer.py`` :174-183)."""
+    pooled output; LXMERT's cross entropy on ``logit_fc``, or with
+    ``am_loss`` on the AM-margin logits of the clipped ``logit_W`` cosines
+    (the JAX package's ``train/trainer.py`` :174-183, :198-209)."""
     if model.name not in TRAINED:
         raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 9")
+    am = model.name == "lxmert" and tc.am_loss
+    head = {"use_am_head": True} if am else {}
 
     def loss_fn(params: Params, batch: dict, gen: torch.Generator):
-        out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen)
+        out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen, **head)
         labels = batch["labels"]
-        loss = heads.nsp_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
+        if model.name == "lxmert":
+            logits = heads.am_margin_logits(out["logit"].float().clamp(-1.0, 1.0), labels) if am else out["logit"]
+            loss = heads.cross_entropy(logits, labels)
+        else:
+            loss = heads.nsp_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
         if tc.ms_loss_weight:
             loss = loss + tc.ms_loss_weight * ms_loss(labels, out["pooled"])
         accuracy = (out["probs"].argmax(dim=-1) == labels.long()).float().mean()
@@ -118,8 +132,9 @@ class Trainer:
         self.loss_fn = make_loss_fn(model, self.tc, self.precision, blocks)
 
     def init_state(self, params: Params | None = None, seed: int = 0) -> TrainState:
-        """Fresh optimizer state over ``params`` (or the model's random init from ``seed``), copied to the device."""
-        params = params if params is not None else self.model.init_params(seed)
+        """Fresh optimizer state over ``params`` (or the model's random init from ``seed``), copied to the
+        device, in the tree the spec trains (``ModelSpec.train_params``)."""
+        params = self.model.train_params(params if params is not None else self.model.init_params(seed))
 
         def leaf(t):
             return t.detach().to(self.device, torch.float32).clone().requires_grad_()
@@ -164,7 +179,8 @@ class Trainer:
         return metrics
 
     def eval_params(self, state: TrainState) -> Params:
-        """The parameters to score or save with: the EMA shadows when kept."""
+        """The parameters to score or save with (the EMA shadows when kept), in
+        the tree the model scores (``ModelSpec.eval_params``)."""
         if state.ema is None:
-            return state.params
-        return unflatten_tree(dict(zip(state.optimizer.names, state.ema.shadow)))
+            return self.model.eval_params(state.params)
+        return self.model.eval_params(unflatten_tree(dict(zip(state.optimizer.names, state.ema.shadow))))

@@ -511,7 +511,7 @@ def test_cuda_attn_train_drops_the_hash_units(cuda):
     b, s, n = 8, 40, 12
     got = kernels.attn_train(qkv, None, b, s, n, 123, 0.5, 8).reshape(b, s, n, 64)[..., :s].permute(0, 2, 1, 3)
     want = kernels.attn_train_plain(qkv, None, b, s, n, 123, 0.5, 8).reshape(b, s, n, 64)[..., :s].permute(0, 2, 1, 3)
-    keep = dropout.probs_keep(123, 0.5, b, n, s, 8, cuda)
+    keep = dropout.cross_probs_keep(123, 0.5, b, n, s, s, 8, cuda)
     torch.cuda.synchronize()
     assert torch.equal(got == 0, ~keep) and torch.equal(want == 0, ~keep)
 
@@ -568,3 +568,94 @@ def test_cuda_train_blocks_launch_or_raise(cuda):
     _block_grads(lambda x, *w: train_blocks.ffn_block_train(x, *w, 1, dropout_rate=0.1), x, ws, dy)
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 2 + 4, 1, 1]
+
+
+# ---- the train cross-attention kernels (csrc/attn_train.cu's cross entry points) and block ----
+
+
+def _cross_train_case(device, seed, f, t, b=8, n=12):
+    """q [b*f, H], kv [b*t, 2H], a key mask of kv's keys (pair 0 with every key masked), dctx."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h = n * 64
+    q, kv, dctx = (torch.randn(*shape, generator=g) for shape in ((b * f, h), (b * t, 2 * h), (b * f, h)))
+    m = (torch.rand(b, t, generator=g) > 0.3).float()
+    m[:, 0] = 1.0
+    m[0] = 0.0
+    return [z.to(device, torch.bfloat16) for z in (q, kv)] + [mask_to_bias(m).to(device), dctx.to(device, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("f,t", LENGTHS, ids=LENGTH_IDS)
+@pytest.mark.parametrize("rate", TRAIN_RATES)
+def test_cuda_attn_train_cross_matches_plain(cuda, rate, f, t, with_mask):
+    q, kv, bias, dctx = _cross_train_case(cuda, 14, f, t)
+    bias = bias if with_mask else None
+    args = (8, f, t, 12, 55, rate, 4)
+    assert within_band(kernels.attn_train_cross(q, kv, bias, *args), kernels.attn_train_cross_plain(q, kv, bias, *args))
+    got = kernels.attn_train_cross_bwd(q, kv, dctx, bias, *args)
+    want = kernels.attn_train_cross_bwd_plain(q, kv, dctx, bias, *args)
+    assert got[0].shape == (8 * f, 768) and got[1].shape == (8 * t, 2 * 768)
+    assert within_band(got[0], want[0]) and within_band(got[1], want[1])
+
+
+@pytest.mark.parametrize("f,t", LENGTHS, ids=LENGTH_IDS)
+def test_cuda_attn_train_cross_drops_the_hash_units(cuda, f, t):
+    """With V = I per head (the first min(t, 64) keys), ctx holds the dropped probabilities: the kernel
+    zeroes exactly the units of head h's [block, F, T] draw, at rate 0.5."""
+    q, kv, _, _ = _cross_train_case(cuda, 15, f, t)
+    b, n, d = 8, 12, min(t, 64)
+    v = torch.zeros(b, t, n, 64, device=cuda)
+    v[:, torch.arange(d), :, torch.arange(d)] = 1.0
+    kv[:, 768:] = v.reshape(b * t, 768).to(torch.bfloat16)
+    keep = dropout.cross_probs_keep(123, 0.5, b, n, f, t, 8, cuda)[..., :d]
+    for fn in (kernels.attn_train_cross, kernels.attn_train_cross_plain):
+        probs = fn(q, kv, None, b, f, t, n, 123, 0.5, 8).reshape(b, f, n, 64)[..., :d].permute(0, 2, 1, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(probs == 0, ~keep)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("f,t", LENGTHS, ids=LENGTH_IDS)
+def test_cuda_cross_train_block_matches_the_oracle(cuda, f, t, rate):
+    g = torch.Generator(device="cpu").manual_seed(16)
+    h = 768
+    x, c = (torch.randn(8, s, h, generator=g).to(cuda, torch.bfloat16) for s in (f, t))
+    shapes = [(h, h), (h,), (h, 2 * h), (2 * h,), (h, h), (h,)]
+    ws = [(0.02 * torch.randn(*sh, generator=g)).to(cuda) for sh in shapes]
+    ws += [(1.0 + 0.1 * torch.randn(h, generator=g)).to(cuda), (0.1 * torch.randn(h, generator=g)).to(cuda)]
+    dy = torch.randn(8, f, h, generator=g).to(cuda, torch.bfloat16)
+    mask = torch.ones(8, t, device=cuda)
+    mask[0] = 0.0
+    mask[1, t // 2:] = 0.0
+    bias = mask_to_bias(mask)
+    out = []
+    for fn in (train_blocks.cross_attention_block_train, train_blocks.cross_attention_block_train_plain):
+        leaves = [x.clone().requires_grad_(), c.clone().requires_grad_(), *(w.clone().requires_grad_() for w in ws)]
+        y = fn(*leaves, 12, 42, bias=bias, attn_dropout_rate=rate, hidden_dropout_rate=rate)
+        y.backward(dy)
+        out.append((y.detach(), [z.grad for z in leaves]))
+    (y, grads), (wy, wgrads) = out
+    assert within_band(y, wy)
+    assert grads[0].dtype == grads[1].dtype == torch.bfloat16 and all(z.dtype == torch.float32 for z in grads[2:])
+    errs = [rel_l2(z, w) for z, w in zip(grads, wgrads)]
+    assert max(errs) <= TRAIN_GRAD_REL_L2, errs
+
+
+def test_cuda_cross_train_block_launch_or_raise(cuda):
+    q, kv, _, dctx = _cross_train_case(cuda, 17, 23, 10)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.attn_train_cross(q.float(), kv, None, 8, 23, 10, 12, 1, 0.1, 8)
+    with pytest.raises(ValueError, match="S <="):
+        kernels.attn_train_cross(q, kv, None, 8, 65, 10, 12, 1, 0.1, 8)
+    counters = (train_blocks.cross_attention_block_train, train_blocks.cross_attention_block_train_backward,
+                kernels.gemm, kernels.attn_train_cross, kernels.attn_train_cross_bwd, kernels.ln_train,
+                kernels.ln_train_bwd)
+    before = [z.launches for z in counters]
+    g = torch.Generator(device="cpu").manual_seed(18)
+    x, c = (torch.randn(8, s, 768, generator=g).to(cuda, torch.bfloat16).requires_grad_() for s in (23, 10))
+    ws = [(0.02 * torch.randn(*sh, generator=g)).to(cuda).requires_grad_()
+          for sh in ((768, 768), (768,), (768, 1536), (1536,), (768, 768), (768,))]
+    ws += [torch.ones(768, device=cuda, requires_grad=True), torch.zeros(768, device=cuda, requires_grad=True)]
+    train_blocks.cross_attention_block_train(x, c, *ws, 12, 1, attn_dropout_rate=0.1).sum().backward()
+    torch.cuda.synchronize()
+    assert [z.launches - b for z, b in zip(counters, before)] == [1, 1, 3 + 6, 2, 1, 1, 1]

@@ -149,8 +149,9 @@ def _leaves(tree, prefix=""):
 
 
 def test_param_layout():
-    """The JAX tree keeps every leaf the JAX apply reads; each attention gains
-    its fused forms; the registry's random init has the same layout; the
+    """The JAX tree keeps every leaf the JAX apply reads, and the AM head's
+    ``logit_W``; each attention gains its fused forms; the registry's random
+    init has the same layout; the
     matmul-kernel list of each model covers every ``kernel`` leaf."""
     jcfg, pcfg = _configs(False)
     params = params_from_jax(jax_lxmert_params(jcfg, seed=7))
@@ -159,7 +160,7 @@ def test_param_layout():
     assert set(va) == {"qkv", "query", "kv", "output"}
     torch.testing.assert_close(va["qkv"]["kernel"][..., :32], va["query"]["kernel"], rtol=0, atol=0)
     torch.testing.assert_close(va["qkv"]["kernel"][..., 32:], va["kv"]["kernel"], rtol=0, atol=0)
-    assert set(params) == {"bert", "logit_fc"}
+    assert set(params) == {"bert", "logit_fc", "logit_W"}  # logit_W: the AM head am_loss trains
     assert set(_leaves(params)) == set(_leaves(init))
     for tree, paths in ((params, lxmert.MATMUL_KERNELS),
                         (get_model("imagebert_a", overrides=TINY_BERT).init_params(0), imagebert_a.MATMUL_KERNELS)):

@@ -223,8 +223,8 @@ def test_plain_versions_drop_the_masked_units():
     _, dh, pg, pb = kernels.ln_train_bwd_plain(h, x, torch.ones(B * S, H) + 0.1 * h, torch.ones(H), 3, 0.5, 2 * S)
     assert torch.equal(dh != 0, keep) and pg.shape == pb.shape == (1, H)
     qkv = torch.from_numpy(r.standard_normal((B * S, 3 * H)).astype(np.float32))
-    pkeep = dropout.probs_keep(9, 0.5, B, N, S, 2)
-    _, _, pd = kernels._train_probs(*kernels._qkv_heads(qkv, B, S, N)[:2], None, 9, 0.5, 2)
+    pkeep = dropout.cross_probs_keep(9, 0.5, B, N, S, S, 2)
+    _, _, pd = kernels._train_probs(*kernels._cross_heads(qkv[:, :H], qkv[:, H:], B, S, S, N)[:2], None, 9, 0.5, 2)
     assert torch.equal(pd != 0, pkeep)
 
 
