@@ -98,6 +98,16 @@
    exact at every step; two profiled steps (the table in
    ``build/smoke/train/lxmert_profile.txt``).
 
+The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
+launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
+ImageBERT-B at S=30 with its label conv, LXMERT scoring on its default route
+at 23 and 10 rows a pair with the cross blocks' Q and K/V products, both
+training steps at B=256 with the transposed-weight and aux epilogues), each
+held against ``gemm_plain`` once and timed alone beside its bound, one
+``torch.matmul`` of the same operands and its launches per batch or step (the
+paths' launch counts, which the per-path sums must equal); and the host time
+to enqueue one ``kernels.gemm`` call, without synchronising, over 1,000 calls.
+
 ``--seed N`` draws the inputs, data and weights from another seed (0 by
 default). Prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -411,6 +421,85 @@ class Smoke:
         self.time_row(rows, "ffn_block", "ffn_block", lambda: fb.ffn_block(x, *fw), lambda: fb.ffn_block_plain(x, *fw), None,
             2 * m * H * 2 + nbytes_of(fw), 4.0 * m * H * I, PEAK_BF16_FLOPS)
         return rows
+
+    # ---- the GEMM sites: every gemm_bf16 launch shape of the driven paths --------
+
+    def time_gemm_sites(self) -> list[dict]:
+        """Each launch shape of ``gemm_sites()`` on seeded operands (unit-scale
+        activations, weights scaled by 1/sqrt(K), no bias on the transposed-weight
+        products, as the train blocks call them): held against ``gemm_plain``
+        once, then timed alone beside its bound and one ``torch.matmul`` of the
+        same operands."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        torch = self.torch
+        bf16 = torch.bfloat16
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed)
+
+        def randn(*shape, scale=1.0, dtype=torch.float32):
+            return (scale * torch.randn(*shape, generator=gen, device=self.dev)).to(dtype)
+
+        rows = []
+        for path, site, m, n, kk, epi, trans, launches in gemm_sites():
+            a = randn(m, kk, dtype=bf16)
+            w = randn(*((n, kk) if trans else (kk, n)), scale=kk ** -0.5, dtype=bf16)
+            bias = None if trans else randn(n, scale=0.1)
+            res = randn(m, n, dtype=bf16) if epi == "residual" else None
+            aux = randn(m, n) if epi in k.AUX_IN else None
+            label = f"{path} {site} [{m}x{n}x{kk} {epi}{' trans_b' if trans else ''}]"
+            got = k.gemm(a, w, bias, epi, res, aux, trans)
+            want = k.gemm_plain(a, w, bias, epi, res, aux, trans)
+            if epi in k.SAVE:
+                self.check(f"gemm site {label} out", "gemm_bf16", got[0], want[0], CARD_ATOL, CARD_RTOL)
+                self.check(f"gemm site {label} u", "gemm_bf16", got[1], want[1], F32_OUT_BAND)
+            elif epi in k.F32_OUT:
+                self.check(f"gemm site {label}", "gemm_bf16", got, want, F32_OUT_BAND)
+            else:
+                self.check(f"gemm site {label}", "gemm_bf16", got, want, CARD_ATOL, CARD_RTOL)
+            del got, want
+            out_bytes = 4 if epi in k.F32_OUT else 2
+            nbytes = (m * kk + kk * n) * 2 + (0 if bias is None else n * 4) + m * n * out_bytes
+            nbytes += (m * n * 2 if res is not None else 0) + (m * n * 4 if aux is not None else 0)
+            nbytes += m * n * 4 if epi in k.SAVE else 0
+            flops = 2.0 * m * n * kk
+            bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+            ms = cuda_ms(torch, lambda: k.gemm(a, w, bias, epi, res, aux, trans))
+            wt = w.T if trans else w
+            mm = cuda_ms(torch, lambda: torch.matmul(a, wt))
+            rows.append({"path": path, "site": site, "m": m, "n": n, "k": kk, "epilogue": epi, "trans_b": trans,
+                         "launches": launches, "ms": ms, "bound_ms": bms, "bound_by": by, "matmul_ms": mm,
+                         "tflops": flops / ms / 1e9})
+            log(f"gemm site {label}: ms={ms:.4f} bound_ms={bms:.4f} ({by}) matmul_ms={mm:.4f} "
+                f"achieved={flops / ms / 1e9:.1f} TFLOP/s launches={launches}")
+            del a, w, bias, res, aux
+        return rows
+
+    def gemm_enqueue_us(self, calls: int = 1000, repeats: int = 5) -> dict:
+        """Host time to enqueue one ``kernels.gemm`` call, no synchronisation
+        inside the timed loop, at LXMERT training's smallest product ([2560 x
+        768] @ [768 x 768], "f32"), whose launch takes less device time than its
+        enqueue: µs a call over ``calls`` calls, the best and the median of
+        ``repeats`` runs."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        torch = self.torch
+        a = self.randn(TRAIN_B * LX_T, H, dtype=torch.bfloat16)
+        w = self.randn(H, H, scale=H ** -0.5, dtype=torch.bfloat16)
+        bias = self.randn(H, scale=0.1)
+        runs = []
+        for _ in range(repeats):
+            for _ in range(20):
+                k.gemm(a, w, bias, "f32")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                k.gemm(a, w, bias, "f32")
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        runs.sort()
+        return {"best_us": runs[0], "median_us": runs[len(runs) // 2], "calls": calls, "repeats": repeats}
 
     # ---- phase 2, LXMERT: its kernels at its shapes ---------------------------
 
@@ -2143,6 +2232,70 @@ F32_EPILOGUE_ROW = "gemm_bf16 label conv [f32]"
 LAUNCH_KEY = {"gemm_bf16": "gemm"}
 
 
+def gemm_sites() -> list[tuple]:
+    """Every gemm_bf16 launch shape of the driven paths, one row per distinct
+    (M, N, K, epilogue, trans_b) of a path: (path, site, M, N, K, epilogue,
+    trans_b, launches per 512-pair batch or per training step). Scoring: the
+    default route at B=512; training at B=256, where a backward recomputes its
+    block's forward products and the last x-layer's visn stream runs no
+    backward (PER_STEP_LXMERT)."""
+    l_, r_, x_ = LX_DEPTHS
+    rows = []
+
+    def layers(path, m, fwd, gelu, bwd=0):
+        """fwd encoder layers' four products at m rows; with bwd, a training step's (bwd backwards)."""
+        if not bwd:
+            return [(path, "qkv", m, 3 * H, H, "bias", False, fwd), (path, "out-proj", m, H, H, "residual", False, fwd),
+                    (path, "ffn-up", m, I, H, gelu, False, fwd), (path, "ffn-down", m, H, I, "residual", False, fwd)]
+        return [(path, "qkv", m, 3 * H, H, "bias", False, fwd + bwd), (path, "out-proj", m, H, H, "f32", False, fwd + bwd),
+                (path, "ffn-up", m, I, H, gelu, False, fwd), (path, "ffn-up save", m, I, H, gelu + "_save", False, bwd),
+                (path, "ffn-down", m, H, I, "f32", False, fwd + bwd),
+                (path, "du = dh W2^T gelu'", m, I, H, gelu.replace("gelu_", "gelu_bwd_"), True, bwd),
+                (path, "dx = du W1^T + dz", m, H, I, "residual_f32", True, bwd),
+                (path, "dctx = do Wo^T", m, H, H, "bias", True, bwd),
+                (path, "dx = dqkv Wqkv^T + dz", m, H, 3 * H, "residual_f32", True, bwd)]
+
+    def cross(path, mq, mkv, fwd, bwd=0):
+        """fwd cross blocks with mq query rows against mkv context rows (bwd backwards)."""
+        out = [(path, "cross q", mq, H, H, "bias", False, fwd + bwd),
+               (path, "cross kv", mkv, 2 * H, H, "bias", False, fwd + bwd),
+               (path, "out-proj", mq, H, H, "f32" if bwd else "residual", False, fwd + bwd)]
+        if bwd:
+            out += [(path, "dctx = do Wo^T", mq, H, H, "bias", True, bwd),
+                    (path, "cross dx = dq Wq^T + dz", mq, H, H, "residual_f32", True, bwd),
+                    (path, "cross dctx = dkv Wkv^T", mkv, H, 2 * H, "bias", True, bwd)]
+        return out
+
+    a, b, lf, lt = MAIN_B * S, MAIN_B * B_S, MAIN_B * LX_F, MAIN_B * LX_T
+    rows += layers("imagebert_a", a, 12, "gelu_tanh")
+    rows += layers("imagebert_b", b, 12, "gelu_tanh") + [("imagebert_b", "label conv", MAIN_B * 10, 8 * H, 8 * H,
+                                                           "f32", False, 1)]
+    rows += layers("lxmert", lf, l_ + x_, "gelu_erf") + layers("lxmert", lt, r_ + x_, "gelu_erf")
+    rows += cross("lxmert", lf, lt, x_) + cross("lxmert", lt, lf, x_)
+    ta, tf, tt = TRAIN_B * S, TRAIN_B * LX_F, TRAIN_B * LX_T
+    rows += layers("imagebert_a_train", ta, 12, "gelu_tanh", bwd=12)
+    rows += layers("lxmert_train", tf, l_ + x_, "gelu_erf", bwd=l_ + x_)
+    rows += layers("lxmert_train", tt, r_ + x_, "gelu_erf", bwd=r_ + x_ - 1)
+    rows += cross("lxmert_train", tf, tt, x_, bwd=x_) + cross("lxmert_train", tt, tf, x_, bwd=x_ - 1)
+    merged: dict[tuple, list] = {}
+    for path, site, m, n, k, epi, trans, launches in rows:
+        key = (path, m, n, k, epi, trans)
+        if key in merged:
+            merged[key][1] += f" + {site}" if site not in merged[key][1] else ""
+            merged[key][-1] += launches
+        else:
+            merged[key] = [path, site, m, n, k, epi, trans, launches]
+    return [tuple(r) for r in merged.values()]
+
+
+def gemm_site_launches() -> dict[str, int]:
+    """gemm_sites()' launches summed per path."""
+    out: dict[str, int] = {}
+    for path, *_, launches in gemm_sites():
+        out[path] = out.get(path, 0) + launches
+    return out
+
+
 def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
     """``launches``: path -> counter name -> launches in that path's run;
     each kernel's ``launches`` is its sum over the paths."""
@@ -2339,6 +2492,15 @@ def main(argv: list[str] | None = None) -> int:
         times.update(smoke.time_mha_kernels())
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
+        per_path = {"imagebert_a": PER_BATCH["imagebert_a"]["gemm"], "imagebert_b": PER_BATCH["imagebert_b"]["gemm"],
+                    "lxmert": PER_BATCH["lxmert"]["gemm"], "imagebert_a_train": PER_STEP["gemm"],
+                    "lxmert_train": PER_STEP_LXMERT["gemm"]}
+        if gemm_site_launches() != per_path:
+            raise RuntimeError(f"gemm sites launch {gemm_site_launches()} a batch or step, the paths {per_path}")
+        smoke.time_gemm_sites()
+        if smoke.failures:
+            raise RuntimeError(f"gemm_bf16 disagrees with gemm_plain at a site: {smoke.failures}")
+        log(json.dumps({"gemm_enqueue_us": smoke.gemm_enqueue_us()}))
         launches, n_batches, rates = smoke.score_main_path()
         expected = expected_launches(n_batches, PER_BATCH["imagebert_a"])
         if launches != expected or n_batches == 0:

@@ -24,13 +24,17 @@
 // WMMA 16x16 fragments, 96 floats a thread, first for y and then for z. The
 // FFN loops over I in 256-column chunks: a @ W1 chunk into 2 fragments a warp,
 // GELU into shared memory, then the chunk @ W2 rows added to z. Every weight
-// tile streams through one 3-stage cp.async ring, as in gemm_bf16.cu (K
-// tiles of 32 rows for the 768-wide products, 64 for the 256-wide one); every
-// product accumulates in gemm_bf16.cu's k order, 16 at a time. For each
-// LayerNorm the accumulator is staged as f32 rows in the ring (idle between
-// products) and one warp a row adds bias and residual and normalises with
-// gemm_bf16.cu's epilogue and layernorm.cu's arithmetic, operation for
-// operation, so the fused layer rounds exactly as the two-block route does.
+// tile streams through one 3-stage cp.async ring (K tiles of 32 rows for the
+// 768-wide products, 64 for the 256-wide one); every product accumulates in
+// gemm_bf16.cu's k order: one f32 accumulator an output, k ascending, 16 at a
+// time. gemm_bf16.cu runs that order on wgmma (m64n128k16), this kernel on
+// mma.sync (m16n8k16, through WMMA); on the H100 the two instructions round
+// each 16-term step alike (their f32 sums came out bit-equal over every
+// product shape of the paths, PERF.md). For each LayerNorm the accumulator is
+// staged as f32 rows in the ring (idle between products) and one warp a row
+// adds bias and residual and normalises with gemm_bf16.cu's epilogue and
+// layernorm.cu's arithmetic, operation for operation, so the fused layer
+// rounds exactly as the two-block route does.
 // 223,744 bytes of shared memory: one CTA an SM.
 //
 // Bound on H100 at ImageBERT-B's B=512, S=30 (M = 15,360 rows): operations,

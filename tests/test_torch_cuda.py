@@ -36,7 +36,10 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.encoder_layer imp
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from torch_parity import attn_inputs, cuda, ffn_inputs  # noqa: F401  (cuda: fixture)
 
+from chip_smoke import gemm_sites
+
 CARD_ATOL, CARD_RTOL = 1.6e-2, 2.0**-6
+F32_OUT_BAND = 1e-3  # f32 outputs of the GEMM (summation order only), abs
 
 
 def within_band(got, want, atol=CARD_ATOL, rtol=CARD_RTOL) -> bool:
@@ -79,21 +82,34 @@ def test_cuda_ffn_block_matches_plain(cuda, approximate):
     assert within_band(got, want)
 
 
-def test_cuda_gemm_ragged_rows(cuda):
-    """M = 333 rows: the ragged tile edge is masked on load and store."""
-    g = torch.Generator(device="cpu").manual_seed(6)
-    a = torch.randn(333, 768, generator=g).to(cuda, torch.bfloat16)
-    w = (0.05 * torch.randn(768, 2304, generator=g)).to(cuda, torch.bfloat16)
-    bias = torch.randn(2304, generator=g).to(cuda)
-    res = torch.randn(333, 2304, generator=g).to(cuda, torch.bfloat16)
-    for epi in ("bias", "gelu_tanh", "gelu_erf", "residual"):
-        r = res if epi == "residual" else None
-        got = kernels.gemm(a, w, bias, epi, r)
-        want = kernels.gemm_plain(a, w, bias, epi, r)
-        if epi == "residual":  # f32 out: summation order only
-            assert within_band(got, want, atol=1e-3, rtol=0.0), epi
-        else:
-            assert within_band(got, want), epi
+# Every gemm_bf16 launch shape (M, N, K) of the driven paths (chip_smoke.py:gemm_sites: B*S rows of
+# ImageBERT-A, -B and LXMERT at B=512, training at B=256, the label conv), and M = 333 at each (N, K)
+_SITE_SHAPES = sorted({(m, n, k) for _, _, m, n, k, *_ in gemm_sites()})
+GEMM_SHAPES = _SITE_SHAPES + sorted({(333, n, k) for _, n, k in _SITE_SHAPES})
+
+
+@pytest.mark.parametrize("trans_b", [False, True], ids=["w", "wT"])
+@pytest.mark.parametrize("epilogue", list(kernels.EPILOGUES))
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES, ids=[f"{m}x{n}x{k}" for m, n, k in GEMM_SHAPES])
+def test_cuda_gemm_ragged_rows(cuda, m, n, k, epilogue, trans_b):
+    """Every epilogue in both weight layouts at each (M, N, K) the paths launch and at M = 333: B*S
+    rows need not fill the 128-row tile, so rows past M are zero-filled on load, read as zero from the
+    residual and aux, and never stored. Bands: two bf16 ulps on bf16 outputs, F32_OUT_BAND on f32."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = (k**-0.5 * torch.randn(*((n, k) if trans_b else (k, n)), generator=g, device=cuda)).to(torch.bfloat16)
+    bias = torch.randn(n, generator=g, device=cuda)
+    res = torch.randn(m, n, generator=g, device=cuda).to(torch.bfloat16) if epilogue == "residual" else None
+    aux = torch.randn(m, n, generator=g, device=cuda) if epilogue in kernels.AUX_IN else None
+    got = kernels.gemm(a, w, bias, epilogue, res, aux, trans_b)
+    want = kernels.gemm_plain(a, w, bias, epilogue, res, aux, trans_b)
+    if epilogue in kernels.SAVE:
+        assert got[0].shape == (m, n) and within_band(got[0], want[0])
+        assert within_band(got[1], want[1], atol=F32_OUT_BAND, rtol=0.0)
+    elif epilogue in kernels.F32_OUT:
+        assert got.dtype == torch.float32 and within_band(got, want, atol=F32_OUT_BAND, rtol=0.0)
+    else:
+        assert got.shape == (m, n) and within_band(got, want)
 
 
 def test_cuda_tensors_launch_or_raise(cuda):
@@ -104,9 +120,12 @@ def test_cuda_tensors_launch_or_raise(cuda):
     with pytest.raises(ValueError, match="dtype"):
         attention_block(torch.from_numpy(x).to(cuda), *wt, 12)  # f32 activations
     x2d = torch.from_numpy(x).to(cuda, torch.bfloat16).reshape(-1, 768)
+    gemms = kernels.gemm.launches
     with pytest.raises(ValueError, match="N %"):
         kernels.gemm(x2d, wt[0][:, :100].contiguous(), wt[1][:100].contiguous())
-    assert attention_block.launches == before
+    with pytest.raises(ValueError, match="K % 64"):  # a multiple of 32 (the rule before), not of the 64-deep stage
+        kernels.gemm(x2d[:, :96].contiguous(), wt[0][:96].contiguous(), wt[1])
+    assert attention_block.launches == before and kernels.gemm.launches == gemms
     attention_block(x2d.reshape(8, 40, 768), *wt, 12)
     torch.cuda.synchronize()
     assert attention_block.launches == before + 1
