@@ -108,6 +108,11 @@ held against ``gemm_plain`` once and timed alone beside its bound, one
 paths' launch counts, which the per-path sums must equal); and the host time
 to enqueue one ``kernels.gemm`` call, without synchronising, over 1,000 calls.
 
+Also in phase 2: ``layer_tail`` and ``attn_core`` at every other shape the
+driven paths launch them (LXMERT's fused route S=23 and S=10, erf; the self
+core at ImageBERT-B's S=30 and LXMERT's S=23 and S=10 with their key masks),
+each beside its bound, plain version and library call.
+
 ``--seed N`` draws the inputs, data and weights from another seed (0 by
 default). Prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -205,6 +210,40 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sdpa_library(torch, q, k, v, mask=None):
+    """One SDPA call on [B, heads, S, 64] operands and an optional additive mask: the library call
+    of an attention core. SDPA falls back to its math backend where no fused one takes the inputs,
+    so the call carries in ``backends`` the fastest of the fused backends (flash, cuDNN,
+    memory-efficient) that does, and time_row times it with only that one enabled; ``[MATH]``
+    where none does."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    fused = [getattr(SDPBackend, n) for n in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+             if hasattr(SDPBackend, n)]
+    best, call.backends = float("inf"), [SDPBackend.MATH]
+    for backend in fused:
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                ms = cuda_ms(torch, call, iters=5, warmup=1)
+        except RuntimeError:
+            continue
+        if ms < best:
+            best, call.backends = ms, [backend]
+    return call
+
+
+def with_backends(fn, *sdpa_calls):
+    """fn, a composite library call, tagged with the backends of the SDPA calls it makes."""
+    fn.backends = sorted({b for c in sdpa_calls for b in c.backends}, key=lambda b: b.name)
+    return fn
 
 
 def nbytes_of(tensors) -> int:
@@ -364,10 +403,20 @@ class Smoke:
             "plain_ms": cuda_ms(torch, plain_fn, iters=5),
             "bound_ms": bms,
             "bound_by": by,
-            "library_ms": cuda_ms(torch, library_fn) if library_fn else None,
+            "library_ms": None,
         }
+        if library_fn is not None and hasattr(library_fn, "backends"):  # SDPA on the backend chosen
+            from torch.nn.attention import sdpa_kernel
+
+            with sdpa_kernel(library_fn.backends):
+                r["library_ms"] = cuda_ms(torch, library_fn)
+            r["library_sdpa_backend"] = "+".join(b.name.lower() for b in library_fn.backends)
+        elif library_fn is not None:
+            r["library_ms"] = cuda_ms(torch, library_fn)
         rows[name] = r
         lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "n/a"
+        if "library_sdpa_backend" in r:
+            lib += f" (SDPA {r['library_sdpa_backend']})"
         log(f"time {name}: ms={r['ms']:.4f} bound_ms={bms:.4f} ({by}) plain_ms={r['plain_ms']:.4f} "
             f"library_ms={lib} achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
 
@@ -406,7 +455,7 @@ class Smoke:
 
         q, kk_, v = (t.reshape(b, S, N, 64).transpose(1, 2).contiguous() for t in qkv.split(H, dim=1))
         self.time_row(rows, "attn_core", "attn_core", lambda: k.attn_core(qkv, None, b, S, N), lambda: k.attn_core_plain(qkv, None, b, S, N),
-            lambda: F.scaled_dot_product_attention(q, kk_, v), m * 3 * H * 2 + m * H * 2,
+            sdpa_library(torch, q, kk_, v), m * 3 * H * 2 + m * H * 2,
             4.0 * b * N * S * S * 64, PEAK_BF16_FLOPS)
         y = self.randn(m, H)
         self.time_row(rows, "layernorm", "layernorm", lambda: k.layernorm(y, w["gamma"], w["beta"]),
@@ -602,7 +651,7 @@ class Smoke:
             qh = q.reshape(b, sq, N, 64).transpose(1, 2).contiguous()
             kh, vh = (t.reshape(b, sk, N, 64).transpose(1, 2).contiguous() for t in kv.split(H, dim=1))
             mask = bias.to(torch.bfloat16)[:, None, None, :]
-            sdpa[label] = lambda qh=qh, kh=kh, vh=vh, mask=mask: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+            sdpa[label] = sdpa_library(torch, qh, kh, vh, mask)
             self.time_row(rows, f"attn_core_cross {label}", "attn_core_cross",
                           lambda q=q, kv=kv, bias=bias, sq=sq, sk=sk: k.attn_core_cross(q, kv, bias, b, sq, sk, N),
                           lambda q=q, kv=kv, bias=bias, sq=sq, sk=sk: k.attn_core_cross_plain(q, kv, bias, b, sq, sk, N),
@@ -617,7 +666,7 @@ class Smoke:
             self.time_row(rows, f"cross_attention_block {label}", "cross_attention_block",
                           lambda x=x, ctx=ctx, bias=bias: cb.cross_attention_block(x, ctx, *cw, N, bias),
                           lambda x=x, ctx=ctx, bias=bias: cb.cross_attention_block_plain(x, ctx, *cw, N, bias),
-                          lib, nbytes_of((x, ctx, bias, *cw)) + b * sq * H * 2,
+                          with_backends(lib, sdpa[label]), nbytes_of((x, ctx, bias, *cw)) + b * sq * H * 2,
                           2.0 * b * sq * H * H + 2.0 * b * sk * H * 2 * H + 4.0 * b * N * sq * sk * 64
                           + 2.0 * b * sq * H * H, PEAK_BF16_FLOPS)
         both = tuple(sdpa.values())
@@ -625,7 +674,8 @@ class Smoke:
         self.time_row(rows, "attn_core_dual", "attn_core_dual",
                       lambda: k.attn_core_dual(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N),
                       lambda: k.attn_core_dual_plain(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N),
-                      lambda: [s() for s in both], nbytes_of((lqkv, vqkv, lb, vb)) + b * (LX_F + LX_T) * H * 2,
+                      with_backends(lambda: [s() for s in both], *both),
+                      nbytes_of((lqkv, vqkv, lb, vb)) + b * (LX_F + LX_T) * H * 2,
                       dual_flops, PEAK_BF16_FLOPS)
         streams = [(lang.reshape(b * LX_F, H), lqkv[:, :H].contiguous(), self.randn(b * LX_F, H)),
                    (visn.reshape(b * LX_T, H), vqkv[:, :H].contiguous(), self.randn(b * LX_T, H))]
@@ -637,7 +687,7 @@ class Smoke:
         self.time_row(rows, "dual_cross_attention_block", "dual_cross_attention_block",
                       lambda: db.dual_cross_attention_block(lang, visn, *dw, N, lb, vb),
                       lambda: db.dual_cross_attention_block_plain(lang, visn, *dw, N, lb, vb),
-                      dual_lib, nbytes_of((lang, visn, lb, vb, *dw)) + b * (LX_F + LX_T) * H * 2,
+                      with_backends(dual_lib, *both), nbytes_of((lang, visn, lb, vb, *dw)) + b * (LX_F + LX_T) * H * 2,
                       2.0 * b * (LX_F + LX_T) * H * 3 * H + dual_flops + 2.0 * b * (LX_F + LX_T) * H * H,
                       PEAK_BF16_FLOPS)
         return rows
@@ -718,7 +768,6 @@ class Smoke:
         fb = import_module(f"{PKG}.ops.ffn_block")
         el = import_module(f"{PKG}.ops.encoder_layer")
         torch = self.torch
-        F = torch.nn.functional
         b, s = MAIN_B, B_S
         m = b * s
         lw = self.layer_args(w)
@@ -729,13 +778,8 @@ class Smoke:
         layer_flops = 2.0 * m * H * 3 * H + 4.0 * b * N * s * s * 64 + tail_flops
         y = self.randn(m, H)
 
-        def tail_lib():  # its launches' library calls: 3 matmuls, GELU, 2 LayerNorms
-            a = F.layer_norm(torch.matmul(ctx, lw[2]).float() + y, (H,), lw[4], lw[5], 1e-12).to(torch.bfloat16)
-            hmid = F.gelu(torch.matmul(a, lw[6]), approximate="tanh")
-            return F.layer_norm(torch.matmul(hmid, lw[8]).float() + y, (H,), lw[10], lw[11], 1e-12)
-
         self.time_row(rows, f"layer_tail S={s}", "layer_tail", lambda: k.layer_tail(ctx, x2d, *lw[2:]),
-                      lambda: k.layer_tail_plain(ctx, x2d, *lw[2:]), tail_lib,
+                      lambda: k.layer_tail_plain(ctx, x2d, *lw[2:]), self.tail_library(ctx, y, lw, True),
                       3 * m * H * 2 + nbytes_of(lw[2:]), tail_flops, PEAK_BF16_FLOPS)
         # the library yardstick of the whole layer: one PyTorch call, erf GELU and a boolean key mask
         # (time only: it differs from the port in GELU, mask form and rounding points)
@@ -764,6 +808,56 @@ class Smoke:
                       lambda: k.gemm_plain(a, band, cbias, "f32"), lambda: torch.matmul(a, band),
                       nbytes_of((a, band, cbias)) + b * 10 * 8 * H * 4, 2.0 * b * 10 * H * H * CONV_BLOCKS,
                       PEAK_BF16_FLOPS, F32_OUT_BAND, 0.0)
+        return rows
+
+    def tail_library(self, ctx, y, lw, tanh: bool):
+        """layer_tail's launches as library calls (3 matmuls, GELU, 2 LayerNorms), on its inputs."""
+        torch = self.torch
+        F = torch.nn.functional
+
+        def call():
+            a = F.layer_norm(torch.matmul(ctx, lw[2]).float() + y, (H,), lw[4], lw[5], 1e-12).to(torch.bfloat16)
+            hmid = F.gelu(torch.matmul(a, lw[6]), approximate="tanh" if tanh else "none")
+            return F.layer_norm(torch.matmul(hmid, lw[8]).float() + y, (H,), lw[10], lw[11], 1e-12)
+
+        return call
+
+    def attn_core_case(self, b: int, s: int):
+        """The self-attention core's inputs at batch b and length s: qkv [b*s, 3H] bf16, the key bias of
+        the model with that length (key_bias), and SDPA's [b, N, s, 64] operands and bf16 mask."""
+        torch = self.torch
+        qkv = self.randn(b * s, 3 * H, dtype=torch.bfloat16)
+        bias = self.key_bias(b, s)
+        heads = [t.reshape(b, s, N, 64).transpose(1, 2).contiguous() for t in qkv.split(H, dim=1)]
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        return qkv, bias, heads, mask
+
+    def time_path_shapes(self, w) -> dict[str, dict]:
+        """layer_tail and attn_core at the driven paths' other shapes, at B=512: layer_tail at LXMERT's
+        fused-route lengths S=23 and S=10 (erf GELU), attn_core at ImageBERT-B's S=30 and LXMERT's S=23
+        and S=10 (their key masks); each kernel / plain / library / bound, held against its plain
+        version once more (the main rows, layer_tail S=30 and attn_core S=40, are timed above)."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        torch = self.torch
+        b, rows = MAIN_B, {}
+        lw = self.layer_args(w)
+        for s in (LX_F, LX_T):
+            m = b * s
+            x2d, ctx, y = self.randn(m, H, dtype=torch.bfloat16), self.randn(m, H, dtype=torch.bfloat16), self.randn(m, H)
+            self.time_row(rows, f"layer_tail S={s}", "layer_tail",
+                          lambda x2d=x2d, ctx=ctx: k.layer_tail(ctx, x2d, *lw[2:], False),
+                          lambda x2d=x2d, ctx=ctx: k.layer_tail_plain(ctx, x2d, *lw[2:], False),
+                          self.tail_library(ctx, y, lw, False), 3 * m * H * 2 + nbytes_of(lw[2:]),
+                          2.0 * m * H * H + 4.0 * m * H * I, PEAK_BF16_FLOPS)
+        for s in (B_S, LX_F, LX_T):
+            qkv, bias, heads, mask = self.attn_core_case(b, s)
+            self.time_row(rows, f"attn_core S={s}", "attn_core",
+                          lambda qkv=qkv, bias=bias, s=s: k.attn_core(qkv, bias, b, s, N),
+                          lambda qkv=qkv, bias=bias, s=s: k.attn_core_plain(qkv, bias, b, s, N),
+                          sdpa_library(torch, *heads, mask),
+                          nbytes_of((qkv, bias)) + b * s * H * 2, 4.0 * b * N * s * s * 64, PEAK_BF16_FLOPS)
         return rows
 
     # ---- phase 2, the attention backends: mha and mha_packed ---------------------
@@ -814,7 +908,6 @@ class Smoke:
 
         k = import_module(f"{PKG}.ops.kernels")
         torch = self.torch
-        F = torch.nn.functional
         b, rows = MAIN_B, {}
         for name, (heads, packed, bias) in self.mha_cases(b).items():
             f32 = name.startswith("f32")
@@ -826,13 +919,11 @@ class Smoke:
             views = [t.view(b, s, N, 64).transpose(1, 2) for t in packed]  # SDPA on the packed buffers, in place
             self.time_row(rows, f"mha {name}", "mha", lambda h=heads, bi=bias: k.mha(*h, bi),
                           lambda h=heads, bi=bias: k.mha_plain(*h, bi),
-                          lambda h=heads, m=mask: F.scaled_dot_product_attention(*h, attn_mask=m),
-                          nbytes, flops, peak, *band)
+                          sdpa_library(torch, *heads, mask), nbytes, flops, peak, *band)
             if bias is None or bias.shape[1] == 1:
                 self.time_row(rows, f"mha_packed {name}", "mha_packed", lambda p=packed, bi=bias: k.mha_packed(*p, N, bi),
                               lambda p=packed, bi=bias: k.mha_packed_plain(*p, N, bi),
-                              lambda v=views, m=mask: F.scaled_dot_product_attention(*v, attn_mask=m),
-                              nbytes, flops, peak, *band)
+                              sdpa_library(torch, *views, mask), nbytes, flops, peak, *band)
         return rows
 
     # ---- phase 3: the main path ----------------------------------------------
@@ -2323,7 +2414,7 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
             out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
                                        f"512-pair ImageBERT-B batch"}
             out[-1]["train_launches"] = {row: times[row] for row in times if row.startswith("gemm_bf16 train ")}
-        if name.startswith("mha"):
+        if name.startswith("mha") or name in ("attn_core", "layer_tail"):
             out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
     return {"kernels": out}
 
@@ -2490,6 +2581,7 @@ def main(argv: list[str] | None = None) -> int:
         times.update(smoke.time_lxmert_kernels(weights))
         times.update(smoke.time_layer_kernels(weights))
         times.update(smoke.time_mha_kernels())
+        times.update(smoke.time_path_shapes(weights))
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         per_path = {"imagebert_a": PER_BATCH["imagebert_a"]["gemm"], "imagebert_b": PER_BATCH["imagebert_b"]["gemm"],

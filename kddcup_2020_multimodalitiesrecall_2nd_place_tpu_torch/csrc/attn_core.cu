@@ -10,7 +10,7 @@
 //                   [B*S, 3H] QKV buffer (Sq = Sk = S).
 //   kmr_attn_cross  cross-attention: q [B*Sq, .] and k, v [B*Sk, .] anywhere.
 //   kmr_attn_dual   both shared-weight directions of an LXMERT x-layer in one
-//                   launch, grid (heads, B, 2): direction 0 is lang <- visn
+//                   launch, grid (head groups, B, 2): direction 0 is lang <- visn
 //                   (q from the lang QKV buffer, k/v from the visn one, the
 //                   visn key mask), direction 1 is visn <- lang.
 //
@@ -19,20 +19,36 @@
 // (ops/pallas_attention.py:208-227, :327-362, :615-633, :854-880). The TPU
 // packs several heads into one 128-lane tile and takes a global max across
 // them (packed_softmax, :305-319); here every head gets an exact softmax of
-// its own, since a CTA owns one (pair, head, direction) and nothing needs
-// lanes filled. Rounding points as in the Pallas bodies: f32 scores and
-// softmax, probs -> bf16 (:220, :355, :626, :870), f32 PV accumulation,
-// ctx -> bf16 (:225, :360, :631, :875).
+// its own. Rounding points as in the Pallas bodies: f32 scores and softmax,
+// probs -> bf16 (:220, :355, :626, :870), f32 PV accumulation, ctx -> bf16
+// (:225, :360, :631, :875); both products take bf16 operands and sum in f32,
+// as the Pallas bodies ran them on the MXU.
 //
-// Design: one CTA of 128 threads per (head, pair, direction); q, k, v and the
-// scores live in shared memory as f32 (38 KB at Sq = Sk = 40, 17 KB at the
-// dual launch's 23 x 10). Scores and PV run as 4x4 register tiles on the
-// CUDA cores: at these lengths this stage is 1-2.5% of a block's FLOPs, so
-// it is bound by bytes (the q/k/v reads and the ctx write), not by the
-// tensor cores. Rows are padded to a multiple of 4 with zeros; the softmax
-// treats keys past Sk as -inf, inside the kernel only, while masked keys
-// carry the caller's -10000 bias, so a row whose keys are all masked gets an
-// ordinary softmax, never NaN.
+// Bound on the H100 at ImageBERT-A's B=512, S=40: bytes, 126 MB of q, k, v
+// and ctx (0.038 ms at 3.35 TB/s) against 4 GFLOP. The version before this
+// one ran both products as 4x4 scalar-FMA register tiles out of f32 shared
+// memory, two shared loads an FMA: the FMA pipe and shared memory, not the
+// bytes, set its pace (4.6x the bound). The design:
+//   - Both products on the tensor cores, mma.sync m16n8k16 (bf16 in, f32
+//     sums). At these lengths (S = 40, 30, 23, 10 pad to 48, 32, 32, 16
+//     rows) wgmma's 64-row M would pad the queries up to 6x, and one
+//     warpgroup's 64x64 tile of a head exceeds the work there is; a warp a
+//     head with 16-row tiles wastes at most 15 rows.
+//   - A CTA of HPC warps owns HPC heads of one pair and direction: it stages
+//     their q, k and v rows in bf16 with 16-byte cp.async (row segments of
+//     HPC * 128 contiguous bytes, zero-filled to a multiple of 16 rows), rows
+//     padded 16 bytes against ldmatrix bank conflicts. Of 1, 2, 4 and 6 heads a
+//     CTA, 2 timed best or within a few percent of the best at every length.
+//   - Each warp walks its head's queries 16 rows at a time: QK^T from
+//     ldmatrix fragments, scale, key bias and softmax on the accumulator
+//     fragments in registers (a row lives in the 4 lanes of a quad), probs
+//     cast to bf16 straight into the A fragments of PV (the accumulator
+//     layout of two n8 tiles is the A layout of one k16 slice), V through
+//     ldmatrix.trans. The context rows go back through the (consumed) q rows
+//     in shared memory and leave in 16-byte stores.
+// Keys past Sk are -inf inside the kernel only; masked keys carry the
+// caller's -10000 bias, so a row whose keys are all masked gets an ordinary
+// softmax, never NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,15 +57,14 @@
 
 namespace {
 
-constexpr int DH = 64, THREADS = 128, MAX_S = 64;
-constexpr int QK_LD = DH + 1;  // odd stride: lanes reading different rows hit different banks
+constexpr int DH = 64, MAX_S = 64;
+constexpr int HPC = 2;                // heads a CTA, one warp each
+constexpr int THREADS = 32 * HPC;
+constexpr int LD = HPC * DH + 8;      // bf16 row stride in shared memory: +16 bytes against bank conflicts
+constexpr int NT = MAX_S / 8;         // n8 key tiles of a score row at most
 
-__host__ __device__ inline int padded(int s) { return (s + 3) & ~3; }
-
-__host__ __device__ inline int smem_floats(int sq, int sk) {
-  const int qp = padded(sq), kp = padded(sk);
-  return qp * QK_LD + kp * QK_LD + kp * DH + qp * kp;
-}
+__host__ __device__ inline int pad16(int s) { return (s + 15) & ~15; }
+__host__ __device__ inline int smem_bytes(int sq, int sk) { return (pad16(sq) + 2 * pad16(sk)) * LD * 2; }
 
 // One attention direction. Row r of pair b, head h: q + (b*sq + r)*q_ld + h*DH,
 // and likewise k and v with kv_ld and sk.
@@ -62,112 +77,153 @@ struct Dir {
   int q_ld, kv_ld, sq, sk;
 };
 
-__device__ inline void load_rows(float* dst, int ld_dst, const __nv_bfloat16* src, int ld_src,
-                                 int rows, int rows_padded, int tid) {
-  for (int idx = tid; idx < rows_padded * (DH / 8); idx += THREADS) {
-    const int r = idx / (DH / 8), c8 = (idx % (DH / 8)) * 8;
-    float vals[8];
-    if (r < rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * ld_src + c8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = __bfloat162float(e[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[r * ld_dst + c8 + i] = vals[i];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+// rows_padded rows of the CTA's HPC heads (HPC * 64 columns at src, row stride ld) into dst; rows
+// past `rows` zero-filled
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int ld, int rows,
+                                          int rows_padded) {
+  constexpr int CHUNKS = HPC * DH / 8;  // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < rows_padded * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
+    const bool ok = r < rows;
+    cp_async16(dst + r * LD + c, src + (size_t)(ok ? r : 0) * ld + c, ok);
   }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+// d[16 x 8] += a[16 x 16] @ b[16 x 8], bf16 in, f32 sums
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 __global__ void __launch_bounds__(THREADS)
 attn_core_kernel(Dir d0, Dir d1, int H, float scale) {
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(16) __nv_bfloat16 sm[];
   const Dir d = blockIdx.z == 0 ? d0 : d1;
-  const int SQ = d.sq, SK = d.sk, QP = padded(SQ), KP = padded(SK);
-  float* q = sm;
-  float* k = q + QP * QK_LD;
-  float* v = k + KP * QK_LD;  // 16-byte aligned: QP + KP is a multiple of 4
-  float* p = v + KP * DH;
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y;
-  load_rows(q, QK_LD, d.q + (size_t)b * SQ * d.q_ld + h * DH, d.q_ld, SQ, QP, tid);
-  load_rows(k, QK_LD, d.k + (size_t)b * SK * d.kv_ld + h * DH, d.kv_ld, SK, KP, tid);
-  load_rows(v, DH, d.v + (size_t)b * SK * d.kv_ld + h * DH, d.kv_ld, SK, KP, tid);
+  const int SQ = d.sq, SK = d.sk, QP = pad16(SQ), KP = pad16(SK);
+  __nv_bfloat16* q = sm;  // then the context rows
+  __nv_bfloat16* k = q + QP * LD;
+  __nv_bfloat16* v = k + KP * LD;
+  const int b = blockIdx.y, col0 = blockIdx.x * HPC * DH;
+  load_rows(q, d.q + (size_t)b * SQ * d.q_ld + col0, d.q_ld, SQ, QP);
+  load_rows(k, d.k + (size_t)b * SK * d.kv_ld + col0, d.kv_ld, SK, KP);
+  load_rows(v, d.v + (size_t)b * SK * d.kv_ld + col0, d.kv_ld, SK, KP);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  const int GQ = QP / 4, GK = KP / 4;
-  for (int item = tid; item < GQ * GK; item += THREADS) {
-    const int rg = item / GK, cg = item % GK;
-    float acc[4][4] = {};
-    for (int e = 0; e < DH; ++e) {
-      float qa[4], ka[4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // the fragments' row and column pair
+  const int hc = warp * DH;              // this warp's head: its columns in the staged rows
+  // key bias of this thread's score columns 8j + 2t + c; keys past Sk -inf
+  float kb[NT][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = q[(rg * 4 + i) * QK_LD + e];
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = k[(cg * 4 + j) * QK_LD + e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qa[i], ka[j], acc[i][j]);
+    for (int c = 0; c < 2; ++c) {
+      const int key = 8 * j + 2 * t + c;
+      kb[j][c] = key >= SK ? -INFINITY : d.key_bias != nullptr ? d.key_bias[(size_t)b * SK + key] : 0.0f;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = cg * 4 + j;
-      const float kb = (d.key_bias != nullptr && c < SK) ? d.key_bias[(size_t)b * SK + c] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[(rg * 4 + i) * KP + c] = acc[i][j] * scale + kb;
-    }
-  }
-  __syncthreads();
 
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < SQ; r += THREADS / 32) {
-    const float s0 = lane < SK ? p[r * KP + lane] : -INFINITY;
-    const float s1 = lane + 32 < SK ? p[r * KP + lane + 32] : -INFINITY;
-    float m = fmaxf(s0, s1);
+  for (int m0 = 0; m0 < QP; m0 += 16) {
+    uint32_t qa[DH / 16][4];  // the A fragments of the 16 query rows, k = head dim
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e0 = lane < SK ? expf(s0 - m) : 0.0f;
-    const float e1 = lane + 32 < SK ? expf(s1 - m) : 0.0f;
-    float sum = e0 + e1;
+    for (int kk = 0; kk < DH / 16; ++kk) ldmatrix_x4(qa[kk], q + (m0 + lane % 16) * LD + hc + kk * 16 + 8 * (lane / 16));
+    float s[NT][4];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane < SK) p[r * KP + lane] = __bfloat162float(__float2bfloat16(e0 / sum));
-    if (lane + 32 < SK) p[r * KP + lane + 32] = __bfloat162float(__float2bfloat16(e1 / sum));
-  }
-  __syncthreads();
-
-  for (int item = tid; item < GQ * (DH / 4); item += THREADS) {
-    const int rg = item / (DH / 4), dg = item % (DH / 4);
-    float4 acc[4];
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = 0; c < SK; ++c) {
-      const float4 vv = *reinterpret_cast<const float4*>(v + c * DH + dg * 4);
+    for (int jp = 0; jp < NT / 2; ++jp) {  // keys [16 jp, 16 jp + 16): two n8 tiles
+      if (16 * jp < KP) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pi = p[(rg * 4 + i) * KP + c];
-        acc[i].x = fmaf(pi, vv.x, acc[i].x);
-        acc[i].y = fmaf(pi, vv.y, acc[i].y);
-        acc[i].z = fmaf(pi, vv.z, acc[i].z);
-        acc[i].w = fmaf(pi, vv.w, acc[i].w);
+        for (int kk = 0; kk < DH / 16; ++kk) {  // head dim ascending, 16 at a time
+          uint32_t kf[4];
+          ldmatrix_x4(kf, k + (16 * jp + lane % 8 + 8 * (lane / 16)) * LD + hc + kk * 16 + 8 * ((lane / 8) % 2));
+          mma16816(s[2 * jp], qa[kk], kf[0], kf[1]);
+          mma16816(s[2 * jp + 1], qa[kk], kf[2], kf[3]);
+        }
       }
     }
+    // softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3), each spread over a quad
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      if (r < SQ) {
-        __nv_bfloat162 lo = __floats2bfloat162_rn(acc[i].x, acc[i].y);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(acc[i].z, acc[i].w);
-        uint2 packed;
-        packed.x = *reinterpret_cast<uint32_t*>(&lo);
-        packed.y = *reinterpret_cast<uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(d.ctx + ((size_t)b * SQ + r) * H + h * DH + dg * 4) = packed;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = s[j][e] * scale + kb[j][e % 2];
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - mx[e / 2]);  // 0 past Sk
+        sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], o);
+    }
+    // ctx = bf16(probs) @ V, keys ascending 16 at a time
+    float o[DH / 8][4];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < NT / 2; ++kt) {
+      if (16 * kt < KP) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kt][0] / sum[0], s[2 * kt][1] / sum[0]),
+                                pack_bf16(s[2 * kt][2] / sum[1], s[2 * kt][3] / sum[1]),
+                                pack_bf16(s[2 * kt + 1][0] / sum[0], s[2 * kt + 1][1] / sum[0]),
+                                pack_bf16(s[2 * kt + 1][2] / sum[1], s[2 * kt + 1][3] / sum[1])};
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, v + (16 * kt + lane % 8 + 8 * ((lane / 8) % 2)) * LD + hc + np * 16 + 8 * (lane / 16));
+          mma16816(o[2 * np], pa, vf[0], vf[1]);
+          mma16816(o[2 * np + 1], pa, vf[2], vf[3]);
+        }
       }
     }
+    __syncwarp();  // every lane's q fragments are loaded: the rows take the context
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(q + (m0 + g + 8 * h) * LD + hc + 8 * j + 2 * t) =
+            pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+  }
+  __syncthreads();
+  constexpr int CHUNKS = HPC * DH / 8;
+  for (int idx = threadIdx.x; idx < SQ * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
+    *reinterpret_cast<uint4*>(d.ctx + ((size_t)b * SQ + r) * H + col0 + c) = *reinterpret_cast<const uint4*>(q + r * LD + c);
   }
 }
 
@@ -178,17 +234,15 @@ bool valid(const Dir& d) {
 
 // Launches `dirs` (1 or 2) directions over B pairs and num_heads heads.
 int launch(const Dir& d0, const Dir& d1, int dirs, int B, int H, int num_heads, void* stream) {
-  if (B < 1 || B > 65535 || H != num_heads * DH || !valid(d0) || (dirs == 2 && !valid(d1)))
+  if (B < 1 || B > 65535 || H != num_heads * DH || num_heads % HPC != 0 || !valid(d0) || (dirs == 2 && !valid(d1)))
     return cudaErrorInvalidValue;
-  int floats = smem_floats(d0.sq, d0.sk);
-  if (dirs == 2 && smem_floats(d1.sq, d1.sk) > floats) floats = smem_floats(d1.sq, d1.sk);
-  const int bytes = floats * 4;
-  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int bytes = smem_bytes(d0.sq, d0.sk);
+  if (dirs == 2 && smem_bytes(d1.sq, d1.sk) > bytes) bytes = smem_bytes(d1.sq, d1.sk);
+  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(num_heads, B, dirs);
-  attn_core_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      d0, d1, H, 0.125f /* 1/sqrt(64) */);
+  dim3 grid(num_heads / HPC, B, dirs);
+  attn_core_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(d0, d1, H,
+                                                                                0.125f /* 1/sqrt(64) */);
   return cudaGetLastError();
 }
 
@@ -200,6 +254,7 @@ extern "C" {
 
 int kmr_attn_max_seq() { return MAX_S; }
 int kmr_attn_head_dim() { return DH; }
+int kmr_attn_head_group() { return HPC; }
 
 // qkv [B*S, 3H] bf16, key_bias [B, S] f32 or null, ctx [B*S, H] bf16; H = num_heads * 64.
 int kmr_attn_core(const void* qkv, const void* key_bias, void* ctx, int B, int S, int H,

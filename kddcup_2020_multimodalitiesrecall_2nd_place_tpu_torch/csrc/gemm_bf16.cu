@@ -67,17 +67,20 @@
 //     when W does not fit in L2 beside A (the label conv's 75 MB weight).
 //   - k order: one f32 accumulator per output, k ascending, 16 at a time.
 //     wgmma's m64nNk16 step rounds as mma.sync's m16n8k16 did on the H100 (the
-//     two kernels' f32 sums came out bit-equal), which csrc/layer_tail.cu,
-//     still on mma.sync, relies on.
+//     two kernels' f32 sums came out bit-equal), and as layer_tail.cu's
+//     m64n32k16 with the operands swapped, which the fused layer's
+//     bit-equality with the two blocks relies on.
 // Shape rules: N % 128 == 0 and K % 64 == 0 (kmr_gemm_tile_n/_k), which every
 // BERT-base width is (768, 1536, 2304, 3072, 6144); any M > 0.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128, BN = 128, BK = 64;    // a tile; k values a stage (128 bytes of bf16)
 constexpr int THREADS = 2 * 128 + 32;         // two consumer warpgroups and one producer warp
@@ -128,89 +131,11 @@ __device__ __forceinline__ float gelu_bwd_erf(float u) {
   return 0.5f * (1.0f + erff(u * 0.7071067811865476f)) + u * phi;
 }
 
-// ---- mbarriers, named barriers, TMA and wgmma (PTX) ----
+// ---- operand descriptors (sm90.cuh's smem_desc) ----
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// named barriers (0 is __syncthreads) of `threads` threads
-template <int THREADS_>
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS_) : "memory");
-}
-template <int THREADS_>
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(THREADS_) : "memory");
-}
-// box (c0 = inner coordinate, c1 = outer) of the map into shared memory at dst, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-// the box of the map at (c0, c1) from shared memory at src, in the current bulk group
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-// until every committed TMA store has read its shared memory (READ) or completed
-template <bool READ>
-__device__ __forceinline__ void bulk_wait() {
-  if (READ)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// generic-proxy writes to shared memory made visible to TMA
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across the asynchronous wgmma
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// K-major (A, and W with TRANS_B): rows of 64 k values, 8-row groups 1024 bytes apart; MN-major
+// (W [K, N]): 64-wide n blocks W_BLOCK_BYTES apart (LBO), 8-row k groups 1024 bytes apart (SBO).
 
-// Matrix descriptor of a 128-byte-swizzled operand in shared memory (its
-// swizzle atoms 1024-byte aligned): start address, leading and stride byte
-// offsets (each >> 4), layout type 1 (128B swizzle) in bits 62-63. K-major
-// (A, and W with TRANS_B): rows of 64 k values, 8-row groups 1024 bytes apart
-// (SBO), the leading offset unused. MN-major (W [K, N]): 64-wide n blocks
-// W_BLOCK_BYTES apart (LBO), 8-row k groups 1024 bytes apart (SBO).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
 // rows [row, row + 64) of a stage's A tile, and the stage's W tile, at k step kk (16 k values)
 __device__ __forceinline__ uint64_t a_desc(uint32_t a_tile, int row, int kk) {
   return smem_desc(a_tile + row * 128 + 32 * kk, 16, 1024);
@@ -464,50 +389,6 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constan
 }
 
 // ---- host side ----
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a row-major [rows, cols] matrix of bf16 (or f32) moved in boxes of [box_rows,
-// 128 bytes] (one 128-byte swizzle row); loads past the last row are zero-filled, stores clipped.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, bool f32 = false) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const int esize = f32 ? 4 : 2;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    return n;
-  }();
-  return sms;
-}
 
 template <int EPI, bool TRANS_B>
 cudaError_t launch(const void* a, const void* w, const void* bias, const void* residual, void* aux, void* out,

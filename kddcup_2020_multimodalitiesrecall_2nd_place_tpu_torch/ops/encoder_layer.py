@@ -12,7 +12,7 @@ of the hand-written kernels in ``kernels.py``:
 
 1. ``gemm`` (bias epilogue): qkv = bf16(x @ Wqkv + bqkv)             [B*S, 3H]
 2. ``attn_core``: exact per-head softmax, key-mask rows, ctx -> bf16  [B*S, H]
-3. ``layer_tail``: out-projection + residual, LN1, FFN in 256-column
+3. ``layer_tail``: out-projection + residual, LN1, FFN in 192-column
    chunks, LN2 -> bf16; LN1's output and the GELU chunks never leave
    shared memory                                                    [B*S, H]
 

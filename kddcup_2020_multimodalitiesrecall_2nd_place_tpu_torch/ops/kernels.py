@@ -191,6 +191,8 @@ def _attn_checks(h: int, num_heads: int, b: int, lengths) -> None:
     lib = _build.load("attn_core")
     _require(h == num_heads * lib.kmr_attn_head_dim(),
              f"attn_core takes head dim {lib.kmr_attn_head_dim()}, got {h // num_heads}")
+    _require(num_heads % lib.kmr_attn_head_group() == 0,
+             f"attn_core takes a multiple of {lib.kmr_attn_head_group()} heads, got {num_heads}")
     for s in lengths:
         _require(1 <= s <= lib.kmr_attn_max_seq(), f"attn_core takes S <= {lib.kmr_attn_max_seq()}, got {s}")
     _require(1 <= b <= 65535, f"attn_core takes 1..65535 pairs per launch, got {b}")
@@ -343,7 +345,7 @@ def layer_tail_plain(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
 def layer_tail(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
                approximate_gelu: bool = True, eps: float = 1e-12) -> torch.Tensor:
     """ctx, x [M, 768] bf16; wo [768, 768], w1 [768, I], w2 [I, 768] bf16;
-    biases, gammas, betas f32 -> [M, 768] bf16. I % 256 == 0."""
+    biases, gammas, betas f32 -> [M, 768] bf16. I % 64 == 0."""
     if not x.is_cuda:
         return layer_tail_plain(ctx, x, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, approximate_gelu, eps)
     lib = _build.load("layer_tail")

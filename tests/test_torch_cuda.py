@@ -229,6 +229,55 @@ def test_cuda_cross_tensors_launch_or_raise(cuda):
     assert [w.launches for w in counted] == [n + 1 for n in before]
 
 
+# The attention core's lengths: every S the models use (S=40, 30, 23, 10), the tile edges of its
+# 16-row fragments (1, 16, 48) and the longest it takes (64), at an odd batch of pairs
+CORE_LENGTHS = [1, 10, 16, 23, 30, 40, 48, 64]
+CORE_PAIRS = [(23, 10), (10, 23), (1, 64), (64, 1), (48, 16), (30, 40)]
+
+
+def _core_case(device, seed, b, sq, sk, masks, h=768):
+    """q rows [b*sq, 3H] and k/v rows [b*sk, 3H] bf16 (two QKV buffers), and the key biases of
+    both streams: None, ragged (key 0 live), or ragged with pair 0's keys all masked."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv_q, qkv_k = (torch.randn(b * s, 3 * h, generator=g).to(device, torch.bfloat16) for s in (sq, sk))
+    biases = [None, None]
+    if masks != "no-mask":
+        biases = []
+        for s in (sq, sk):
+            m = (torch.rand(b, s, generator=g) > 0.3).float()
+            m[:, 0] = 1.0
+            if masks == "all-masked-row":
+                m[0] = 0.0
+            biases.append(mask_to_bias(m).to(device))
+    return qkv_q, qkv_k, biases
+
+
+@pytest.mark.parametrize("masks", MASKS)
+@pytest.mark.parametrize("s", CORE_LENGTHS)
+def test_cuda_attn_core_lengths_match_plain(cuda, s, masks):
+    """Self-attention on the tensor cores at each length, 5 pairs: rows past S are padding of the
+    16-row tiles, keys past S are -inf, an all-masked row is an ordinary softmax."""
+    qkv, _, (bias, _) = _core_case(cuda, 23, 5, s, s, masks)
+    got = kernels.attn_core(qkv, bias, 5, s, 12)
+    assert got.shape == (5 * s, 768)
+    assert within_band(got, kernels.attn_core_plain(qkv, bias, 5, s, 12))
+
+
+@pytest.mark.parametrize("masks", MASKS)
+@pytest.mark.parametrize("sq,sk", CORE_PAIRS, ids=[f"{a}<-{b}" for a, b in CORE_PAIRS])
+def test_cuda_attn_core_cross_lengths_match_plain(cuda, sq, sk, masks):
+    """Cross-attention with Sq != Sk (q and k/v at their own row strides), and the dual launch
+    doing both directions, 5 pairs."""
+    qkv_q, qkv_k, (qb, kb) = _core_case(cuda, 24, 5, sq, sk, masks)
+    q, kv = qkv_q[:, :768].contiguous(), qkv_k[:, 768:].contiguous()
+    got = kernels.attn_core_cross(q, kv, kb, 5, sq, sk, 12)
+    assert got.shape == (5 * sq, 768)
+    assert within_band(got, kernels.attn_core_cross_plain(q, kv, kb, 5, sq, sk, 12))
+    for g_, w_ in zip(kernels.attn_core_dual(qkv_q, qkv_k, qb, kb, 5, sq, sk, 12),
+                      kernels.attn_core_dual_plain(qkv_q, qkv_k, qb, kb, 5, sq, sk, 12)):
+        assert within_band(g_, w_)
+
+
 # ImageBERT-B/C's fused encoder layer (KMR_FUSED_LAYER=1) and its label conv. The four shapes of
 # the layer: (S, key mask, tanh GELU); "all-masked-tail" gives every other pair no box, so all
 # its keys past the query are masked, as an ImageBERT-B pair with no box
@@ -274,12 +323,40 @@ def test_cuda_encoder_layer_and_tail_match_plain(cuda, s, masks, tanh):
 
 
 def test_cuda_layer_tail_ragged_rows(cuda):
-    """M = 333 rows: the last 32-row tile is zero-filled on load and masked on store."""
+    """M = 333 rows: the last 32-row tile is zero-filled on load and masked on store, and its
+    cluster's second CTA holds no row at all."""
     x, ws, _ = _layer_case(cuda, 15, 37, "no-mask", b=9)
     x2d = x.reshape(-1, 768)
     ctx = torch.randn(333, 768, generator=torch.Generator().manual_seed(16)).to(cuda, torch.bfloat16)
     got = kernels.layer_tail(ctx, x2d, *ws[2:])
     assert got.shape == (333, 768)
+    assert within_band(got, kernels.layer_tail_plain(ctx, x2d, *ws[2:]))
+
+
+# layer_tail's row counts: one row, a whole and a ragged 64-row cluster tile, M = 333, ImageBERT-B's
+# 15,360 (B=512, S=30)
+TAIL_ROWS = [1, 64, 65, 333, 15360]
+
+
+@pytest.mark.parametrize("tanh", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("m", TAIL_ROWS)
+def test_cuda_layer_tail_rows_match_plain(cuda, m, tanh):
+    """Rows past M arrive as zeros and are never stored, whichever CTA of a cluster holds them."""
+    _, ws, _ = _layer_case(cuda, 25, 1, "no-mask", b=1)
+    g = torch.Generator().manual_seed(26)
+    ctx, x2d = (torch.randn(m, 768, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    got = kernels.layer_tail(ctx, x2d, *ws[2:], approximate_gelu=tanh)
+    assert got.shape == (m, 768)
+    assert within_band(got, kernels.layer_tail_plain(ctx, x2d, *ws[2:], approximate_gelu=tanh))
+
+
+@pytest.mark.parametrize("i", [64, 256, 320, 448, 3072])
+def test_cuda_layer_tail_ffn_widths(cuda, i):
+    """Any I % 64 == 0: the FFN runs in chunks of the kernel's width, the last one narrower."""
+    x, ws, _ = _layer_case(cuda, 27, 30, "no-mask", b=3, i=i)
+    ctx = torch.randn(90, 768, generator=torch.Generator().manual_seed(28)).to(cuda, torch.bfloat16)
+    x2d = x.reshape(-1, 768)
+    got = kernels.layer_tail(ctx, x2d, *ws[2:])
     assert within_band(got, kernels.layer_tail_plain(ctx, x2d, *ws[2:]))
 
 
