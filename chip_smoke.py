@@ -42,7 +42,9 @@
    ``mha_packed`` (``csrc/mha.cu``) against their plain versions at S=40 with
    no bias, S=30 with ImageBERT-B's [B,1,1,S] key mask, with a [B,1,S,S] and
    a [B,N,S,S] bias, in bf16 (CARD_ATOL, CARD_RTOL) and f32 (MHA_F32_BAND),
-   timed at B=512 beside their bounds and SDPA. Paths, each with the launch
+   timed at B=512 beside their bounds and SDPA, and again with the launches
+   queued behind a spinning kernel (the device's time alone) beside the host's
+   time to enqueue one call. Paths, each with the launch
    counters around it: ImageBERT-A, -B and -C through
    ``ScoringEngine(attention_backend="pallas")`` (12 ``mha`` launches a batch,
    and B/C's label-conv ``gemm``), A held to the plain path within SCORE_BAND,
@@ -127,6 +129,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -198,6 +201,25 @@ def nvidia_smi() -> str:
         return f"unavailable ({e})"
 
 
+def ptxas_summary(text: str) -> list[str]:
+    """The register, shared-memory and spill lines of one source's ``nvcc -Xptxas -v`` report, each
+    prefixed by the function it describes (demangled where ``c++filt`` is on the path)."""
+    rows, fn = [], "?"
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+        if m:
+            fn = m.group(1)
+        elif "Used" in line or "spill" in line:
+            rows.append((fn, line.replace("ptxas info    :", "").strip()))
+    names = sorted({fn for fn, _ in rows})
+    try:
+        r = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True, timeout=30)
+        plain = dict(zip(names, r.stdout.splitlines())) if r.returncode == 0 else {}
+    except (OSError, subprocess.TimeoutExpired):
+        plain = {}
+    return [f"{plain.get(fn, fn)}: {line}" for fn, line in rows]
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn over iters launches, by CUDA events."""
     for _ in range(warmup):
@@ -210,6 +232,33 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+SPIN_CYCLES = 200_000_000  # ~0.1 s of one spinning kernel at the H100's clocks
+
+
+def device_only_ms(torch, fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
+    """(mean device time of fn, host microseconds to enqueue one call): the iters calls are enqueued
+    behind a kernel that spins for SPIN_CYCLES (doubled until the host finishes enqueueing before the
+    spin ends), so the events around them read the device's time alone, where cuda_ms reads the
+    larger of it and the host's enqueue."""
+    for _ in range(warmup):
+        fn()
+    for attempt in range(4):
+        torch.cuda.synchronize()
+        spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(SPIN_CYCLES << attempt)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        if host_s * 1e3 < spin.elapsed_time(start):
+            return start.elapsed_time(end) / iters, host_s / iters * 1e6
+    raise RuntimeError(f"the host took {host_s * 1e3:.1f} ms to enqueue {iters} calls, longer than the spin")
 
 
 def sdpa_library(torch, q, k, v, mask=None):
@@ -903,8 +952,12 @@ class Smoke:
     def time_mha_kernels(self) -> dict[str, dict]:
         """Each case at the main path's batch: kernel / plain / SDPA (the bias as
         a float mask in the inputs' dtype) / bound, held against the plain version
-        once more."""
+        once more; and the kernel's and SDPA's device time alone with the host's
+        enqueue time of one call (device_only_ms), since a launch here takes about
+        as long on the device as the host takes to enqueue it."""
         from importlib import import_module
+
+        from torch.nn.attention import sdpa_kernel
 
         k = import_module(f"{PKG}.ops.kernels")
         torch = self.torch
@@ -917,13 +970,20 @@ class Smoke:
             flops, peak = 4.0 * b * N * s * s * 64, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
             mask = None if bias is None else bias.to(heads[0].dtype)
             views = [t.view(b, s, N, 64).transpose(1, 2) for t in packed]  # SDPA on the packed buffers, in place
-            self.time_row(rows, f"mha {name}", "mha", lambda h=heads, bi=bias: k.mha(*h, bi),
-                          lambda h=heads, bi=bias: k.mha_plain(*h, bi),
-                          sdpa_library(torch, *heads, mask), nbytes, flops, peak, *band)
+            calls = [(f"mha {name}", "mha", lambda h=heads, bi=bias: k.mha(*h, bi),
+                      lambda h=heads, bi=bias: k.mha_plain(*h, bi), sdpa_library(torch, *heads, mask))]
             if bias is None or bias.shape[1] == 1:
-                self.time_row(rows, f"mha_packed {name}", "mha_packed", lambda p=packed, bi=bias: k.mha_packed(*p, N, bi),
+                calls.append((f"mha_packed {name}", "mha_packed", lambda p=packed, bi=bias: k.mha_packed(*p, N, bi),
                               lambda p=packed, bi=bias: k.mha_packed_plain(*p, N, bi),
-                              sdpa_library(torch, *views, mask), nbytes, flops, peak, *band)
+                              sdpa_library(torch, *views, mask)))
+            for row, key, kernel_fn, plain_fn, library_fn in calls:
+                self.time_row(rows, row, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak, *band)
+                r = rows[row]
+                r["device_ms"], r["host_enqueue_us"] = device_only_ms(torch, kernel_fn)
+                with sdpa_kernel(library_fn.backends):
+                    r["library_device_ms"], r["library_host_enqueue_us"] = device_only_ms(torch, library_fn)
+                log(f"time {row}, device alone: ms={r['device_ms']:.4f} library_ms={r['library_device_ms']:.4f}; "
+                    f"host enqueue of one call {r['host_enqueue_us']:.1f} us (library {r['library_host_enqueue_us']:.1f})")
         return rows
 
     # ---- phase 3: the main path ----------------------------------------------
@@ -2416,6 +2476,8 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
             out[-1]["train_launches"] = {row: times[row] for row in times if row.startswith("gemm_bf16 train ")}
         if name.startswith("mha") or name in ("attn_core", "layer_tail"):
             out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
+        if name.startswith("mha"):  # the device's time alone and the host's enqueue, beside "ms"
+            out[-1].update({key: sum(r[key] for r in rs) for key in ("device_ms", "library_device_ms", "host_enqueue_us")})
     return {"kernels": out}
 
 
@@ -2565,9 +2627,12 @@ def main(argv: list[str] | None = None) -> int:
         (build.BUILD_DIR / "kernels" / "nvcc.log").write_text(
             "\n".join(f"--- {n} ---\n{t}" for n, t in logs.items()))
         for name, text in logs.items():
-            for line in text.splitlines():
-                if "Used" in line or "spill" in line:
-                    log(f"ptxas {name}: {line.strip()}")
+            for line in ptxas_summary(text):
+                log(f"ptxas {name}: {line}")
+        mha_lib = build.load("mha")
+        log("mha dynamic shared memory: bf16 " + ", ".join(
+            f"{mha_lib.kmr_mha_smem_bytes(s, 1)} B at S={s}" for s in (S, B_S, 64))
+            + f" a CTA of {mha_lib.kmr_mha_warps()} warps; f32 {mha_lib.kmr_mha_smem_bytes(S, 0)} B a CTA at S={S}")
 
         smoke = Smoke(torch, seed)
         weights = smoke.layer_weights()

@@ -45,7 +45,8 @@
 //     cast to bf16 straight into the A fragments of PV (the accumulator
 //     layout of two n8 tiles is the A layout of one k16 slice), V through
 //     ldmatrix.trans. The context rows go back through the (consumed) q rows
-//     in shared memory and leave in 16-byte stores.
+//     in shared memory and leave in 16-byte stores. That warp routine lives
+//     in warp_attention.cuh, which mha.cu shares.
 // Keys past Sk are -inf inside the kernel only; masked keys carry the
 // caller's -10000 bias, so a row whose keys are all masked gets an ordinary
 // softmax, never NaN.
@@ -55,15 +56,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_attention.cuh"
+
 namespace {
 
-constexpr int DH = 64, MAX_S = 64;
+using namespace warp_attention;
+
 constexpr int HPC = 2;                // heads a CTA, one warp each
 constexpr int THREADS = 32 * HPC;
 constexpr int LD = HPC * DH + 8;      // bf16 row stride in shared memory: +16 bytes against bank conflicts
-constexpr int NT = MAX_S / 8;         // n8 key tiles of a score row at most
 
-__host__ __device__ inline int pad16(int s) { return (s + 15) & ~15; }
 __host__ __device__ inline int smem_bytes(int sq, int sk) { return (pad16(sq) + 2 * pad16(sk)) * LD * 2; }
 
 // One attention direction. Row r of pair b, head h: q + (b*sq + r)*q_ld + h*DH,
@@ -77,11 +79,6 @@ struct Dir {
   int q_ld, kv_ld, sq, sk;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 16 : 0));
-}
-
 // rows_padded rows of the CTA's HPC heads (HPC * 64 columns at src, row stride ld) into dst; rows
 // past `rows` zero-filled
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int ld, int rows,
@@ -92,29 +89,6 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
     const bool ok = r < rows;
     cp_async16(dst + r * LD + c, src + (size_t)(ok ? r : 0) * ld + c, ok);
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// d[16 x 8] += a[16 x 16] @ b[16 x 8], bf16 in, f32 sums
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -129,96 +103,12 @@ attn_core_kernel(Dir d0, Dir d1, int H, float scale) {
   load_rows(q, d.q + (size_t)b * SQ * d.q_ld + col0, d.q_ld, SQ, QP);
   load_rows(k, d.k + (size_t)b * SK * d.kv_ld + col0, d.kv_ld, SK, KP);
   load_rows(v, d.v + (size_t)b * SK * d.kv_ld + col0, d.kv_ld, SK, KP);
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  cp_async_wait_all();
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // the fragments' row and column pair
-  const int hc = warp * DH;              // this warp's head: its columns in the staged rows
-  // key bias of this thread's score columns 8j + 2t + c; keys past Sk -inf
-  float kb[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int key = 8 * j + 2 * t + c;
-      kb[j][c] = key >= SK ? -INFINITY : d.key_bias != nullptr ? d.key_bias[(size_t)b * SK + key] : 0.0f;
-    }
-
-  for (int m0 = 0; m0 < QP; m0 += 16) {
-    uint32_t qa[DH / 16][4];  // the A fragments of the 16 query rows, k = head dim
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) ldmatrix_x4(qa[kk], q + (m0 + lane % 16) * LD + hc + kk * 16 + 8 * (lane / 16));
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {  // keys [16 jp, 16 jp + 16): two n8 tiles
-      if (16 * jp < KP) {
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {  // head dim ascending, 16 at a time
-          uint32_t kf[4];
-          ldmatrix_x4(kf, k + (16 * jp + lane % 8 + 8 * (lane / 16)) * LD + hc + kk * 16 + 8 * ((lane / 8) % 2));
-          mma16816(s[2 * jp], qa[kk], kf[0], kf[1]);
-          mma16816(s[2 * jp + 1], qa[kk], kf[2], kf[3]);
-        }
-      }
-    }
-    // softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3), each spread over a quad
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = s[j][e] * scale + kb[j][e % 2];
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - mx[e / 2]);  // 0 past Sk
-        sum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], o);
-    }
-    // ctx = bf16(probs) @ V, keys ascending 16 at a time
-    float o[DH / 8][4];
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-#pragma unroll
-    for (int kt = 0; kt < NT / 2; ++kt) {
-      if (16 * kt < KP) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kt][0] / sum[0], s[2 * kt][1] / sum[0]),
-                                pack_bf16(s[2 * kt][2] / sum[1], s[2 * kt][3] / sum[1]),
-                                pack_bf16(s[2 * kt + 1][0] / sum[0], s[2 * kt + 1][1] / sum[0]),
-                                pack_bf16(s[2 * kt + 1][2] / sum[1], s[2 * kt + 1][3] / sum[1])};
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, v + (16 * kt + lane % 8 + 8 * ((lane / 8) % 2)) * LD + hc + np * 16 + 8 * (lane / 16));
-          mma16816(o[2 * np], pa, vf[0], vf[1]);
-          mma16816(o[2 * np + 1], pa, vf[2], vf[3]);
-        }
-      }
-    }
-    __syncwarp();  // every lane's q fragments are loaded: the rows take the context
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(q + (m0 + g + 8 * h) * LD + hc + 8 * j + 2 * t) =
-            pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
-  }
+  const int hc = (threadIdx.x / 32) * DH;  // this warp's head: its columns in the staged rows
+  KeyBias kb(d.key_bias != nullptr ? d.key_bias + (size_t)b * SK : nullptr, 1, SK);
+  attend<LD>(q + hc, k + hc, v + hc, QP, KP, scale, kb);
   __syncthreads();
   constexpr int CHUNKS = HPC * DH / 8;
   for (int idx = threadIdx.x; idx < SQ * CHUNKS; idx += THREADS) {

@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``build/kernels/<name>-<hash>.so``, where the hash covers the source,
-every header of ``csrc/`` (``dropout_hash.cuh``) and the flags, so an edited
+every header of ``csrc/`` (``*.cuh``) and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded. All missing
 libraries are compiled at once, one nvcc process per source, the first time
 any kernel is needed; nothing is built or imported when this module is

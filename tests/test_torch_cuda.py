@@ -12,6 +12,8 @@ the kernels round where the plain versions round, but their 768- and
 rounding of an output or of an intermediate.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -402,16 +404,23 @@ def test_cuda_encoder_layer_equals_two_blocks(cuda, s, masks, tanh):
 
 
 # The attention backends' kernels (csrc/mha.cu): bare attention on [B, N, S, 64] views and on the
-# packed [B, S, H] layout, bf16 and f32. Cases: (S, bias) with the bias as the models make it: none
-# (ImageBERT-A), a [B,1,1,S] key mask with some pairs' tail keys all masked (ImageBERT-B), a full
-# [B,1,S,S] bias, a per-head [B,N,S,S] bias (mha only), and S=64, the longest the kernel takes
-MHA_CASES = [(40, "none"), (30, "key"), (30, "query-key"), (30, "heads"), (64, "key"), (7, "none")]
+# packed [B, S, H] layout, bf16 (tensor cores, a warp a (pair, head)) and f32 (CUDA cores). Cases:
+# (S, bias, N) with the bias as the models make it: none (ImageBERT-A), a [B,1,1,S] key mask with some
+# pairs' tail keys all masked (ImageBERT-B), a full [B,1,S,S] bias, a per-head [B,N,S,S] bias (mha
+# only), and S=64, the longest the kernel takes; then the ragged shapes, every N of {1, 3, 12} at every
+# S of {1, 16, 17, 23} (one row past a 16-row tile, an odd head count), the bias kinds in turn
+MHA_CASES = [(40, "none", 12), (30, "key", 12), (30, "query-key", 12), (30, "heads", 12), (64, "key", 12),
+             (7, "none", 12)]
 MHA_IDS = ["S40", "S30-key-mask", "S30-B1SS", "S30-BNSS", "S64-key-mask", "S7"]
+MHA_BIAS_KINDS = ["none", "key", "query-key", "heads"]
+MHA_RAGGED = [(s, MHA_BIAS_KINDS[i % 4], n) for i, (n, s) in enumerate(itertools.product((1, 3, 12), (1, 16, 17, 23)))]
+MHA_CASES += MHA_RAGGED
+MHA_IDS += [f"N{n}-S{s}-{kind}" for s, kind, n in MHA_RAGGED]
 MHA_F32_BAND = 1e-5
 
 
 def _mha_case(device, seed, s, bias_kind, dtype, b=6, n=12):
-    """q, k, v as packed [b, s, 768] buffers and as contiguous [b, n, s, 64]
+    """q, k, v as packed [b, s, n * 64] buffers and as contiguous [b, n, s, 64]
     heads, in dtype, and the f32 bias (or None)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     packed = [torch.randn(b, s, n * 64, generator=g).to(device, dtype) for _ in range(3)]
@@ -434,17 +443,44 @@ def _mha_band(dtype):
     return {"atol": MHA_F32_BAND, "rtol": 0.0} if dtype == torch.float32 else {}
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("s,bias_kind", MHA_CASES, ids=MHA_IDS)
-def test_cuda_mha_matches_plain(cuda, s, bias_kind, dtype):
-    packed, heads, bias = _mha_case(cuda, 20, s, bias_kind, dtype)
+def _check_mha(packed, heads, bias, n, dtype):
     got = kernels.mha(*heads, bias)
     assert got.dtype == dtype and got.shape == heads[0].shape
     assert within_band(got, kernels.mha_plain(*heads, bias), **_mha_band(dtype))
     if bias is None or bias.shape[1] == 1:
-        got = kernels.mha_packed(*packed, 12, bias)
+        got = kernels.mha_packed(*packed, n, bias)
         assert got.dtype == dtype and got.shape == packed[0].shape
-        assert within_band(got, kernels.mha_packed_plain(*packed, 12, bias), **_mha_band(dtype))
+        assert within_band(got, kernels.mha_packed_plain(*packed, n, bias), **_mha_band(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s,bias_kind,n", MHA_CASES, ids=MHA_IDS)
+def test_cuda_mha_matches_plain(cuda, s, bias_kind, n, dtype):
+    packed, heads, bias = _mha_case(cuda, 20, s, bias_kind, dtype, n=n)
+    _check_mha(packed, heads, bias, n, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bias_kind", ["key", "query-key"])
+def test_cuda_mha_all_keys_masked(cuda, bias_kind, dtype):
+    """Pairs whose every key is masked (-10000) get an ordinary softmax over
+    the masked scores: finite, and equal to the plain path within the band."""
+    packed, heads, bias = _mha_case(cuda, 23, 30, bias_kind, dtype, n=3)
+    bias = bias.clone()
+    bias[::3] = -10000.0
+    _check_mha(packed, heads, bias, 3, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_mha_ragged_items(cuda, dtype):
+    """B*N = 21 (pairs, heads) items: odd, and one more than a multiple of the
+    items a CTA of the bf16 kernel holds, so its last CTA has one live warp."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import _build
+
+    b, n = 7, 3
+    assert b * n % _build.load("mha").kmr_mha_warps() == 1
+    packed, heads, bias = _mha_case(cuda, 24, 17, "key", dtype, b=b, n=n)
+    _check_mha(packed, heads, bias, n, dtype)
 
 
 def test_cuda_mha_reads_strided_views(cuda):

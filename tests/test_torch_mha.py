@@ -114,6 +114,27 @@ def test_mha_ragged_batch_heads():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,s,bias_kind", [(1, 1, "key"), (3, 17, "query-key"), (1, 16, "heads"), (3, 23, "none")])
+def test_mha_ragged_shapes_match_jax_pallas(n, s, bias_kind, dtype):
+    """The shapes the card tests add (one head or an odd head count; one key,
+    a whole 16-row tile, one row past it): mha and mha_packed (plain on the
+    CPU) against mha_pallas in interpret mode over a ragged B*N, at Dh = 64."""
+    _, jdt, tdt = DTYPES[dtype]
+    q, k, v, bias = _inputs(11 * s + n, 3, n, s, 64, bias_kind)
+    jbias = None if bias is None else jnp.asarray(bias)
+    want = mha_pallas(*(jnp.asarray(a, jdt) for a in (q, k, v)), jbias, block_bn=4, interpret=True)
+    tq, tk, tv = (_torch(a, tdt) for a in (q, k, v))
+    tbias = _torch(bias, torch.float32)
+    got = kernels.mha(tq, tk, tv, tbias)
+    assert got.dtype == tdt and got.shape == (3, n, s, 64)
+    _close(got, want, dtype)
+    if bias is None or bias.shape[1] == 1:
+        packed = [t.transpose(1, 2).reshape(3, s, n * 64) for t in (tq, tk, tv)]
+        got = kernels.mha_packed(*packed, n, tbias)
+        _close(got, np.asarray(jnp.asarray(want, jnp.float32)).transpose(0, 2, 1, 3).reshape(3, s, n * 64), dtype)
+
+
 def test_mha_raises_on_cross_attention():
     """k of another length than q: JAX's mha_pallas fails reshaping k
     (ops/pallas_attention.py:58-62); the port's mha raises ValueError, and so
