@@ -67,7 +67,13 @@
    its bound, plain version and a library yardstick; the train blocks
    (``ops/train_blocks.py``) forward and backward the same, and held against
    their plain oracles' autograd at B=256 (y in the ulp band, the 7 gradients
-   in relative L2 within TRAIN_GRAD_REL_L2). Then the path: ImageBERT-A at full
+   in relative L2 within TRAIN_GRAD_REL_L2). ``attn_train``/``attn_train_bwd``
+   are also held and timed at LXMERT's self-attention shapes (S=23 and S=10,
+   its key masks); every ``attn_train*`` and ``ln_train*`` row carries the
+   device's time alone beside ``cuda_ms``, and the attention rows' yardstick is
+   SDPA with dropout on its fastest fused backend, forward and backward chosen
+   apart and named (``sdpa_library``, ``sdpa_backward_library``). Then the
+   path: ImageBERT-A at full
    width (12 x 768), batch 256, dropout 0.1, random weights from the seed, on
    batches of a synthetic TSV through the port's hard-negative sampler. Step 1
    from one set of params, batch and seed on the kernel route, the plain route
@@ -261,32 +267,54 @@ def device_only_ms(torch, fn, iters: int = 20, warmup: int = 3) -> tuple[float, 
     raise RuntimeError(f"the host took {host_s * 1e3:.1f} ms to enqueue {iters} calls, longer than the spin")
 
 
-def sdpa_library(torch, q, k, v, mask=None):
-    """One SDPA call on [B, heads, S, 64] operands and an optional additive mask: the library call
-    of an attention core. SDPA falls back to its math backend where no fused one takes the inputs,
-    so the call carries in ``backends`` the fastest of the fused backends (flash, cuDNN,
-    memory-efficient) that does, and time_row times it with only that one enabled; ``[MATH]``
-    where none does."""
+def fastest_fused(torch, make_call):
+    """make_call(backend) -> a no-argument SDPA library call made under that backend. SDPA falls back
+    to its math backend where no fused one takes the inputs, so the call returned carries in
+    ``backends`` the fastest of the fused backends (flash, cuDNN, memory-efficient) that does, and
+    time_row times it with only that one enabled; ``[MATH]`` where none does."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    def call():
-        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
-    fused = [getattr(SDPBackend, n) for n in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
-             if hasattr(SDPBackend, n)]
-    best, call.backends = float("inf"), [SDPBackend.MATH]
-    for backend in fused:
+    best, chosen = float("inf"), None
+    for backend in [getattr(SDPBackend, n) for n in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+                    if hasattr(SDPBackend, n)]:
         try:
             with warnings.catch_warnings(), sdpa_kernel(backend):
                 warnings.simplefilter("ignore")
+                call = make_call(backend)
                 ms = cuda_ms(torch, call, iters=5, warmup=1)
-        except RuntimeError:
+        except (RuntimeError, NotImplementedError):
             continue
         if ms < best:
-            best, call.backends = ms, [backend]
-    return call
+            best, chosen = ms, call
+            chosen.backends = [backend]
+    if chosen is None:
+        chosen = make_call(SDPBackend.MATH)
+        chosen.backends = [SDPBackend.MATH]
+    return chosen
+
+
+def sdpa_library(torch, q, k, v, mask=None, dropout_p: float = 0.0):
+    """One SDPA call on [B, heads, S, 64] operands, an optional additive mask and dropout: the library
+    call of an attention core, on its fastest fused backend."""
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=dropout_p)
+
+    return fastest_fused(torch, lambda backend: call)
+
+
+def sdpa_backward_library(torch, q, k, v, dout, mask=None, dropout_p: float = 0.0):
+    """``torch.autograd.grad`` against dout of one SDPA call on [B, heads, S, 64] leaves that require
+    grad (an optional additive mask, dropout): the library call of a training attention core's
+    backward, its graph built under the fused backend that runs the backward fastest."""
+
+    def make_call(backend):
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=dropout_p)
+        return lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+
+    return fastest_fused(torch, make_call)
 
 
 def with_backends(fn, *sdpa_calls):
@@ -438,11 +466,16 @@ class Smoke:
                        fb.ffn_block_plain(x, *fw, approximate_gelu=approx), CARD_ATOL, CARD_RTOL)
 
     def time_row(self, rows, name, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak,
-                 atol=CARD_ATOL, rtol=CARD_RTOL, check=True) -> None:
+                 atol=CARD_ATOL, rtol=CARD_RTOL, check=True, device=False) -> None:
         """Check kernel_fn against plain_fn once more (unless ``check`` is
         false: the caller held them), then time the kernel, its plain version
         and the library call into rows[name], beside the bound derived from
-        nbytes and flops."""
+        nbytes and flops; with ``device``, also the kernel's and the library
+        call's device time alone and the host's enqueue of one call
+        (device_only_ms), for launches that take about as long on the device
+        as the host takes to enqueue them."""
+        from torch.nn.attention import sdpa_kernel
+
         torch = self.torch
         if check:
             self.check(f"{name} [B={MAIN_B}]", key, kernel_fn(), plain_fn(), atol, rtol)
@@ -455,8 +488,6 @@ class Smoke:
             "library_ms": None,
         }
         if library_fn is not None and hasattr(library_fn, "backends"):  # SDPA on the backend chosen
-            from torch.nn.attention import sdpa_kernel
-
             with sdpa_kernel(library_fn.backends):
                 r["library_ms"] = cuda_ms(torch, library_fn)
             r["library_sdpa_backend"] = "+".join(b.name.lower() for b in library_fn.backends)
@@ -468,6 +499,17 @@ class Smoke:
             lib += f" (SDPA {r['library_sdpa_backend']})"
         log(f"time {name}: ms={r['ms']:.4f} bound_ms={bms:.4f} ({by}) plain_ms={r['plain_ms']:.4f} "
             f"library_ms={lib} achieved={flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        if not device:
+            return
+        r["device_ms"], r["host_enqueue_us"] = device_only_ms(torch, kernel_fn)
+        msg = f"time {name}, device alone: ms={r['device_ms']:.4f}"
+        if library_fn is not None:
+            scope = sdpa_kernel(library_fn.backends) if hasattr(library_fn, "backends") else contextlib.nullcontext()
+            with scope:
+                r["library_device_ms"], r["library_host_enqueue_us"] = device_only_ms(torch, library_fn)
+            msg += (f" library_ms={r['library_device_ms']:.4f}; host enqueue of one call {r['host_enqueue_us']:.1f} "
+                    f"us (library {r['library_host_enqueue_us']:.1f})")
+        log(msg)
 
     def time_kernels(self, w) -> dict[str, dict]:
         """Kernel / plain / library / bound times at the main path's batch, each
@@ -957,8 +999,6 @@ class Smoke:
         as long on the device as the host takes to enqueue it."""
         from importlib import import_module
 
-        from torch.nn.attention import sdpa_kernel
-
         k = import_module(f"{PKG}.ops.kernels")
         torch = self.torch
         b, rows = MAIN_B, {}
@@ -977,13 +1017,8 @@ class Smoke:
                               lambda p=packed, bi=bias: k.mha_packed_plain(*p, N, bi),
                               sdpa_library(torch, *views, mask)))
             for row, key, kernel_fn, plain_fn, library_fn in calls:
-                self.time_row(rows, row, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak, *band)
-                r = rows[row]
-                r["device_ms"], r["host_enqueue_us"] = device_only_ms(torch, kernel_fn)
-                with sdpa_kernel(library_fn.backends):
-                    r["library_device_ms"], r["library_host_enqueue_us"] = device_only_ms(torch, library_fn)
-                log(f"time {row}, device alone: ms={r['device_ms']:.4f} library_ms={r['library_device_ms']:.4f}; "
-                    f"host enqueue of one call {r['host_enqueue_us']:.1f} us (library {r['library_host_enqueue_us']:.1f})")
+                self.time_row(rows, row, key, kernel_fn, plain_fn, library_fn, nbytes, flops, peak, *band,
+                              device=True)
         return rows
 
     # ---- phase 3: the main path ----------------------------------------------
@@ -1818,27 +1853,45 @@ class Smoke:
         self.time_row(rows, "ln_train", "ln_train", lambda: k.ln_train(h32, x2d, gamma, beta, 77, TRAIN_RATE, rows_pb),
                       lambda: k.ln_train_plain(h32, x2d, gamma, beta, 77, TRAIN_RATE, rows_pb),
                       lambda: F.layer_norm(z, (H,), gamma, beta, 1e-12), m * H * 8 + 2 * H * 4, 12.0 * m * H,
-                      PEAK_F32_FLOPS, check=False)
+                      PEAK_F32_FLOPS, check=False, device=True)
         parts = -(-m // k.LN_TRAIN_BWD_ROWS)
         self.time_row(rows, "ln_train_bwd", "ln_train_bwd",
                       lambda: k.ln_train_bwd(h32, x2d, dy2d, gamma, 77, TRAIN_RATE, rows_pb),
                       lambda: k.ln_train_bwd_plain(h32, x2d, dy2d, gamma, 77, TRAIN_RATE, rows_pb),
                       lambda: torch.autograd.grad(yl, (zl,), dy2d.float(), retain_graph=True),
-                      m * H * 14 + H * 4 + 2 * parts * H * 4, 20.0 * m * H, PEAK_F32_FLOPS, check=False)
-        qkv, dctx = c["qkv"], c["dctx"]
-        q, kk, v = (t.reshape(b, S, N, 64).transpose(1, 2).contiguous().requires_grad_() for t in qkv.split(H, dim=1))
-        sd = F.scaled_dot_product_attention(q, kk, v, dropout_p=TRAIN_RATE)
-        dsd = dctx.reshape(b, S, N, 64).transpose(1, 2)
-        a = (b, S, N, 55, TRAIN_RATE, 8)
-        self.time_row(rows, "attn_train", "attn_train", lambda: k.attn_train(qkv, None, *a),
-                      lambda: k.attn_train_plain(qkv, None, *a),
-                      lambda: F.scaled_dot_product_attention(q, kk, v, dropout_p=TRAIN_RATE),
-                      m * 3 * H * 2 + m * H * 2, 4.0 * b * N * S * S * 64, PEAK_BF16_FLOPS, check=False)
-        self.time_row(rows, "attn_train_bwd", "attn_train_bwd", lambda: k.attn_train_bwd(qkv, dctx, None, *a),
-                      lambda: k.attn_train_bwd_plain(qkv, dctx, None, *a),
-                      lambda: torch.autograd.grad(sd, (q, kk, v), dsd, retain_graph=True),
-                      m * 3 * H * 2 * 2 + m * H * 2, 10.0 * b * N * S * S * 64, PEAK_BF16_FLOPS, check=False)
+                      m * H * 14 + H * 4 + 2 * parts * H * 4, 20.0 * m * H, PEAK_F32_FLOPS, check=False, device=True)
+        # attn_train at ImageBERT-A's S=40 (no mask) and LXMERT's S=23 and S=10 (its key masks)
+        for s in (S, LX_F, LX_T):
+            name = "" if s == S else f" S={s}"
+            if s == S:
+                qkv_s, dctx_s, bias_s = c["qkv"], c["dctx"], None
+            else:
+                qkv_s = self.randn(b * s, 3 * H, dtype=torch.bfloat16)
+                dctx_s = self.randn(b * s, H, dtype=torch.bfloat16)
+                bias_s = self.key_bias(b, s)
+            a = (b, s, N, 55, TRAIN_RATE, 8)
+            fwd = (lambda qkv=qkv_s, bias=bias_s, a=a: k.attn_train(qkv, bias, *a),
+                   lambda qkv=qkv_s, bias=bias_s, a=a: k.attn_train_plain(qkv, bias, *a))
+            bwd = (lambda qkv=qkv_s, d=dctx_s, bias=bias_s, a=a: k.attn_train_bwd(qkv, d, bias, *a),
+                   lambda qkv=qkv_s, d=dctx_s, bias=bias_s, a=a: k.attn_train_bwd_plain(qkv, d, bias, *a))
+            if s != S:  # S=40 is held in check_train_kernels
+                tag = f"[S={s}, LXMERT key mask, rate {TRAIN_RATE}, B={b}]"
+                self.check(f"attn_train {tag}", "attn_train", fwd[0](), fwd[1](), CARD_ATOL, CARD_RTOL)
+                self.check(f"attn_train_bwd {tag}", "attn_train_bwd", bwd[0](), bwd[1](), CARD_ATOL, CARD_RTOL)
+            heads = [t.reshape(b, s, N, 64).transpose(1, 2).contiguous().requires_grad_()
+                     for t in qkv_s.split(H, dim=1)]
+            mask = None if bias_s is None else bias_s.to(torch.bfloat16).reshape(b, 1, 1, s)
+            lib_fwd = sdpa_library(torch, *heads, mask, TRAIN_RATE)
+            lib_bwd = sdpa_backward_library(torch, *heads, dctx_s.reshape(b, s, N, 64).transpose(1, 2), mask,
+                                            TRAIN_RATE)
+            in_bytes = nbytes_of((qkv_s,) if bias_s is None else (qkv_s, bias_s))
+            self.time_row(rows, f"attn_train{name}", "attn_train", *fwd, lib_fwd, in_bytes + b * s * H * 2,
+                          4.0 * b * N * s * s * 64, PEAK_BF16_FLOPS, check=False, device=True)
+            self.time_row(rows, f"attn_train_bwd{name}", "attn_train_bwd", *bwd, lib_bwd,
+                          in_bytes + nbytes_of((qkv_s, dctx_s)), 10.0 * b * N * s * s * 64, PEAK_BF16_FLOPS,
+                          check=False, device=True)
         # the GEMM's training launches (its other rows are the inference ones)
+        qkv = c["qkv"]
         _, u = k.gemm(x2d, w1, fw[1], "gelu_tanh_save")
         g16 = k.gemm(x2d, w1, fw[1], "gelu_tanh")
         for label, fn, pfn, lib, mm, nn, kk_, out_bytes in (
@@ -2179,7 +2232,6 @@ class Smoke:
 
         k = import_module(f"{PKG}.ops.kernels")
         torch = self.torch
-        F = torch.nn.functional
         b = TRAIN_B
         shapes = [(H, H), (H,), (H, 2 * H), (2 * H,), (H, H), (H,)]
         ws = [self.randn(*sh, scale=0.02) for sh in shapes] + [1.0 + self.randn(H, scale=0.1),
@@ -2215,22 +2267,19 @@ class Smoke:
             qh = q.reshape(b, f, N, 64).transpose(1, 2).contiguous().requires_grad_()
             kh, vh = (z.reshape(b, t, N, 64).transpose(1, 2).contiguous().requires_grad_() for z in kv.split(H, 1))
             mask = bias.to(torch.bfloat16).reshape(b, 1, 1, t)
-            sd = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=TRAIN_RATE)
-            dsd = dctx.reshape(b, f, N, 64).transpose(1, 2)
+            lib_fwd = sdpa_library(torch, qh, kh, vh, mask, TRAIN_RATE)
+            lib_bwd = sdpa_backward_library(torch, qh, kh, vh, dctx.reshape(b, f, N, 64).transpose(1, 2), mask,
+                                            TRAIN_RATE)
             a = (b, f, t, N, 55, TRAIN_RATE, 8)
             self.time_row(rows, f"attn_train_cross {label}", "attn_train_cross",
                           lambda q=q, kv=kv, bias=bias, a=a: k.attn_train_cross(q, kv, bias, *a),
-                          lambda q=q, kv=kv, bias=bias, a=a: k.attn_train_cross_plain(q, kv, bias, *a),
-                          lambda qh=qh, kh=kh, vh=vh, mask=mask: F.scaled_dot_product_attention(
-                              qh, kh, vh, attn_mask=mask, dropout_p=TRAIN_RATE),
-                          nbytes_of((q, kv, bias)) + mf * H * 2, core, PEAK_BF16_FLOPS, check=False)
+                          lambda q=q, kv=kv, bias=bias, a=a: k.attn_train_cross_plain(q, kv, bias, *a), lib_fwd,
+                          nbytes_of((q, kv, bias)) + mf * H * 2, core, PEAK_BF16_FLOPS, check=False, device=True)
             self.time_row(rows, f"attn_train_cross_bwd {label}", "attn_train_cross_bwd",
                           lambda q=q, kv=kv, d=dctx, bias=bias, a=a: k.attn_train_cross_bwd(q, kv, d, bias, *a),
                           lambda q=q, kv=kv, d=dctx, bias=bias, a=a: k.attn_train_cross_bwd_plain(q, kv, d, bias, *a),
-                          lambda sd=sd, qh=qh, kh=kh, vh=vh, dsd=dsd: torch.autograd.grad(
-                              sd, (qh, kh, vh), dsd, retain_graph=True),
-                          2 * nbytes_of((q, kv)) + nbytes_of((dctx, bias)), 2.5 * core, PEAK_BF16_FLOPS,
-                          check=False)
+                          lib_bwd, 2 * nbytes_of((q, kv)) + nbytes_of((dctx, bias)), 2.5 * core, PEAK_BF16_FLOPS,
+                          check=False, device=True)
         return rows
 
     def train_lxmert(self) -> tuple[dict, dict]:
@@ -2474,10 +2523,13 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
             out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
                                        f"512-pair ImageBERT-B batch"}
             out[-1]["train_launches"] = {row: times[row] for row in times if row.startswith("gemm_bf16 train ")}
-        if name.startswith("mha") or name in ("attn_core", "layer_tail"):
+        if name.startswith("mha") or name in ("attn_core", "layer_tail", "attn_train", "attn_train_bwd"):
             out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
-        if name.startswith("mha"):  # the device's time alone and the host's enqueue, beside "ms"
+        if all("device_ms" in r for r in rs):  # the device's time alone and the host's enqueue, beside "ms"
             out[-1].update({key: sum(r[key] for r in rs) for key in ("device_ms", "library_device_ms", "host_enqueue_us")})
+            backends = sorted({r["library_sdpa_backend"] for r in rs if "library_sdpa_backend" in r})
+            if backends:
+                out[-1]["library_sdpa_backend"] = "+".join(backends)
     return {"kernels": out}
 
 
@@ -2633,6 +2685,11 @@ def main(argv: list[str] | None = None) -> int:
         log("mha dynamic shared memory: bf16 " + ", ".join(
             f"{mha_lib.kmr_mha_smem_bytes(s, 1)} B at S={s}" for s in (S, B_S, 64))
             + f" a CTA of {mha_lib.kmr_mha_warps()} warps; f32 {mha_lib.kmr_mha_smem_bytes(S, 0)} B a CTA at S={S}")
+        at_lib = build.load("attn_train")
+        log("attn_train dynamic shared memory: " + ", ".join(
+            f"S={s} forward {at_lib.kmr_attn_train_smem_bytes(s, s, 0)} B, backward "
+            f"{at_lib.kmr_attn_train_smem_bytes(s, s, 1)} B" for s in (LX_T, LX_F, S, 64))
+            + f"; the forward a CTA of {at_lib.kmr_attn_train_fwd_warps()} warps, the backward a CTA a (pair, head)")
 
         smoke = Smoke(torch, seed)
         weights = smoke.layer_weights()

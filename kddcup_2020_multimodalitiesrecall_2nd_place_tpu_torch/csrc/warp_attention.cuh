@@ -1,8 +1,10 @@
 // Attention of one head by one warp on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 sums), shared by attn_core.cu and mha.cu: the cp.async,
-// ldmatrix and mma helpers, the key-bias fragments, and the routine in which a
-// warp walks its head's queries 16 rows at a time over keys and values staged
-// in shared memory.
+// bf16 in, f32 sums), shared by attn_core.cu, mha.cu and attn_train.cu: the
+// cp.async, ldmatrix and mma helpers, the key-bias fragments, the tile steps
+// (A fragments of 16 rows, a 16-row product against the rows of another
+// operand, the softmax of a 16-row score tile, one k16 slice of a product with
+// a row-major B operand), and the routine in which a warp walks its head's
+// queries 16 rows at a time over keys and values staged in shared memory.
 //
 // Rounding points (those of the Pallas bodies): f32 scores x scale, + bias,
 // f32 softmax, probs -> bf16, f32 PV accumulation, context -> bf16. A row of
@@ -73,67 +75,123 @@ struct KeyBias {
   __device__ __forceinline__ float operator()(int j, int e) const { return kb[j][e % 2]; }
 };
 
+// The identity on each probability: attn_core's and mha's. attend() hands
+// every probability to such a functor, with its place (m0, j, e), before the
+// probability is rounded into PV's A fragment.
+struct Probs {
+  __device__ __forceinline__ float operator()(int, int, int, float p) const { return p; }
+};
+
+// a: the A fragments of rows [m0, m0 + 16) x 64 of a row-major tile (rows LD apart), k = the 64 columns
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4], const __nv_bfloat16* rows, int m0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) ldmatrix_x4(a[kk], rows + (m0 + lane % 16) * LD + kk * 16 + 8 * (lane / 16));
+}
+
+// s = a @ b^T: the 16 rows of a against rows [0, np) of b (np a multiple of 16), the 64 columns ascending
+// 16 at a time; n8 tile j holds b's rows 8j..8j+7, and the tiles past np stay 0
+template <int LD>
+__device__ __forceinline__ void mma_abt(float (&s)[NT][4], const uint32_t (&a)[DH / 16][4], const __nv_bfloat16* b,
+                                        int np) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+  for (int jp = 0; jp < NT / 2; ++jp) {  // rows [16 jp, 16 jp + 16) of b: two n8 tiles
+    if (16 * jp < np) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, b + (16 * jp + lane % 8 + 8 * (lane / 16)) * LD + kk * 16 + 8 * ((lane / 8) % 2));
+        mma16816(s[2 * jp], a[kk], bf[0], bf[1]);
+        mma16816(s[2 * jp + 1], a[kk], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3) of a 16-row score tile, each row spread
+// over a quad: s <- exp(s * scale + bias(j, e) - the row's max), sum <- the rows' sums of it
+template <typename Bias>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float scale, const Bias& bias, float (&sum)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = s[j][e] * scale + bias(j, e);
+      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    }
+  sum[0] = sum[1] = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - mx[e / 2]);  // 0 past the keys
+      sum[e / 2] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], o);
+  }
+}
+
+// o += pa @ b[16 kt .. 16 kt + 16, 0..64): one k16 slice of a product whose B operand is row-major
+// (rows LD apart, k = its rows), through ldmatrix.trans; pa is the slice's A fragment
+template <int LD>
+__device__ __forceinline__ void mma_slice(float (&o)[DH / 8][4], const uint32_t (&pa)[4], const __nv_bfloat16* b,
+                                          int kt) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int np = 0; np < DH / 16; ++np) {
+    uint32_t bf[4];
+    ldmatrix_x4_trans(bf, b + (16 * kt + lane % 8 + 8 * ((lane / 8) % 2)) * LD + np * 16 + 8 * (lane / 16));
+    mma16816(o[2 * np], pa, bf[0], bf[1]);
+    mma16816(o[2 * np + 1], pa, bf[2], bf[3]);
+  }
+}
+
+// The 16 x 64 accumulator tile o, rounded to bf16, over rows [m0, m0 + 16) of a row-major tile
+template <int LD>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* rows, int m0, const float (&o)[DH / 8][4]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(rows + (m0 + g + 8 * h) * LD + 8 * j + 2 * t) = pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+}
+
 // One warp: for the query rows [0, qp) of one head,
-//   ctx = bf16( bf16(softmax(q k^T * scale + bias)) @ v ),
+//   ctx = bf16( bf16(prob(softmax(q k^T * scale + bias))) @ v ),
 // each 16-row tile's context written back over its (consumed) q rows. q, k, v
 // point at the head's column 0 in shared memory, rows LD elements apart (LD * 2
 // bytes a multiple of 16); qp and kp are multiples of 16, and the k and v rows
 // past the keys are zero. Before each tile's products the routine calls
 // bias.load(m0) (tile rows m0..m0+15); score element e of key tile j (rows
 // m0 + g + 8 * (e / 2), key 8j + 2t + e % 2, the accumulator's order) then
-// gets bias(j, e) added, which must be -inf for a key past the last.
-template <int LD, typename Bias>
+// gets bias(j, e) added, which must be -inf for a key past the last, and its
+// probability p becomes prob(m0, j, e, p) before it is rounded to bf16.
+template <int LD, typename Bias, typename Prob = Probs>
 __device__ __forceinline__ void attend(__nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, int qp,
-                                       int kp, float scale, Bias& bias) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // the fragments' row and column pair
+                                       int kp, float scale, Bias& bias, const Prob& prob = Prob()) {
   for (int m0 = 0; m0 < qp; m0 += 16) {
     bias.load(m0);
     uint32_t qa[DH / 16][4];  // the A fragments of the 16 query rows, k = head dim
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) ldmatrix_x4(qa[kk], q + (m0 + lane % 16) * LD + kk * 16 + 8 * (lane / 16));
+    load_a<LD>(qa, q, m0);
     float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {  // keys [16 jp, 16 jp + 16): two n8 tiles
-      if (16 * jp < kp) {
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {  // head dim ascending, 16 at a time
-          uint32_t kf[4];
-          ldmatrix_x4(kf, k + (16 * jp + lane % 8 + 8 * (lane / 16)) * LD + kk * 16 + 8 * ((lane / 8) % 2));
-          mma16816(s[2 * jp], qa[kk], kf[0], kf[1]);
-          mma16816(s[2 * jp + 1], qa[kk], kf[2], kf[3]);
-        }
-      }
-    }
-    // softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3), each spread over a quad
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = s[j][e] * scale + bias(j, e);
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - mx[e / 2]);  // 0 past the keys
-        sum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], o);
-    }
+    mma_abt<LD>(s, qa, k, kp);
+    float sum[2];
+    softmax_tile(s, scale, bias, sum);
     // ctx = bf16(probs) @ V, keys ascending 16 at a time
     float o[DH / 8][4];
 #pragma unroll
@@ -141,25 +199,16 @@ __device__ __forceinline__ void attend(__nv_bfloat16* q, const __nv_bfloat16* k,
 #pragma unroll
     for (int kt = 0; kt < NT / 2; ++kt) {
       if (16 * kt < kp) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kt][0] / sum[0], s[2 * kt][1] / sum[0]),
-                                pack_bf16(s[2 * kt][2] / sum[1], s[2 * kt][3] / sum[1]),
-                                pack_bf16(s[2 * kt + 1][0] / sum[0], s[2 * kt + 1][1] / sum[0]),
-                                pack_bf16(s[2 * kt + 1][2] / sum[1], s[2 * kt + 1][3] / sum[1])};
-#pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, v + (16 * kt + lane % 8 + 8 * ((lane / 8) % 2)) * LD + np * 16 + 8 * (lane / 16));
-          mma16816(o[2 * np], pa, vf[0], vf[1]);
-          mma16816(o[2 * np + 1], pa, vf[2], vf[3]);
-        }
+        const int j0 = 2 * kt, j1 = 2 * kt + 1;
+        const uint32_t pa[4] = {pack_bf16(prob(m0, j0, 0, s[j0][0] / sum[0]), prob(m0, j0, 1, s[j0][1] / sum[0])),
+                                pack_bf16(prob(m0, j0, 2, s[j0][2] / sum[1]), prob(m0, j0, 3, s[j0][3] / sum[1])),
+                                pack_bf16(prob(m0, j1, 0, s[j1][0] / sum[0]), prob(m0, j1, 1, s[j1][1] / sum[0])),
+                                pack_bf16(prob(m0, j1, 2, s[j1][2] / sum[1]), prob(m0, j1, 3, s[j1][3] / sum[1]))};
+        mma_slice<LD>(o, pa, v, kt);
       }
     }
     __syncwarp();  // every lane's q fragments are loaded: the rows take the context
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(q + (m0 + g + 8 * h) * LD + 8 * j + 2 * t) = pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+    store_tile<LD>(q, m0, o);
   }
 }
 

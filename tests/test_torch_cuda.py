@@ -648,6 +648,134 @@ def test_cuda_attn_train_drops_the_hash_units(cuda):
     assert torch.equal(got == 0, ~keep) and torch.equal(want == 0, ~keep)
 
 
+# the train attention kernels on the tensor cores: 16-row tiles, so lengths on each side of 16 and 32,
+# the longest, and a one-key row; head counts 1, 3 and 12; B * N = 7 * 3 = 21 forward items, one more
+# than a multiple of the forward's items a CTA, so its last CTA has one live warp
+TRAIN_LENGTHS = [1, 15, 16, 17, 33, 40, 64]
+TRAIN_PAIRS = [(23, 10), (10, 23), (64, 1), (1, 64)]
+TRAIN_MASKS = ["no-mask", "all-masked-pair"]
+TRAIN_HEADS = [(8, 12, 4), (7, 3, 7), (7, 1, 1)]  # (B, N, block)
+
+
+def _attn_train_edge_case(device, seed, b, sq, sk, n, masks):
+    """q [b*sq, 3H] (self: the QKV buffer), kv [b*sk, 2H], a ragged key mask of sk keys with pair 0's keys
+    all masked (or None), dctx [b*sq, H]; H = n * 64."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h = n * 64
+    qkv, kv, dctx = (torch.randn(*shape, generator=g) for shape in ((b * sq, 3 * h), (b * sk, 2 * h), (b * sq, h)))
+    bias = None
+    if masks != "no-mask":
+        m = (torch.rand(b, sk, generator=g) > 0.3).float()
+        m[:, 0] = 1.0
+        m[0] = 0.0
+        bias = mask_to_bias(m).to(device)
+    return [z.to(device, torch.bfloat16) for z in (qkv, kv)] + [bias, dctx.to(device, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("masks", TRAIN_MASKS)
+@pytest.mark.parametrize("rate", TRAIN_RATES)
+@pytest.mark.parametrize("s", TRAIN_LENGTHS)
+def test_cuda_attn_train_lengths_match_plain(cuda, s, rate, masks):
+    """Self-attention forward and backward at each length, 8 pairs, 12 heads: query rows past S are
+    padding of the 16-row tiles, keys past S are -inf and draw nothing, an all-masked pair gets an
+    ordinary softmax."""
+    qkv, _, bias, dctx = _attn_train_edge_case(cuda, 30, 8, s, s, 12, masks)
+    args = (8, s, 12, 55, rate, 4)
+    got = kernels.attn_train(qkv, bias, *args)
+    assert got.shape == (8 * s, 768)
+    assert within_band(got, kernels.attn_train_plain(qkv, bias, *args))
+    assert within_band(kernels.attn_train_bwd(qkv, dctx, bias, *args),
+                       kernels.attn_train_bwd_plain(qkv, dctx, bias, *args))
+
+
+@pytest.mark.parametrize("masks", TRAIN_MASKS)
+@pytest.mark.parametrize("rate", TRAIN_RATES)
+@pytest.mark.parametrize("f,t", TRAIN_PAIRS, ids=[f"{a}<-{b}" for a, b in TRAIN_PAIRS])
+def test_cuda_attn_train_cross_lengths_match_plain(cuda, f, t, rate, masks):
+    """Cross attention with Sq != Sk (queries and keys padded apart), forward and backward, 8 pairs."""
+    qkv, kv, bias, dctx = _attn_train_edge_case(cuda, 31, 8, f, t, 12, masks)
+    q = qkv[:, :768].contiguous()
+    args = (8, f, t, 12, 55, rate, 8)
+    assert within_band(kernels.attn_train_cross(q, kv, bias, *args), kernels.attn_train_cross_plain(q, kv, bias, *args))
+    got = kernels.attn_train_cross_bwd(q, kv, dctx, bias, *args)
+    want = kernels.attn_train_cross_bwd_plain(q, kv, dctx, bias, *args)
+    assert got[0].shape == (8 * f, 768) and got[1].shape == (8 * t, 2 * 768)
+    assert within_band(got[0], want[0]) and within_band(got[1], want[1])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,block", TRAIN_HEADS, ids=[f"B{b}-N{n}" for b, n, _ in TRAIN_HEADS])
+def test_cuda_attn_train_head_counts_match_plain(cuda, b, n, block, rate):
+    """Any head count, and B * N forward items that leave the last CTA ragged; self at S=17 and cross at
+    40<-23, with the key mask."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import _build
+
+    if b == 7 and n == 3:
+        assert b * n % _build.load("attn_train").kmr_attn_train_fwd_warps() == 1
+    h = n * 64
+    qkv, _, bias, dctx = _attn_train_edge_case(cuda, 32, b, 17, 17, n, "all-masked-pair")
+    args = (b, 17, n, 9, rate, block)
+    assert within_band(kernels.attn_train(qkv, bias, *args), kernels.attn_train_plain(qkv, bias, *args))
+    assert within_band(kernels.attn_train_bwd(qkv, dctx, bias, *args),
+                       kernels.attn_train_bwd_plain(qkv, dctx, bias, *args))
+    qkv, kv, bias, dctx = _attn_train_edge_case(cuda, 33, b, 40, 23, n, "all-masked-pair")
+    q = qkv[:, :h].contiguous()
+    args = (b, 40, 23, n, 9, rate, block)
+    assert within_band(kernels.attn_train_cross(q, kv, bias, *args), kernels.attn_train_cross_plain(q, kv, bias, *args))
+    for got, want in zip(kernels.attn_train_cross_bwd(q, kv, dctx, bias, *args),
+                         kernels.attn_train_cross_bwd_plain(q, kv, dctx, bias, *args)):
+        assert within_band(got, want)
+
+
+def test_cuda_attn_train_is_deterministic(cuda):
+    """No atomics: two runs of each entry point give the same bits."""
+    qkv, kv, bias, dctx = _attn_train_edge_case(cuda, 34, 8, 40, 23, 12, "all-masked-pair")
+    q = qkv[:, :768].contiguous()
+    self_qkv, _, self_bias, self_dctx = _attn_train_edge_case(cuda, 35, 8, 40, 40, 12, "all-masked-pair")
+
+    def cross_bwd():
+        dq, dkv = kernels.attn_train_cross_bwd(q, kv, dctx, bias, 8, 40, 23, 12, 3, 0.1, 8)
+        return torch.cat([dq.flatten(), dkv.flatten()])
+
+    runs = [
+        lambda: kernels.attn_train(self_qkv, self_bias, 8, 40, 12, 3, 0.1, 8),
+        lambda: kernels.attn_train_bwd(self_qkv, self_dctx, self_bias, 8, 40, 12, 3, 0.1, 8),
+        lambda: kernels.attn_train_cross(q, kv, bias, 8, 40, 23, 12, 3, 0.1, 8),
+        cross_bwd,
+    ]
+    for run in runs:
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("s", [17, 64])
+def test_cuda_attn_train_drops_the_hash_units_at_tile_edges(cuda, s):
+    """With V = I per head, ctx holds the dropped probabilities; with dctx = I per head, dV holds their
+    transpose: the forward and backward kernels zero exactly the units of head h's draw, at rate 0.5, at a
+    length one past a tile and at the longest, and the backward recomputes the forward's dropped
+    probabilities bit for bit."""
+    b, n = 8, 12
+    qkv, _, _, _ = _attn_train_edge_case(cuda, 36, b, s, s, n, "no-mask")
+    eye = torch.zeros(b, s, n, 64, device=cuda)
+    eye[:, torch.arange(s), :, torch.arange(s)] = 1.0
+    eye = eye.reshape(b * s, n * 64).to(torch.bfloat16)
+    qkv[:, 2 * n * 64:] = eye
+    keep = dropout.cross_probs_keep(123, 0.5, b, n, s, s, 8, cuda)
+    probs = []
+    for fn in (kernels.attn_train, kernels.attn_train_plain):
+        probs.append(fn(qkv, None, b, s, n, 123, 0.5, 8).reshape(b, s, n, 64)[..., :s].permute(0, 2, 1, 3))
+        torch.cuda.synchronize()
+        assert torch.equal(probs[-1] == 0, ~keep)
+    dvs = []
+    for fn in (kernels.attn_train_bwd, kernels.attn_train_bwd_plain):
+        dv = fn(qkv, eye, None, b, s, n, 123, 0.5, 8)[:, 2 * n * 64:]
+        dvs.append(dv.reshape(b, s, n, 64)[..., :s].permute(0, 2, 3, 1))  # [b, n, query, key]
+        torch.cuda.synchronize()
+        assert torch.equal(dvs[-1] == 0, ~keep)
+    assert torch.equal(probs[0], dvs[0])  # the kernels' forward and backward probsd
+
+
 def _train_block_case(device, kind, seed, b=8, s=40, h=768, i=3072):
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(b, s, h, generator=g).to(device, torch.bfloat16)
