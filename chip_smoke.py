@@ -17,10 +17,15 @@
    mask, tanh GELU), S=30 (ImageBERT-B's masks, some pairs with every key past
    the query masked, tanh), S=23 and S=10 (LXMERT's masks, erf), and the
    GEMM's "f32" epilogue at ImageBERT-B's label-conv shape; timed at B=512,
-   S=30 beside the two blocks they replace.
+   S=30 beside the two blocks they replace. And the full-bias instance of
+   ``attn_core`` / ``attn_core_cross`` (a head-shared [B, Sq, Sk] bias, the
+   blocks' [B, 1, S, S] / [B, 1, F, T]): held to its plain version at S=40 and
+   at LXMERT's 23<-10 and 10<-23, through both blocks, and a key mask spread over
+   every query through it equal to the key-mask instance bit for bit; timed at
+   B=512 beside SDPA with the same mask (no model path feeds a full bias).
 3. Full-width scoring, three models, each a 2048-row synthetic TSV scored end
    to end through ``ScoringEngine`` (bf16, batch 512, random weights from
-   the seed): ImageBERT-A (12 x 768); LXMERT (9/5/5 x 768) on its default
+   the seed, the native parser inline, the engine's default loader): ImageBERT-A (12 x 768); LXMERT (9/5/5 x 768) on its default
    route, with ``KMR_DUAL_CROSS=1`` and with ``KMR_FUSED_LAYER=1``;
    ImageBERT-B (12 x 768, S=30, AM head) on its default route and with
    ``KMR_FUSED_LAYER=1``, and ImageBERT-C (B with the sen2forest query
@@ -105,6 +110,22 @@
    on the kernel route with the split device time and the launch counters
    exact at every step; two profiled steps (the table in
    ``build/smoke/train/lxmert_profile.txt``).
+7. The host loaders and the one-shot run. A testB-like TSV of ONE_SHOT_ROWS
+   rows from the seed (~58 pairs a query, each product under 1-3 queries,
+   the sen2forest trigger in a tenth of the queries, one malformed row that
+   must count as a parse error): ImageBERT-A at full width scores it through
+   each host loader (the per-example Python path, the native parser inline,
+   ``MultiWorkerLoader`` at 2 and at W = max(2, min(8, os.cpu_count() // 2))
+   workers), with the launch counters set to 0 before each run and read after
+   it; each loader's rows/s alone (no model), its end-to-end pairs/s, and the
+   device's pairs/s on the same batches staged; the scores of all runs equal
+   bit for bit. Then ``cli/main.py`` as a subprocess on the card (bf16,
+   ``--workers W``, A's weights those of the runs here, B's and LXMERT's the
+   CLI's seed-0 init): four score files of every valid pair, ImageBERT-A's
+   equal to the in-process scores bit for bit, a ``submission.csv`` with a row
+   for each query, and ``ensemble.vectorized.build_submission_vectorized`` on the card
+   (float64) giving its rows, with the dedup filter keeping some pairs and
+   dropping others; each scorer's wall and engine seconds and the total.
 
 The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
 launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
@@ -136,6 +157,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -182,6 +204,9 @@ CPU_SCORE_BAND = 5e-2  # bf16 kernels vs the f32 plain path on the CPU
 MHA_F32_BAND = 1e-5  # the f32 mha kernels vs their plain versions: summation order only, abs
 F32_SCORE_BAND = 1e-4  # the f32 "xla" route vs the f32 truth (plain blocks in f32), scores on the card
 N_ROWS, SEED = 2048, 0
+# phase 7: a testB-like TSV (~58 pairs a query, products under 1-3 queries, ~59 KB a row), and the
+# time limit of its one-shot subprocess
+ONE_SHOT_ROWS, ONE_SHOT_TIMEOUT_S = 8192, 600
 # training: ImageBERT-A's batch (scripts/train.py:55), a check batch, the steps of the path
 TRAIN_B, TRAIN_CHECK_B, TRAIN_STEPS, TRAIN_RATE = 256, 32, 10, 0.1
 # the train blocks vs their plain oracles' autograd, bf16: the oracle rounds its weight and GELU gradients
@@ -425,6 +450,16 @@ class Smoke:
         }
         return w
 
+    def full_bias(self, b: int, sq: int, sk: int):
+        """A head-shared [b, sq, sk] f32 bias from its own generator (the other draws keep their
+        sequence): normal, with a quarter of the entries at -10000 (key 0 of every query live)."""
+        torch = self.torch
+        gen = torch.Generator(device="cpu").manual_seed(self.seed + 11 + sq * 100 + sk)
+        bias = torch.randn(b, sq, sk, generator=gen)
+        masked = torch.rand(b, sq, sk, generator=gen) < 0.25
+        masked[..., 0] = False
+        return bias.masked_fill(masked, -10000.0).to(self.dev)
+
     def check_kernels(self, w) -> None:
         from importlib import import_module
 
@@ -452,11 +487,19 @@ class Smoke:
         for label, kb in (("no bias", None), ("key mask", key_bias)):
             self.check(f"attn_core [{label}]", "attn_core", k.attn_core(qkv, kb, CHECK_B, S, N),
                        k.attn_core_plain(qkv, kb, CHECK_B, S, N), CARD_ATOL, CARD_RTOL)
+        # the full-bias instance: a random head-shared [B, S, S] bias, and the key mask spread over every
+        # query, which must give the key-mask instance's output bit for bit
+        full = self.full_bias(CHECK_B, S, S)
+        self.check("attn_core [full bias]", "attn_core", k.attn_core(qkv, full, CHECK_B, S, N),
+                   k.attn_core_plain(qkv, full, CHECK_B, S, N), CARD_ATOL, CARD_RTOL)
+        spread = key_bias[:, None, :].expand(CHECK_B, S, S).contiguous()
+        self.check("attn_core [key mask as a full bias == key mask]", "attn_core",
+                   k.attn_core(qkv, spread, CHECK_B, S, N), k.attn_core(qkv, key_bias, CHECK_B, S, N), 0.0)
         y = self.randn(m, H, scale=2.0) + 0.5
         self.check("layernorm", "layernorm", k.layernorm(y, w["gamma"], w["beta"]),
                    k.layernorm_plain(y, w["gamma"], w["beta"], out_dtype=torch.bfloat16), CARD_ATOL, CARD_RTOL)
         aw = [w[n] for n in ("wqkv", "bqkv", "wo", "bo", "gamma", "beta")]
-        for label, kb in (("no bias", None), ("key mask", key_bias)):
+        for label, kb in (("no bias", None), ("key mask", key_bias), ("full bias [B,1,S,S]", full[:, None])):
             self.check(f"attention_block [{label}]", "attention_block", ab.attention_block(x, *aw, N, kb),
                        ab.attention_block_plain(x, *aw, N, kb), CARD_ATOL, CARD_RTOL)
         fw = [w[n] for n in ("w1", "b1", "w2", "b2", "gamma", "beta")]
@@ -548,6 +591,11 @@ class Smoke:
         self.time_row(rows, "attn_core", "attn_core", lambda: k.attn_core(qkv, None, b, S, N), lambda: k.attn_core_plain(qkv, None, b, S, N),
             sdpa_library(torch, q, kk_, v), m * 3 * H * 2 + m * H * 2,
             4.0 * b * N * S * S * 64, PEAK_BF16_FLOPS)
+        full = self.full_bias(b, S, S)
+        self.time_row(rows, f"attn_core S={S} full bias", "attn_core", lambda: k.attn_core(qkv, full, b, S, N),
+                      lambda: k.attn_core_plain(qkv, full, b, S, N),
+                      sdpa_library(torch, q, kk_, v, full.to(torch.bfloat16)[:, None]),
+                      m * 3 * H * 2 + m * H * 2 + nbytes_of((full,)), 4.0 * b * N * S * S * 64, PEAK_BF16_FLOPS)
         y = self.randn(m, H)
         self.time_row(rows, "layernorm", "layernorm", lambda: k.layernorm(y, w["gamma"], w["beta"]),
             lambda: k.layernorm_plain(y, w["gamma"], w["beta"], out_dtype=torch.bfloat16),
@@ -683,6 +731,10 @@ class Smoke:
         ):
             self.check(f"attn_core_cross [{label}]", "attn_core_cross", k.attn_core_cross(q, kv, bias, b, sq, sk, N),
                        k.attn_core_cross_plain(q, kv, bias, b, sq, sk, N), *band)
+            full = self.full_bias(b, sq, sk)
+            self.check(f"attn_core_cross [{label}, full bias]", "attn_core_cross",
+                       k.attn_core_cross(q, kv, full, b, sq, sk, N), k.attn_core_cross_plain(q, kv, full, b, sq, sk, N),
+                       *band)
         pairs = zip(("lang<-visn", "visn<-lang"), k.attn_core_dual(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N),
                     k.attn_core_dual_plain(lqkv, vqkv, lb, vb, b, LX_F, LX_T, N))
         for label, got, want in pairs:
@@ -691,6 +743,10 @@ class Smoke:
             self.check(f"cross_attention_block [{label}]", "cross_attention_block",
                        cb.cross_attention_block(x, ctx, *cw, N, bias),
                        cb.cross_attention_block_plain(x, ctx, *cw, N, bias), *band)
+            full = self.full_bias(b, x.shape[1], ctx.shape[1])[:, None]
+            self.check(f"cross_attention_block [{label}, full bias [B,1,F,T]]", "cross_attention_block",
+                       cb.cross_attention_block(x, ctx, *cw, N, full),
+                       cb.cross_attention_block_plain(x, ctx, *cw, N, full), *band)
         pairs = zip(("lang", "visn"), db.dual_cross_attention_block(lang, visn, *dw, N, lb, vb),
                     db.dual_cross_attention_block_plain(lang, visn, *dw, N, lb, vb))
         for label, got, want in pairs:
@@ -748,6 +804,12 @@ class Smoke:
                           lambda q=q, kv=kv, bias=bias, sq=sq, sk=sk: k.attn_core_cross_plain(q, kv, bias, b, sq, sk, N),
                           sdpa[label], nbytes_of((q, kv, bias)) + b * sq * H * 2, 4.0 * b * N * sq * sk * 64,
                           PEAK_BF16_FLOPS)
+            full = self.full_bias(b, sq, sk)
+            self.time_row(rows, f"attn_core_cross {label} full bias", "attn_core_cross",
+                          lambda q=q, kv=kv, full=full, sq=sq, sk=sk: k.attn_core_cross(q, kv, full, b, sq, sk, N),
+                          lambda q=q, kv=kv, full=full, sq=sq, sk=sk: k.attn_core_cross_plain(q, kv, full, b, sq, sk, N),
+                          sdpa_library(torch, qh, kh, vh, full.to(torch.bfloat16)[:, None]),
+                          nbytes_of((q, kv, full)) + b * sq * H * 2, 4.0 * b * N * sq * sk * 64, PEAK_BF16_FLOPS)
             x2d, c2d, y = x.reshape(b * sq, H), ctx.reshape(b * sk, H), self.randn(b * sq, H)
 
             def lib(x2d=x2d, c2d=c2d, q=q, y=y, s=sdpa[label]):  # the five launches' library calls
@@ -2355,6 +2417,161 @@ class Smoke:
             f"kernels' sum over the CUDA-event step time)")
         return launches, rates
 
+    # ---- phase 7: the host loaders and the one-shot run -------------------------
+
+    def one_shot(self, n_rows: int = ONE_SHOT_ROWS) -> tuple[dict[str, dict], int, dict]:
+        """ImageBERT-A at full width over a testB-like TSV through each host loader (the
+        per-example Python path, the native parser inline, 2 and W worker processes): each
+        loader's rows/s alone, its end-to-end pairs/s, the launches of each run and its scores,
+        which must be bit-equal across the loaders; the device's rate on the same batches. Then
+        ``cli/main.py`` as a subprocess (four scorers, bf16, --workers W, A's weights those of
+        the runs here) and the device fusion against its submission."""
+        from importlib import import_module
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        fast = import_module(f"{PKG}.data.fast_pipeline")
+        multiworker = import_module(f"{PKG}.data.multiworker")
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        models = import_module(f"{PKG}.models")
+        imagebert_a = import_module(f"{PKG}.models.imagebert_a")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+        ensemble = import_module(f"{PKG}.ensemble")
+        vectorized = import_module(f"{PKG}.ensemble.vectorized")
+        tok = import_module(f"{PKG}.tokenization")
+
+        work = pkg.BUILD_DIR / "smoke" / "oneshot"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        t0 = time.perf_counter()
+        tsv = work / "testB.tsv"
+        tsv.write_text("\n".join(synthetic.make_testb_tsv(n_rows, seed=self.seed)) + "\n")
+        labels = work / "labels.txt"
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        spec = models.get_model("imagebert_a")
+        cfg = spec.config
+        if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads) != (H, 12, N):
+            raise RuntimeError(f"not the full-width config: {cfg} (is KMR_CONFIG_OVERRIDES set?)")
+        params = spec.init_params(self.seed)
+        engine = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=models.Precision.bf16())
+        featurizer = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH),
+                                     data.load_multimodal_labels(labels))
+        cpus = os.cpu_count() or 2
+        workers = max(2, min(8, cpus // 2))
+        loaders = {"python": {"use_native": False, "num_workers": 0}, "native": {"use_native": True, "num_workers": 0},
+                   "workers_2": {"use_native": True, "num_workers": 2},
+                   f"workers_{workers}": {"use_native": True, "num_workers": workers}}
+        log(f"phase 7 setup: {n_rows}-row testB-like TSV ({tsv.stat().st_size / 1e6:.1f} MB) and "
+            f"{cfg.num_hidden_layers}x{cfg.hidden_size} params in {time.perf_counter() - t0:.1f} s; "
+            f"os.cpu_count() = {cpus}, W = {workers}")
+
+        def loader(cfg_, stats):
+            if cfg_["num_workers"]:
+                return iter(multiworker.MultiWorkerLoader([tsv], featurizer, "imagebert_a", MAIN_B,
+                                                          num_workers=cfg_["num_workers"], stats=stats))
+            if cfg_["use_native"]:
+                return fast.native_batches_from_files([tsv], featurizer, "imagebert_a", MAIN_B, stats=stats)
+            return data.batches_from_files([tsv], featurizer.imagebert_a, MAIN_B, stats=stats, prefetch=0)
+
+        alone = {}
+        for name, cfg_ in loaders.items():  # the loader alone, no model
+            stats = data.PipelineStats()
+            t0 = time.perf_counter()
+            rows = sum(int(bt["valid"].sum()) for bt in loader(cfg_, stats))
+            sec = time.perf_counter() - t0
+            alone[name] = {"rows": rows, "seconds": sec, "rows_per_second": rows / sec, "parse_errors": stats.errors}
+            log(f"loader {name} alone: {rows} rows in {sec:.3f} s = {rows / sec:.1f} rows/s, "
+                f"{stats.errors} parse error(s)")
+            if rows != n_rows or stats.errors != 1:
+                raise RuntimeError(f"loader {name}: {rows} rows and {stats.errors} parse errors, expected {n_rows} and 1")
+
+        batches = list(fast.native_batches_from_files([tsv], featurizer, "imagebert_a", MAIN_B))
+        engine.score_batch(batches[0])  # warm-up
+        staged = [engine.to_device(bt) for bt in batches]
+        with torch.inference_mode(), packed_route():
+            dev_ms = cuda_ms(torch, lambda: [imagebert_a.score(engine.params, bt, cfg, engine.precision)
+                                             for bt in staged], iters=2, warmup=1)
+        n_pad = len(batches) * MAIN_B
+        del staged
+        log(f"device: model alone {dev_ms:.3f} ms for {n_pad} padded pairs = {n_pad / dev_ms * 1e3:.1f} pairs/s")
+
+        counted = launch_counters()
+        launches, results, e2e = {}, {}, {}
+        for name, cfg_ in loaders.items():
+            for w in counted:
+                w.launches = 0
+            stats = engine_mod.ScoringStats()
+            results[name] = engine.score_files([tsv], featurizer, MAIN_B, stats=stats, **cfg_)
+            torch.cuda.synchronize()
+            launches[f"imagebert_a_testb_{name}"] = {w.__name__: w.launches for w in counted}
+            e2e[name] = {"pairs": stats.pairs, "batches": stats.batches, "seconds": stats.seconds,
+                         "pairs_per_second": stats.pairs_per_second, "parse_errors": stats.pipeline.errors}
+            log(f"end to end, loader {name}: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
+                f"{stats.pairs_per_second:.1f} pairs/s")
+            if (stats.pairs, stats.batches, stats.pipeline.errors) != (n_rows, len(batches), 1):
+                raise RuntimeError(f"loader {name}: {stats.pairs} pairs, {stats.batches} batches, "
+                                   f"{stats.pipeline.errors} parse errors")
+        ref = results["native"]
+        scores = torch.tensor([s for row in ref.values() for s in row.values()])
+        if not bool(torch.isfinite(scores).all()) or len(scores) != n_rows:
+            raise RuntimeError("the scores are not finite or not one a pair")
+        unequal = [name for name, res in results.items() if res != ref]
+        log(f"scores: the {len(results)} loaders' runs bit-equal: {not unequal}")
+        if unequal:
+            raise RuntimeError(f"the scores of loaders {unequal} differ from the native loader's")
+
+        # the one-shot run: cli/main.py, A's weights those above (the other scorers the CLI's own seed-0 init)
+        checkpoint.save_npz(work / "a.npz", checkpoint.params_to_jax(params))
+        cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--tsv", str(tsv), "--labels", str(labels),
+               "--checkpoint-a", str(work / "a.npz"), "--workers", str(workers), "--batch-size", str(MAIN_B),
+               "--expect-pairs", str(n_rows), "--workdir", str(work / "run"), "--device", "cuda"]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=REPO, timeout=ONE_SHOT_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for line in r.stdout.strip().splitlines():
+            log(f"one-shot: {line}")
+        if r.returncode != 0:
+            log(r.stderr[-4000:])
+            raise RuntimeError(f"cli/main.py exited {r.returncode}")
+        summary = json.loads(r.stdout.strip().splitlines()[-1])
+        run = work / "run"
+        tables = [ensemble.load_tsv_scores(run / "testB_score_b.txt"), ensemble.load_tsv_scores(run / "testB_score_c.txt"),
+                  ensemble.load_tsv_scores(run / "testB_score_a.txt"),
+                  ensemble.load_csv_scores(run / "testB_score_lxmert.csv")]
+        counts = [sum(len(row) for row in t.values()) for t in tables]
+        if counts != [n_rows] * 4:
+            raise RuntimeError(f"the score files hold {counts} pairs, expected {n_rows} each")
+        if tables[2] != ref:
+            raise RuntimeError("cli/main.py's ImageBERT-A scores differ from the in-process run's")
+        rows = ensemble.read_submission(run / "submission.csv")
+        if len(rows) != len(ref):
+            raise RuntimeError(f"submission.csv has {len(rows)} queries, the TSV {len(ref)}")
+        t0 = time.perf_counter()
+        device_rows = vectorized.build_submission_vectorized(*tables, device=self.dev)
+        fusion_device_s = time.perf_counter() - t0
+        if device_rows != rows:
+            raise RuntimeError("the device fusion's rows differ from the dict path's submission.csv")
+        _, _, _, pcodes, n_products, merged = vectorized.tables_to_arrays(*tables)
+        _, keep = vectorized.fusion_filter_device(torch.from_numpy(merged).to(self.dev),
+                                                torch.from_numpy(pcodes).to(self.dev), n_products)
+        kept = int(keep.sum())
+        log(f"fusion: {len(rows)} queries, the dedup filter kept {kept} of {n_rows} pairs ({kept / n_rows:.4f}) over "
+            f"{n_products} products; device fusion {fusion_device_s:.3f} s, the same rows as submission.csv")
+        if not 0 < kept < n_rows:
+            raise RuntimeError(f"the dedup filter kept {kept} of {n_rows} pairs")
+        for model, b in summary["breakdown"].items():
+            log(f"one-shot {model}: wall {b['wall_s']} s, engine {b.get('engine_s')} s, loader {b.get('loader')}")
+        log(f"one-shot total: {summary['total_wall_s']} s ({wall:.2f} s with the process)")
+        rates = {"rows": n_rows, "tsv_bytes": tsv.stat().st_size, "cpu_count": cpus, "workers": workers,
+                 "loader_alone": alone, "end_to_end": e2e, "device_ms": dev_ms, "device_pairs": n_pad,
+                 "device_pairs_per_second": n_pad / dev_ms * 1e3, "one_shot": summary, "one_shot_wall_s": wall,
+                 "queries": len(rows), "kept_pairs": kept, "products": n_products,
+                 "fusion_device_s": fusion_device_s}
+        return launches, len(batches), rates
+
     @staticmethod
     def ranking_agreement(batches, kern, plain) -> tuple[int, int]:
         keys = [(q, p) for bt in batches for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok]
@@ -2523,7 +2740,8 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
             out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
                                        f"512-pair ImageBERT-B batch"}
             out[-1]["train_launches"] = {row: times[row] for row in times if row.startswith("gemm_bf16 train ")}
-        if name.startswith("mha") or name in ("attn_core", "layer_tail", "attn_train", "attn_train_bwd"):
+        if name.startswith("mha") or name in ("attn_core", "attn_core_cross", "layer_tail", "attn_train",
+                                              "attn_train_bwd"):
             out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
         if all("device_ms" in r for r in rs):  # the device's time alone and the host's enqueue, beside "ms"
             out[-1].update({key: sum(r[key] for r in rs) for key in ("device_ms", "library_device_ms", "host_enqueue_us")})
@@ -2768,9 +2986,15 @@ def main(argv: list[str] | None = None) -> int:
         if lx_train_launches != expected:
             raise RuntimeError(f"lxmert_train launches {lx_train_launches}, expected {expected}")
         log(json.dumps({"train_lxmert": lx_train_rates}))
+        ot_launches, ot_batches, ot_rates = smoke.one_shot()
+        for path, counts in ot_launches.items():
+            expected = expected_launches(ot_batches, PER_BATCH["imagebert_a"])
+            if counts != expected or ot_batches == 0:
+                raise RuntimeError(f"{path} launches {counts}, expected {expected}")
+        log(json.dumps({"one_shot": ot_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
                         "mha_packed_entry": packed, "imagebert_a_train": train_launches,
-                        "lxmert_train": lx_train_launches}
+                        "lxmert_train": lx_train_launches, **ot_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:

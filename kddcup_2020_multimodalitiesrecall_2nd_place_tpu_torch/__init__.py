@@ -9,9 +9,12 @@ PyTorch version beside it (``ops/``).
 Ported so far: scoring with all four scorers, ImageBERT-A, -B, -C and LXMERT
 (tokenizers, data layer, models, scoring engine, ``cli/score.py``), under
 each attention backend, the AOT serving export (``serving/``,
-``cli/export.py``), and ImageBERT-A training (``data/sampling.py``,
-``ops/train_blocks.py``, ``train/``, ``cli/train.py``). ROADMAP.md lists what
-is still to come.
+``cli/export.py``), ImageBERT-A and LXMERT training (``data/sampling.py``,
+``ops/train_blocks.py``, ``train/``, ``cli/train.py``), the native TSV parser
+and the multi-process loader (``data/native/``, ``data/fast_pipeline.py``,
+``data/multiworker.py``), and the one-shot run, four scorers fused into the
+top-5 submission (``ensemble/``, ``cli/submission.py``, ``cli/main.py``).
+ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,10 @@ self-attention + FFN, as one fused encoder layer.
 Runs on the card by default (bf16, through the CUDA kernels of the
 "pallas_packed" attention backend); ``--precision f32`` runs the plain f32
 route there ("xla", TF32 off), as the JAX engine does; ``--device cpu`` runs
-the plain versions (f32 by default). Example:
+the plain versions (f32 by default). The host loader is the native parser
+(``data/native``, built with g++ into ``build/native/`` at first use), inline
+on a prefetch thread, or in ``--workers N`` processes: the same batches; the
+report line names the one that ran. Example:
 
   python -m kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli.score \\
       --model imagebert_a --tsv testB.tsv --labels multimodal_labels.txt \\
@@ -34,12 +37,12 @@ from .. import VOCAB_PATH
 from ..checkpoint import load_npz, params_from_jax
 from ..data import Featurizer, load_multimodal_labels
 from ..data.tsv import SEN2FOREST_SRC, is_header
+from ..ensemble import load_tsv_scores
 from ..eval import evaluate_scores, load_answers
 from ..models import Precision, get_model
 from ..parallel import (
     ScoringEngine,
     ScoringStats,
-    load_tsv_scores,
     resolve_device,
     write_scores_csv,
     write_scores_tsv,
@@ -62,16 +65,30 @@ def load_params(path: str | None, spec):
     return spec.from_jax(params_from_jax(tree))
 
 
+def _pair_row(line: str) -> bool:
+    """A row both parsers get past their field checks: nine tab-separated
+    fields, integer ids, and a positive height, width and box count. A row
+    that fails them is a parse error on either loader, never a pair."""
+    arr = line.rstrip("\n").split("\t")
+    if len(arr) < 9:
+        return False
+    try:
+        _, h, w, n, _ = (int(arr[i]) for i in (0, 1, 2, 3, 8))
+    except ValueError:
+        return False
+    return min(h, w, n) > 0
+
+
 def rewritten_rows(tsv_paths, out_path) -> tuple[int, int]:
     """Copy the rows the sen2forest rewrite changes into out_path -> (rows
-    copied, data rows seen). The trigger holds spaces, which the base64
+    copied, pair rows seen). The trigger holds spaces, which the base64
     columns cannot, so a substring test on the raw line is exact."""
     matched = tsv_rows = 0
     with open(out_path, "w", encoding="utf-8") as tmp:
         for path in tsv_paths:
             with open(path, "r", encoding="utf-8") as f:
                 for line in f:
-                    if is_header(line) or not line.strip():
+                    if is_header(line) or not _pair_row(line):
                         continue
                     tsv_rows += 1
                     if SEN2FOREST_SRC in line:
@@ -103,10 +120,10 @@ def main(argv: list[str] | None = None) -> None:
                          "checkpoint; only rows containing 'sen department of' are scored, every "
                          "other score is copied from it. Only with --model imagebert_c.")
     ap.add_argument("--workers", type=int, default=0,
-                    help="host loader worker processes; only 0 (a prefetch thread) is ported")
+                    help="host loader worker processes (0: the native parser inline, on a prefetch thread)")
     args = ap.parse_args(argv)
-    if args.workers:
-        ap.error("--workers > 0 (multi-process loading) is not yet ported, see ROADMAP.md")
+    if args.workers < 0:
+        ap.error("--workers takes a count >= 0")
     if args.delta_from is not None and args.model != "imagebert_c":
         ap.error("--delta-from is only meaningful for --model imagebert_c (C == B + sen2forest rewrite)")
 
@@ -143,7 +160,8 @@ def main(argv: list[str] | None = None) -> None:
             prec = None if args.precision is None else (
                 Precision.f32() if args.precision == "f32" else Precision.bf16())
             engine = ScoringEngine(spec, params, device=device, precision=prec)
-            result = engine.score_files(tsv_paths, featurizer, args.batch_size, stats=stats)
+            result = engine.score_files(tsv_paths, featurizer, args.batch_size, stats=stats,
+                                        num_workers=args.workers)
             if delta_base is not None:
                 for qid, row in result.items():
                     for pid, s in row.items():
@@ -174,6 +192,7 @@ def main(argv: list[str] | None = None) -> None:
         "pairs": total_pairs,
         "pairs_per_second": round(stats.pairs_per_second, 1),
         "parse_errors": stats.pipeline.errors,
+        "loader": f"native, {args.workers} workers" if args.workers else "native",
         "device": str(device),
         "out": args.out,
     }

@@ -1,9 +1,13 @@
 // Per-head attention core of the fused self-, cross- and dual-cross-attention
 // blocks:
-//   ctx[b, :, h] = bf16( bf16(softmax(Q_h K_h^T / sqrt(64) + key_bias[b])) @ V_h )
+//   ctx[b, :, h] = bf16( bf16(softmax(Q_h K_h^T / sqrt(64) + bias[b])) @ V_h )
 // with Q read from one bf16 buffer (Sq rows a pair) and K, V from another
 // (Sk rows a pair), each at its own row stride, written to ctx [B*Sq, H].
-// Head h's q, k and v are the 64 columns at h*64 of their pointers.
+// Head h's q, k and v are the 64 columns at h*64 of their pointers. The bias
+// is f32, shared by the heads: none, a key mask [B, Sk] (read once a warp), or
+// a full [B, Sq, Sk] bias (kmr_attn_core and kmr_attn_cross only; each warp
+// reads its 16-row tile's part at the tile's start), the JAX blocks'
+// broadcast_to(bias, (b, 1, sq, sk)) (ops/pallas_attention.py:544, :780).
 //
 // Entry points (one kernel, three layouts of the projections):
 //   kmr_attn_core   self-attention: q, k, v at columns 0, H, 2H of one
@@ -74,7 +78,7 @@ struct Dir {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  const float* key_bias;  // [B, sk] additive, or null
+  const float* bias;  // additive: [B, sk], or [B, sq, sk] in the FULL instance, or null
   __nv_bfloat16* ctx;     // [B*sq, H]
   int q_ld, kv_ld, sq, sk;
 };
@@ -91,6 +95,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+template <bool FULL>
 __global__ void __launch_bounds__(THREADS)
 attn_core_kernel(Dir d0, Dir d1, int H, float scale) {
   extern __shared__ __align__(16) __nv_bfloat16 sm[];
@@ -107,8 +112,13 @@ attn_core_kernel(Dir d0, Dir d1, int H, float scale) {
   __syncthreads();
 
   const int hc = (threadIdx.x / 32) * DH;  // this warp's head: its columns in the staged rows
-  KeyBias kb(d.key_bias != nullptr ? d.key_bias + (size_t)b * SK : nullptr, 1, SK);
-  attend<LD>(q + hc, k + hc, v + hc, QP, KP, scale, kb);
+  if constexpr (FULL) {
+    QueryKeyBias qkb(d.bias + (size_t)b * SQ * SK, SK, 1, SQ, SK);
+    attend<LD>(q + hc, k + hc, v + hc, QP, KP, scale, qkb);
+  } else {
+    KeyBias kb(d.bias != nullptr ? d.bias + (size_t)b * SK : nullptr, 1, SK);
+    attend<LD>(q + hc, k + hc, v + hc, QP, KP, scale, kb);
+  }
   __syncthreads();
   constexpr int CHUNKS = HPC * DH / 8;
   for (int idx = threadIdx.x; idx < SQ * CHUNKS; idx += THREADS) {
@@ -122,17 +132,18 @@ bool valid(const Dir& d) {
          d.kv_ld % 8 == 0;
 }
 
-// Launches `dirs` (1 or 2) directions over B pairs and num_heads heads.
-int launch(const Dir& d0, const Dir& d1, int dirs, int B, int H, int num_heads, void* stream) {
-  if (B < 1 || B > 65535 || H != num_heads * DH || num_heads % HPC != 0 || !valid(d0) || (dirs == 2 && !valid(d1)))
+// Launches `dirs` (1 or 2) directions over B pairs and num_heads heads; `full`: the biases are [B, sq, sk].
+int launch(const Dir& d0, const Dir& d1, int dirs, bool full, int B, int H, int num_heads, void* stream) {
+  if (B < 1 || B > 65535 || H != num_heads * DH || num_heads % HPC != 0 || !valid(d0) || (dirs == 2 && !valid(d1)) ||
+      (full && (d0.bias == nullptr || dirs != 1)))
     return cudaErrorInvalidValue;
   int bytes = smem_bytes(d0.sq, d0.sk);
   if (dirs == 2 && smem_bytes(d1.sq, d1.sk) > bytes) bytes = smem_bytes(d1.sq, d1.sk);
-  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  void (*kernel)(Dir, Dir, int, float) = full ? &attn_core_kernel<true> : &attn_core_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(num_heads / HPC, B, dirs);
-  attn_core_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(d0, d1, H,
-                                                                                0.125f /* 1/sqrt(64) */);
+  kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(d0, d1, H, 0.125f /* 1/sqrt(64) */);
   return cudaGetLastError();
 }
 
@@ -146,21 +157,23 @@ int kmr_attn_max_seq() { return MAX_S; }
 int kmr_attn_head_dim() { return DH; }
 int kmr_attn_head_group() { return HPC; }
 
-// qkv [B*S, 3H] bf16, key_bias [B, S] f32 or null, ctx [B*S, H] bf16; H = num_heads * 64.
-int kmr_attn_core(const void* qkv, const void* key_bias, void* ctx, int B, int S, int H,
+// qkv [B*S, 3H] bf16, bias f32 [B, S] (full_bias 0) or [B, S, S] (full_bias 1) or null,
+// ctx [B*S, H] bf16; H = num_heads * 64.
+int kmr_attn_core(const void* qkv, const void* bias, int full_bias, void* ctx, int B, int S, int H,
                   int num_heads, void* stream) {
-  const Dir d{bf(qkv), bf(qkv) + H, bf(qkv) + 2 * H, static_cast<const float*>(key_bias),
+  const Dir d{bf(qkv), bf(qkv) + H, bf(qkv) + 2 * H, static_cast<const float*>(bias),
               static_cast<__nv_bfloat16*>(ctx), 3 * H, 3 * H, S, S};
-  return launch(d, d, 1, B, H, num_heads, stream);
+  return launch(d, d, 1, full_bias != 0, B, H, num_heads, stream);
 }
 
 // q rows at stride q_ld ([B*Sq] rows), k and v rows at stride kv_ld ([B*Sk] rows),
-// key_bias [B, Sk] f32 or null, ctx [B*Sq, H] bf16. Pointers and strides 16-byte aligned.
-int kmr_attn_cross(const void* q, const void* k, const void* v, const void* key_bias, void* ctx,
+// bias f32 [B, Sk] (full_bias 0) or [B, Sq, Sk] (full_bias 1) or null, ctx [B*Sq, H] bf16.
+// Pointers and strides 16-byte aligned.
+int kmr_attn_cross(const void* q, const void* k, const void* v, const void* bias, int full_bias, void* ctx,
                    int q_ld, int kv_ld, int B, int Sq, int Sk, int H, int num_heads, void* stream) {
-  const Dir d{bf(q), bf(k), bf(v), static_cast<const float*>(key_bias),
+  const Dir d{bf(q), bf(k), bf(v), static_cast<const float*>(bias),
               static_cast<__nv_bfloat16*>(ctx), q_ld, kv_ld, Sq, Sk};
-  return launch(d, d, 1, B, H, num_heads, stream);
+  return launch(d, d, 1, full_bias != 0, B, H, num_heads, stream);
 }
 
 // lqkv [B*F, 3H] and vqkv [B*T, 3H] bf16 (each stream projected by the shared
@@ -173,7 +186,7 @@ int kmr_attn_dual(const void* lqkv, const void* vqkv, const void* lang_bias,
                  static_cast<__nv_bfloat16*>(ctx_l), 3 * H, 3 * H, F, T};
   const Dir visn{bf(vqkv), bf(lqkv) + H, bf(lqkv) + 2 * H, static_cast<const float*>(lang_bias),
                  static_cast<__nv_bfloat16*>(ctx_v), 3 * H, 3 * H, T, F};
-  return launch(lang, visn, 2, B, H, num_heads, stream);
+  return launch(lang, visn, 2, false, B, H, num_heads, stream);
 }
 
 const char* kmr_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

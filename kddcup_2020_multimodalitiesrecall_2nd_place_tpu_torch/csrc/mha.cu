@@ -108,47 +108,6 @@ __device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src, long 
   }
 }
 
-// A bias over (query, key): this lane's elements of each 16-row tile, read
-// from global memory at the tile's start; keys past S -inf, rows past S 0.
-struct QueryKeyBias {
-  const float* p;  // the head's bias at (query, key) element strides sq, sk
-  long long sq, sk;
-  int S, g, t;
-  bool paired;  // sk == 1 and every (row, even key) pair 8-byte aligned
-  float add[NT][4];
-
-  __device__ __forceinline__ QueryKeyBias(const float* p_, long long sq_, long long sk_, int S_)
-      : p(p_), sq(sq_), sk(sk_), S(S_), g(threadIdx.x % 32 / 4), t(threadIdx.x % 4) {
-    paired = sk == 1 && sq % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 8 == 0;
-  }
-  __device__ __forceinline__ void load(int m0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + g + 8 * h;
-      const float* row = p + r * sq;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int key = 8 * j + 2 * t;
-        float lo = -INFINITY, hi = -INFINITY;
-        if (r >= S) {
-          lo = key < S ? 0.0f : -INFINITY;
-          hi = key + 1 < S ? 0.0f : -INFINITY;
-        } else if (paired && key + 1 < S) {
-          const float2 two = *reinterpret_cast<const float2*>(row + key);
-          lo = two.x;
-          hi = two.y;
-        } else {
-          if (key < S) lo = row[key * sk];
-          if (key + 1 < S) hi = row[(key + 1) * sk];
-        }
-        add[j][2 * h] = lo;
-        add[j][2 * h + 1] = hi;
-      }
-    }
-  }
-  __device__ __forceinline__ float operator()(int j, int e) const { return add[j][e]; }
-};
-
 template <bool QUERY_KEY_BIAS>
 __global__ void __launch_bounds__(32 * WARPS) mha_bf16_kernel(Args<bf16> a, long long items) {
   extern __shared__ __align__(16) bf16 sm[];
@@ -169,7 +128,7 @@ __global__ void __launch_bounds__(32 * WARPS) mha_bf16_kernel(Args<bf16> a, long
 
   const float* bias = a.bias != nullptr ? a.bias + b * a.bs.b + n * a.bs.n : nullptr;
   if constexpr (QUERY_KEY_BIAS) {
-    QueryKeyBias qkb(bias, a.bs.q, a.bs.k, S);
+    QueryKeyBias qkb(bias, a.bs.q, a.bs.k, S, S);
     attend<LD>(q, k, v, SP, SP, SCALE, qkb);
   } else {
     KeyBias kb(bias, a.bs.k, S);

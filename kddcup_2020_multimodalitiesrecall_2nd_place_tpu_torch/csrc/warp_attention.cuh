@@ -1,6 +1,7 @@
 // Attention of one head by one warp on the tensor cores (mma.sync m16n8k16,
 // bf16 in, f32 sums), shared by attn_core.cu, mha.cu and attn_train.cu: the
-// cp.async, ldmatrix and mma helpers, the key-bias fragments, the tile steps
+// cp.async, ldmatrix and mma helpers, the bias fragments (a key-only bias
+// and one over (query, key)), the tile steps
 // (A fragments of 16 rows, a 16-row product against the rows of another
 // operand, the softmax of a 16-row score tile, one k16 slice of a product with
 // a row-major B operand), and the routine in which a warp walks its head's
@@ -73,6 +74,48 @@ struct KeyBias {
   }
   __device__ __forceinline__ void load(int) {}
   __device__ __forceinline__ float operator()(int j, int e) const { return kb[j][e % 2]; }
+};
+
+// A bias over (query, key) (mha.cu's [B,1,S,S] and [B,N,S,S] biases, attn_core.cu's
+// full [B, Sq, Sk] one): this lane's elements of each 16-row tile, read from global
+// memory at the tile's start; keys past sk -inf, query rows past sq 0.
+struct QueryKeyBias {
+  const float* p;  // the head's bias at (query, key) element strides rs, ks
+  long long rs, ks;
+  int sq, sk, g, t;
+  bool paired;  // ks == 1 and every (row, even key) pair 8-byte aligned
+  float add[NT][4];
+
+  __device__ __forceinline__ QueryKeyBias(const float* p_, long long rs_, long long ks_, int sq_, int sk_)
+      : p(p_), rs(rs_), ks(ks_), sq(sq_), sk(sk_), g(threadIdx.x % 32 / 4), t(threadIdx.x % 4) {
+    paired = ks == 1 && rs % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 8 == 0;
+  }
+  __device__ __forceinline__ void load(int m0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h;
+      const float* row = p + r * rs;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int key = 8 * j + 2 * t;
+        float lo = -INFINITY, hi = -INFINITY;
+        if (r >= sq) {
+          lo = key < sk ? 0.0f : -INFINITY;
+          hi = key + 1 < sk ? 0.0f : -INFINITY;
+        } else if (paired && key + 1 < sk) {
+          const float2 two = *reinterpret_cast<const float2*>(row + key);
+          lo = two.x;
+          hi = two.y;
+        } else {
+          if (key < sk) lo = row[key * ks];
+          if (key + 1 < sk) hi = row[(key + 1) * ks];
+        }
+        add[j][2 * h] = lo;
+        add[j][2 * h + 1] = hi;
+      }
+    }
+  }
+  __device__ __forceinline__ float operator()(int j, int e) const { return add[j][e]; }
 };
 
 // The identity on each probability: attn_core's and mha's. attend() hands

@@ -1,0 +1,165 @@
+"""Vectorised host pipeline: the native parser + numpy batch assembly (the
+port of the JAX package's ``data/fast_pipeline.py``).
+
+The per-example Python path (``pipeline.py``) is the readable reference;
+this path feeds the card at a higher rate:
+
+* the C++ library decodes a whole TSV buffer into dense arrays
+  (``native/preproc.cpp``),
+* box-label token ids come from a precomputed [num_label_ids, 8] lookup
+  table (one gather instead of per-box tokenizer calls),
+* queries are tokenized once per *unique* string (testB has ~500 unique
+  queries across 29k rows), after the sen2forest rewrite where the
+  featurizer has it (ImageBERT-C).
+
+It yields the same fixed-shape batches as ``Featurizer``, bit for bit
+(``tests/test_torch_native.py``), so an engine may take either.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Iterator
+
+import numpy as np
+
+from .featurize import SEGMENT_IDS_B, Featurizer, pad_batch
+from .native import parse_pairs_native
+from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, MAX_QUERY_LEN_L, rewrite_sen2forest
+
+
+def build_label_lut(featurizer: Featurizer) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """-> (ids [max_label+1, 8] i32, mask [.., 8] i32, lens [..] i32 uncapped)."""
+    keys = [int(k) for k in featurizer.label_texts]
+    size = max(keys) + 1
+    ids = np.zeros((size, MAX_LABEL_TOKENS), np.int32)
+    mask = np.zeros((size, MAX_LABEL_TOKENS), np.int32)
+    lens = np.zeros((size,), np.int32)
+    for k in keys:
+        tok = featurizer.label_token_ids(k)
+        n = min(len(tok), MAX_LABEL_TOKENS)
+        ids[k, :n] = tok[:n]
+        mask[k, :n] = 1
+        lens[k] = len(tok)  # uncapped, like len_class_labels in the reference
+    return ids, mask, lens
+
+
+def _tokenize_queries(featurizer: Featurizer, queries: list[str], max_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """-> (ids [N, max_len] i32, lens [N] i32), one tokenize per unique query."""
+    cache: dict[str, tuple[np.ndarray, int]] = {}
+    out = np.zeros((len(queries), max_len), np.int32)
+    lens = np.zeros((len(queries),), np.int32)
+    for i, q in enumerate(queries):
+        if featurizer.sen2forest:
+            q = rewrite_sen2forest(q)
+        hit = cache.get(q)
+        if hit is None:
+            ids = featurizer.tokenizer.encode_query(q)
+            row = np.zeros((max_len,), np.int32)
+            row[: min(len(ids), max_len)] = ids[:max_len]
+            hit = cache[q] = (row, len(ids))
+        out[i] = hit[0]
+        lens[i] = hit[1]
+    return out, lens
+
+
+def featurize_raw(raw: dict, featurizer: Featurizer, layout: str) -> dict[str, np.ndarray]:
+    """Native-parser output -> the featurized arrays of a model layout (the
+    fields of the per-example ``Featurizer`` path, unsliced): the unit of work
+    a loader worker ships back whole (``multiworker.py``);
+    ``assemble_batches`` slices it. ``layout`` is the featurizer layout
+    (``imagebert_c`` is ``imagebert_b``'s, its rewrite the featurizer's flag)."""
+    n = len(raw["product_id"])
+    label_lut, label_mask_lut, label_lens_lut = build_label_lut(featurizer)
+    clipped = np.clip(raw["class_labels"], 0, len(label_lut) - 1)
+    box_valid = np.arange(MAX_BOXES)[None, :] < np.minimum(raw["num_boxes"], MAX_BOXES)[:, None]  # [N, 10]
+    # label rows past num_boxes are all-zero ids (the per-example path never
+    # writes them; the parser's class_labels pad of 0 is a real label id)
+    label_ids = label_lut[clipped] * box_valid[..., None]  # [N, 10, 8]
+    max_len = MAX_QUERY_LEN_L if layout == "lxmert" else MAX_QUERY_LEN_AB
+    q_ids, q_lens = _tokenize_queries(featurizer, raw["queries"], max_len)
+
+    if layout in ("imagebert_a", "imagebert_b", "imagebert_c"):
+        full: dict[str, np.ndarray] = {
+            "input_ids": q_ids,
+            "boxes": raw["boxes5"],
+            "features": raw["features"],
+            "label_ids": label_ids,
+            "labels": np.zeros((n,), np.int32) if layout == "imagebert_a" else np.ones((n,), np.int32),
+            "product_id": raw["product_id"],
+            "query_id": raw["query_id"],
+        }
+        if layout == "imagebert_a":
+            full["segment_ids"] = np.zeros((n, MAX_QUERY_LEN_AB), np.int32)
+        else:
+            full["segment_ids"] = np.broadcast_to(SEGMENT_IDS_B, (n, len(SEGMENT_IDS_B))).copy()
+            full["len_query"] = q_lens
+            full["num_boxes"] = raw["num_boxes"].astype(np.int32)
+            full["label_lens"] = label_lens_lut[clipped] * box_valid
+        return full
+    if layout != "lxmert":
+        raise NotImplementedError(f"featurizer layout {layout!r} is not yet ported, see ROADMAP.md")
+    return {
+        "input_ids": q_ids,
+        "input_mask": (np.arange(max_len)[None, :] < np.minimum(q_lens, max_len)[:, None]).astype(np.int32),
+        "label_ids": label_ids,
+        "label_mask": label_mask_lut[clipped] * box_valid[..., None],
+        "boxes": raw["boxes4"],
+        "features": raw["features"],
+        "feats_mask": box_valid.astype(np.float32),
+        "labels": np.ones((n,), np.int32),
+        "product_id": raw["product_id"],
+        "query_id": raw["query_id"],
+    }
+
+
+def rebatch(fulls: Iterable[dict], batch_size: int, stats=None) -> Iterator[dict[str, np.ndarray]]:
+    """Featurized arrays of consecutive parts (files, or a file's byte spans)
+    -> fixed-shape batches whose rows run on across the parts, with one padded
+    tail: the batches of the per-example path over the same rows, whatever
+    the parts. ``stats`` (a ``PipelineStats``) counts the batches."""
+    carry: list[dict[str, np.ndarray]] = []
+    rows = 0
+    for full in fulls:
+        n = len(next(iter(full.values()))) if full else 0
+        if n == 0:
+            continue
+        carry.append(full)
+        rows += n
+        if rows < batch_size:
+            continue
+        whole = {k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]} if len(carry) > 1 else full
+        n_emit = rows // batch_size * batch_size
+        for start in range(0, n_emit, batch_size):
+            if stats is not None:
+                stats.batches += 1
+            yield pad_batch({k: v[start : start + batch_size] for k, v in whole.items()}, batch_size)
+        carry = [{k: v[n_emit:] for k, v in whole.items()}] if rows > n_emit else []
+        rows -= n_emit
+    if rows:
+        if stats is not None:
+            stats.batches += 1
+        yield pad_batch({k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]}, batch_size)
+
+
+def assemble_batches(raw: dict, featurizer: Featurizer, layout: str,
+                     batch_size: int) -> Iterator[dict[str, np.ndarray]]:
+    """Native-parser output -> model-layout batches (the fields of ``Featurizer``)."""
+    return rebatch([featurize_raw(raw, featurizer, layout)], batch_size)
+
+
+def native_batches_from_files(paths, featurizer: Featurizer, layout: str, batch_size: int,
+                              stats=None) -> Iterator[dict[str, np.ndarray]]:
+    """The files parsed whole by the native parser, one after another, and
+    batched as one stream; ``stats`` (a ``PipelineStats``) counts parsed rows,
+    parse errors and batches."""
+
+    def fulls():
+        for path in paths:
+            with open(path, "rb") as f:
+                raw = parse_pairs_native(f.read())
+            if stats is not None:
+                stats.parsed += len(raw["product_id"])
+                stats.errors += raw["n_errors"]
+            yield featurize_raw(raw, featurizer, layout)
+
+    return rebatch(fulls(), batch_size, stats)

@@ -170,3 +170,48 @@ def make_eval_tsv(
             )
         )
     return lines, answers
+
+
+def make_testb_tsv(n_rows: int, seed: int = 0, pairs_per_query: int = 58, max_queries_per_product: int = 3,
+                   reuse: float = 0.4, malformed: int = 1, header: bool = True) -> list[str]:
+    """A testB-like TSV: ~``pairs_per_query`` pairs a query (testB: 29,005
+    pairs over ~500 queries), each product under 1..``max_queries_per_product``
+    queries (with probability ``reuse`` a pair takes a product already shown
+    under another query), so the fusion's dedup filter both drops products and
+    keeps them at their argmax; a product's row has the same boxes, features
+    and labels under every query. A tenth of the query texts hold the
+    sen2forest trigger, and ``malformed`` rows fail to parse (a parse error
+    to count, not to stop on). Row order: query after query."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    if header:
+        lines.append("product_id\timage_h\timage_w\tnum_boxes\tboxes\tfeatures\tclass_labels\tquery\tquery_id")
+    n_queries = max(1, round(n_rows / pairs_per_query))
+    payload: dict[int, list[str]] = {}  # product -> its image columns (h, w, n, boxes, feats, labels)
+    uses: dict[int, int] = {}
+    shared: list[int] = []  # products that may be shown under one more query
+    next_pid = 200000
+    for i in range(n_rows):
+        qid = i * n_queries // n_rows
+        query = f"{SYNTHETIC_QUERIES[qid % len(SYNTHETIC_QUERIES)]} {qid // len(SYNTHETIC_QUERIES)}"
+        pid = None
+        if shared and rng.random() < reuse:
+            j = int(rng.integers(0, len(shared)))
+            if uses[shared[j]] < max_queries_per_product and payload[shared[j]][-1] != str(qid):
+                pid = shared[j]
+        if pid is None:
+            pid = next_pid
+            next_pid += 1
+            row = make_row(rng, product_id=pid, query_id=qid, query=query).split("\t")
+            payload[pid] = row[1:7] + [str(qid)]
+            uses[pid] = 0
+            shared.append(pid)
+        uses[pid] += 1
+        payload[pid][-1] = str(qid)  # the last query it went under
+        if uses[pid] >= max_queries_per_product:
+            shared.remove(pid)
+        lines.append("\t".join([str(pid), *payload[pid][:6], query, str(qid)]))
+    for k in range(malformed):
+        at = int(rng.integers(1 if header else 0, len(lines) + 1))
+        lines.insert(at, f"{900000 + k}\tnot-a-height\t600\t1\tAAAA\tAAAA\tAAAA\tbroken row\t{k}")
+    return lines

@@ -42,7 +42,7 @@ import torch
 from ..ops.activations import gelu_erf, gelu_tanh
 from ..ops.attention import merge_heads, mha, packed_attention_active, split_heads
 from ..ops.attention_block import attention_block as attention_block_op
-from ..ops.attention_block import attention_block_plain
+from ..ops.attention_block import attention_block_plain, is_compact
 from ..ops.cross_attention_block import cross_attention_block as cross_attention_block_op
 from ..ops.cross_attention_block import cross_attention_block_plain
 from ..ops.dual_cross_attention_block import dual_cross_attention_block as dual_cross_attention_block_op
@@ -320,14 +320,15 @@ def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: Bert
     mask and visn <- lang under the lang key mask, both from the pre-cross
     streams. ``KMR_DUAL_CROSS=1`` on the "pallas_packed" backend runs them as
     one dual block (one attention launch for both directions), as the JAX
-    package's ``models/core.py`` :388-417 does; the default is two cross
-    blocks. With ``seeds`` (one dropout seed per direction) it trains: two
-    cross train blocks, whatever ``KMR_DUAL_CROSS`` says (JAX :388-392)."""
+    package's ``models/core.py`` :388-417 does, where both biases are key
+    masks (or both None); otherwise, and by default, two cross blocks. With
+    ``seeds`` (one dropout seed per direction) it trains: two cross train
+    blocks, whatever ``KMR_DUAL_CROSS`` says (JAX :388-392)."""
     if seeds is not None:
         return (cross_attention_block(p, l, v, visn_bias, cfg, prec, blocks, seed=seeds[0]),
                 cross_attention_block(p, v, l, lang_bias, cfg, prec, blocks, seed=seeds[1]))
     if (packed_attention_active() and os.environ.get("KMR_DUAL_CROSS", "0") == "1"
-            and (lang_bias is None) == (visn_bias is None)):
+            and is_compact(lang_bias) and is_compact(visn_bias) and (lang_bias is None) == (visn_bias is None)):
         out = p["output"]
         return blocks.dual(
             l, v, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
@@ -388,8 +389,7 @@ def fused_layer_route(bias, act_name: str) -> bool:
     and the layer qualifies for the fused launch: a compact key mask ([B, S]
     rows or [B, 1, 1, S]) or none, and a GELU the kernel has (the gating of
     the JAX package's ``models/core.py`` :570-582)."""
-    compact = bias is None or bias.dim() == 2 or (bias.dim() == 4 and bias.shape[1] == bias.shape[2] == 1)
-    return (os.environ.get("KMR_FUSED_LAYER", "0") == "1" and packed_attention_active() and compact
+    return (os.environ.get("KMR_FUSED_LAYER", "0") == "1" and packed_attention_active() and is_compact(bias)
             and act_name in GELU_APPROXIMATE)
 
 

@@ -3,11 +3,14 @@
 
     y = LN(x + concat_h softmax(Q_h K_h^T / sqrt(Dh) + bias) V_h @ Wo + bo)
 
-with Q, K, V from one [H, 3H] product. On the card it is four launches of
+with Q, K, V from one [H, 3H] product and the bias none, a key mask ([B, S]
+or [B, 1, 1, S]) or a full head-shared [B, 1, S, S] one, as in JAX's
+``attention_block_pallas``. On the card it is four launches of
 the hand-written kernels in ``kernels.py``:
 
 1. ``gemm`` (bias epilogue): qkv = bf16(x @ Wqkv + bqkv)          [B*S, 3H]
 2. ``attn_core``: exact per-head softmax, probs and ctx -> bf16    [B*S, H]
+   (its key-mask instance for a key mask, its full-bias one for [B, 1, S, S])
 3. ``gemm`` (residual epilogue): y = ctx @ Wo + bo + x, in f32    [B*S, H]
 4. ``layernorm``: LN(y) -> bf16                                    [B*S, H]
 
@@ -34,15 +37,38 @@ from .kernels import layernorm_plain
 from .library import attn_core, gemm, layernorm
 
 
+def is_compact(bias: torch.Tensor | None) -> bool:
+    """None, or a bias over the keys only: [B, S] rows or [B, 1, 1, S]."""
+    return bias is None or bias.dim() == 2 or (bias.dim() == 4 and bias.shape[1] == bias.shape[2] == 1)
+
+
 def key_bias_rows(bias: torch.Tensor | None, b: int, s: int) -> torch.Tensor | None:
     """None, [B, S] or [B, 1, 1, S] additive key mask -> f32 [B, S] rows."""
     if bias is None:
         return None
     if bias.shape not in ((b, s), (b, 1, 1, s)):
-        raise ValueError(
-            f"attention_block takes a key-mask bias [B, S] or [B, 1, 1, S], got {tuple(bias.shape)}"
-        )
+        raise ValueError(f"expected a key-mask bias [B, S] or [B, 1, 1, S], got {tuple(bias.shape)}")
     return bias.reshape(b, s).float().contiguous()
+
+
+def attention_bias(bias: torch.Tensor | None, b: int, sq: int, sk: int) -> torch.Tensor | None:
+    """The bias of an attention block in the form ``attn_core`` takes: None; a
+    key mask ([B, Sk] or [B, 1, 1, Sk]) -> f32 [B, Sk] rows; a head-shared bias
+    that broadcasts to [B, 1, Sq, Sk] -> f32 [B, Sq, Sk] (JAX's
+    ``broadcast_to(bias, (b, 1, sq, sk))``, ``ops/pallas_attention.py`` :544, :780)."""
+    if is_compact(bias):
+        return key_bias_rows(bias, b, sk)
+    if bias.dim() != 4 or any(n not in (1, want) for n, want in zip(bias.shape, (b, 1, sq, sk))):
+        raise ValueError(f"expected a key mask or a bias that broadcasts to [B, 1, Sq, Sk] = "
+                         f"{(b, 1, sq, sk)}, got {tuple(bias.shape)}")
+    return bias.float().expand(b, 1, sq, sk).reshape(b, sq, sk).contiguous()
+
+
+def mha_bias(rows: torch.Tensor | None) -> torch.Tensor | None:
+    """``attention_bias``'s [B, Sk] or [B, Sq, Sk] -> the [B, 1, 1 or Sq, Sk] bias of ``mha_xla``."""
+    if rows is None:
+        return None
+    return rows[:, None, None, :] if rows.dim() == 2 else rows[:, None]
 
 
 def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bias=None,
@@ -51,7 +77,7 @@ def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bias=Non
     b, s, h = x.shape
     x2d = x.reshape(b * s, h)
     qkv = gemm(x2d, wqkv, bqkv, "bias")
-    ctx = attn_core(qkv, key_bias_rows(bias, b, s), b, s, num_heads)
+    ctx = attn_core(qkv, attention_bias(bias, b, s, s), b, s, num_heads)
     y = gemm(ctx, wo, bo, "residual", residual=x2d)
     out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
     if x.is_cuda:
@@ -68,8 +94,7 @@ def attention_block_plain(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bi
     dt = x.dtype
     qkv = (torch.matmul(x.float(), wqkv.to(dt).float()) + bqkv.float()).to(dt)
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    if bias is not None:
-        bias = key_bias_rows(bias, x.shape[0], x.shape[1])[:, None, None, :]
+    bias = mha_bias(attention_bias(bias, x.shape[0], x.shape[1], x.shape[1]))
     ctx = merge_heads(mha_xla(q, k, v, bias))
     y = torch.matmul(ctx.float(), wo.to(dt).float()) + bo.float() + x.float()
     return layernorm_plain(y, gamma, beta, eps, out_dtype=dt)

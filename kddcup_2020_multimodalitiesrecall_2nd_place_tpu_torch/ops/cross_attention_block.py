@@ -4,7 +4,8 @@
     y = LN(x + concat_h softmax(Q_h K_h^T / sqrt(Dh) + bias) V_h @ Wo + bo)
 
 with Q from x [B, F, H] through Wq [H, H], and K, V from ctx [B, T, H]
-through one [H, 2H] product; the bias masks ctx's keys. LXMERT's x-layers run
+through one [H, 2H] product; the bias masks ctx's keys ([B, T] or
+[B, 1, 1, T]) or is a full head-shared [B, 1, F, T] one. LXMERT's x-layers run
 it at (F, T) = (23, 10) (lang <- visn) and (10, 23) (visn <- lang), with one
 set of weights for both. On the card it is five launches of the
 hand-written kernels in ``kernels.py``:
@@ -32,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from .attention import merge_heads, mha_xla, split_heads
-from .attention_block import key_bias_rows
+from .attention_block import attention_bias, mha_bias
 from .kernels import layernorm_plain
 from .library import attn_core_cross, gemm, layernorm
 
@@ -40,13 +41,13 @@ from .library import attn_core_cross, gemm, layernorm
 def cross_attention_block(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, num_heads: int,
                           bias=None, eps: float = 1e-12) -> torch.Tensor:
     """x [B, F, H], ctx [B, T, H] (bf16 on CUDA), bias masking ctx's keys
-    ([B, T] or [B, 1, 1, T]) -> [B, F, H] in x's dtype."""
+    ([B, T] or [B, 1, 1, T]) or a full [B, 1, F, T] one -> [B, F, H] in x's dtype."""
     b, f, h = x.shape
     t = ctx.shape[1]
     x2d = x.reshape(b * f, h)
     q = gemm(x2d, wq, bq, "bias")
     kv = gemm(ctx.reshape(b * t, h), wkv, bkv, "bias")
-    o = attn_core_cross(q, kv, key_bias_rows(bias, b, t), b, f, t, num_heads)
+    o = attn_core_cross(q, kv, attention_bias(bias, b, f, t), b, f, t, num_heads)
     y = gemm(o, wo, bo, "residual", residual=x2d)
     out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
     if x.is_cuda:
@@ -65,8 +66,7 @@ def cross_attention_block_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, n
     q = (torch.matmul(x.float(), wq.to(dt).float()) + bq.float()).to(dt)
     kv = (torch.matmul(ctx.float(), wkv.to(dt).float()) + bkv.float()).to(dt)
     k, v = kv.split(h, dim=-1)
-    if bias is not None:
-        bias = key_bias_rows(bias, b, t)[:, None, None, :]
+    bias = mha_bias(attention_bias(bias, b, x.shape[1], t))
     o = merge_heads(mha_xla(split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads), bias))
     y = torch.matmul(o.float(), wo.to(dt).float()) + bo.float() + x.float()
     return layernorm_plain(y, gamma, beta, eps, out_dtype=dt)

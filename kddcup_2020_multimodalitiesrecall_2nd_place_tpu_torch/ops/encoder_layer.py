@@ -11,7 +11,7 @@ not fit a CTA's 227 KB of shared memory, so on the card it is three launches
 of the hand-written kernels in ``kernels.py``:
 
 1. ``gemm`` (bias epilogue): qkv = bf16(x @ Wqkv + bqkv)             [B*S, 3H]
-2. ``attn_core``: exact per-head softmax, key-mask rows, ctx -> bf16  [B*S, H]
+2. ``attn_core``: exact per-head softmax, the bias, ctx -> bf16       [B*S, H]
 3. ``layer_tail``: out-projection + residual, LN1, FFN in 192-column
    chunks, LN2 -> bf16; LN1's output and the GELU chunks never leave
    shared memory                                                    [B*S, H]
@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from .attention_block import attention_block_plain, key_bias_rows
+from .attention_block import attention_bias, attention_block_plain
 from .ffn_block import ffn_block_plain
 from .library import attn_core, gemm, layer_tail
 
@@ -40,12 +40,12 @@ from .library import attn_core, gemm, layer_tail
 def encoder_layer(x, wqkv, bqkv, wo, bo, gamma1, beta1, w1, b1, w2, b2, gamma2, beta2,
                   num_heads: int, bias=None, approximate_gelu: bool = True,
                   eps: float = 1e-12) -> torch.Tensor:
-    """x [B, S, H] (bf16 on CUDA); bias None, [B, S] or [B, 1, 1, S] key mask
-    -> [B, S, H] in x's dtype."""
+    """x [B, S, H] (bf16 on CUDA); bias None, a [B, S] or [B, 1, 1, S] key mask,
+    or a full [B, 1, S, S] one -> [B, S, H] in x's dtype."""
     b, s, h = x.shape
     x2d = x.reshape(b * s, h)
     qkv = gemm(x2d, wqkv, bqkv, "bias")
-    ctx = attn_core(qkv, key_bias_rows(bias, b, s), b, s, num_heads)
+    ctx = attn_core(qkv, attention_bias(bias, b, s, s), b, s, num_heads)
     out = layer_tail(ctx, x2d, wo, bo, gamma1, beta1, w1, b1, w2, b2, gamma2, beta2, approximate_gelu, eps)
     if x.is_cuda:
         encoder_layer.launches += 1

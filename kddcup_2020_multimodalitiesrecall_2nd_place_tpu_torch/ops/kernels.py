@@ -8,8 +8,9 @@ The fused blocks (``attention_block.py``, ``ffn_block.py``,
 * ``gemm``       ``csrc/gemm_bf16.cu``: bf16 ``A @ W + b`` with a fused
                  epilogue (bf16 out, GELU then bf16, + residual in f32, or
                  f32 out: ImageBERT-B's banded label conv).
-* ``attn_core``  ``csrc/attn_core.cu``: per-head softmax(QK^T/8 + key bias)V
-                 read from the fused [B*S, 3H] QKV buffer; its two other entry
+* ``attn_core``  ``csrc/attn_core.cu``: per-head softmax(QK^T/8 + bias)V
+                 read from the fused [B*S, 3H] QKV buffer, under no bias, a key
+                 mask [B, S] or a full [B, S, S] bias; its two other entry
                  points are ``attn_core_cross`` (Q [B*Sq, H] against a fused
                  K/V [B*Sk, 2H]) and ``attn_core_dual`` (both directions of an
                  LXMERT x-layer from the two streams' QKV buffers, one launch).
@@ -162,20 +163,21 @@ gemm.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def attn_core_cross_plain(q, kv, key_bias, b: int, sq: int, sk: int, num_heads: int) -> torch.Tensor:
+def attn_core_cross_plain(q, kv, bias, b: int, sq: int, sk: int, num_heads: int) -> torch.Tensor:
     """q [B*Sq, H], kv [B*Sk, 2H] (keys then values) -> ctx [B*Sq, H] in q's
-    dtype; key_bias [B, Sk] or None."""
+    dtype; bias a key mask [B, Sk], a full [B, Sq, Sk] bias or None."""
     h = q.shape[1]
     qh = split_heads(q.reshape(b, sq, h), num_heads)
     k, v = (split_heads(t.reshape(b, sk, h), num_heads) for t in kv.split(h, dim=1))
-    bias = None if key_bias is None else key_bias.reshape(b, 1, 1, sk)
+    if bias is not None:
+        bias = bias.reshape(b, 1, 1, sk) if bias.dim() == 2 else bias.reshape(b, 1, sq, sk)
     return merge_heads(mha_xla(qh, k, v, bias)).reshape(b * sq, h)
 
 
-def attn_core_plain(qkv, key_bias, b: int, s: int, num_heads: int) -> torch.Tensor:
-    """qkv [B*S, 3H] -> ctx [B*S, H] in qkv's dtype; key_bias [B, S] or None."""
+def attn_core_plain(qkv, bias, b: int, s: int, num_heads: int) -> torch.Tensor:
+    """qkv [B*S, 3H] -> ctx [B*S, H] in qkv's dtype; bias [B, S], [B, S, S] or None."""
     h = qkv.shape[1] // 3
-    return attn_core_cross_plain(qkv[:, :h], qkv[:, h:], key_bias, b, s, s, num_heads)
+    return attn_core_cross_plain(qkv[:, :h], qkv[:, h:], bias, b, s, s, num_heads)
 
 
 def attn_core_dual_plain(lqkv, vqkv, lang_bias, visn_bias, b: int, f: int, t: int,
@@ -211,17 +213,28 @@ def _key_bias_ptr(key_bias, name: str, b: int, s: int, device):
     return _build.ptr(key_bias)
 
 
-def attn_core(qkv, key_bias, b: int, s: int, num_heads: int) -> torch.Tensor:
-    """qkv [B*S, 3H] bf16, key_bias [B, S] f32 or None -> ctx [B*S, H] bf16."""
+def _bias_ptr(bias, b: int, sq: int, sk: int, device) -> tuple[ctypes.c_void_p | None, int]:
+    """-> (pointer or None, full_bias): a key mask [B, Sk] (0) or a full [B, Sq, Sk] bias (1)."""
+    if bias is None or bias.dim() == 2:
+        return _key_bias_ptr(bias, "bias", b, sk, device), 0
+    _check_operand(bias, "bias", torch.float32, device)
+    _require(tuple(bias.shape) == (b, sq, sk), f"bias shape {tuple(bias.shape)} != ({b}, {sk}) or ({b}, {sq}, {sk})")
+    return _build.ptr(bias), 1
+
+
+def attn_core(qkv, bias, b: int, s: int, num_heads: int) -> torch.Tensor:
+    """qkv [B*S, 3H] bf16, bias f32 [B, S] (key mask), [B, S, S] (full) or None
+    -> ctx [B*S, H] bf16."""
     if not qkv.is_cuda:
-        return attn_core_plain(qkv, key_bias, b, s, num_heads)
+        return attn_core_plain(qkv, bias, b, s, num_heads)
     h = qkv.shape[1] // 3
     _attn_checks(h, num_heads, b, (s,))
     _rows(qkv, "qkv", (b * s, 3 * h))
-    bias = _key_bias_ptr(key_bias, "key_bias", b, s, qkv.device)
+    bias_p, full = _bias_ptr(bias, b, s, s, qkv.device)
     ctx = torch.empty(b * s, h, dtype=torch.bfloat16, device=qkv.device)
-    fn = _build.bind("attn_core", "kmr_attn_core", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(_build.ptr(qkv), bias, _build.ptr(ctx), b, s, h, num_heads, _build.stream_of(qkv))
+    fn = _build.bind("attn_core", "kmr_attn_core",
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    rc = fn(_build.ptr(qkv), bias_p, full, _build.ptr(ctx), b, s, h, num_heads, _build.stream_of(qkv))
     _build.check(rc, "attn_core")
     attn_core.launches += 1
     return ctx
@@ -230,21 +243,21 @@ def attn_core(qkv, key_bias, b: int, s: int, num_heads: int) -> torch.Tensor:
 attn_core.launches = 0
 
 
-def attn_core_cross(q, kv, key_bias, b: int, sq: int, sk: int, num_heads: int) -> torch.Tensor:
-    """q [B*Sq, H] bf16, kv [B*Sk, 2H] bf16, key_bias [B, Sk] f32 or None
-    -> ctx [B*Sq, H] bf16."""
+def attn_core_cross(q, kv, bias, b: int, sq: int, sk: int, num_heads: int) -> torch.Tensor:
+    """q [B*Sq, H] bf16, kv [B*Sk, 2H] bf16, bias f32 [B, Sk] (key mask),
+    [B, Sq, Sk] (full) or None -> ctx [B*Sq, H] bf16."""
     if not q.is_cuda:
-        return attn_core_cross_plain(q, kv, key_bias, b, sq, sk, num_heads)
+        return attn_core_cross_plain(q, kv, bias, b, sq, sk, num_heads)
     h = q.shape[1]
     _attn_checks(h, num_heads, b, (sq, sk))
     _rows(q, "q", (b * sq, h))
     _rows(kv, "kv", (b * sk, 2 * h))
-    bias = _key_bias_ptr(key_bias, "key_bias", b, sk, q.device)
+    bias_p, full = _bias_ptr(bias, b, sq, sk, q.device)
     ctx = torch.empty(b * sq, h, dtype=torch.bfloat16, device=q.device)
     fn = _build.bind("attn_core", "kmr_attn_cross",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     # k at column 0 and v at column H of the [B*Sk, 2H] buffer, both at row stride 2H
-    rc = fn(_build.ptr(q), _build.ptr(kv), _build.ptr(kv, h), bias, _build.ptr(ctx),
+    rc = fn(_build.ptr(q), _build.ptr(kv), _build.ptr(kv, h), bias_p, full, _build.ptr(ctx),
             h, 2 * h, b, sq, sk, h, num_heads, _build.stream_of(q))
     _build.check(rc, "attn_core")
     attn_core_cross.launches += 1

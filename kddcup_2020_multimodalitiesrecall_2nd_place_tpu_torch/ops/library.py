@@ -46,23 +46,23 @@ def _(a, w, bias, approximate_gelu=True):
 
 
 @torch.library.custom_op("kmr::attn_core", mutates_args=())
-def attn_core(qkv: Tensor, key_bias: Optional[Tensor], b: int, s: int, num_heads: int) -> Tensor:
-    return kernels.attn_core(qkv, key_bias, b, s, num_heads)
+def attn_core(qkv: Tensor, bias: Optional[Tensor], b: int, s: int, num_heads: int) -> Tensor:
+    return kernels.attn_core(qkv, bias, b, s, num_heads)
 
 
 @attn_core.register_fake
-def _(qkv, key_bias, b, s, num_heads):
+def _(qkv, bias, b, s, num_heads):
     return qkv.new_empty(b * s, qkv.shape[1] // 3)
 
 
 @torch.library.custom_op("kmr::attn_core_cross", mutates_args=())
-def attn_core_cross(q: Tensor, kv: Tensor, key_bias: Optional[Tensor], b: int, sq: int, sk: int,
+def attn_core_cross(q: Tensor, kv: Tensor, bias: Optional[Tensor], b: int, sq: int, sk: int,
                     num_heads: int) -> Tensor:
-    return kernels.attn_core_cross(q, kv, key_bias, b, sq, sk, num_heads)
+    return kernels.attn_core_cross(q, kv, bias, b, sq, sk, num_heads)
 
 
 @attn_core_cross.register_fake
-def _(q, kv, key_bias, b, sq, sk, num_heads):
+def _(q, kv, bias, b, sq, sk, num_heads):
     return q.new_empty(b * sq, q.shape[1])
 
 

@@ -2,8 +2,9 @@
 
 Fixed batch shape (the tail padded, with a ``valid`` mask), parameters
 resident on the device, and one batch in flight: batch N+1 is launched
-before batch N's scores are copied back, so the host pipeline (a prefetch
-thread parsing and featurizing ahead), the device and the copy overlap.
+before batch N's scores are copied back, so the host loader (behind a
+prefetch thread: the native parser inline, N loader processes, or the
+per-example Python path), the device and the copy overlap.
 
 Device policy: the engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` it raises, and it
@@ -29,7 +30,10 @@ import numpy as np
 import torch
 
 from ..checkpoint.npz import cast_matmul_weights, tree_to
-from ..data import Featurizer, PipelineStats, batches_from_files
+from ..data import Featurizer, PipelineStats, PrefetchIterator, batches_from_files
+from ..data.fast_pipeline import native_batches_from_files
+from ..data.multiworker import MultiWorkerLoader
+from ..data.native import get_lib
 from ..models import ModelSpec, Precision
 from ..ops import attention
 
@@ -122,12 +126,30 @@ class ScoringEngine:
         return qid[valid], pid[valid], scores
 
     def score_files(
-        self, paths, featurizer: Featurizer, batch_size: int, stats: ScoringStats | None = None
+        self, paths, featurizer: Featurizer, batch_size: int, stats: ScoringStats | None = None,
+        use_native: bool = True, num_workers: int = 0,
     ) -> dict[str, dict[str, float]]:
-        """Full scorer run: files -> {query_id: {product_id: score}}."""
+        """Full scorer run: files -> {query_id: {product_id: score}}.
+
+        The host loader, each behind a prefetch thread, yields the same batches
+        bit for bit: ``num_workers > 0`` parses and featurizes in that many
+        worker processes (``data/multiworker.py``); otherwise ``use_native``
+        (the default) parses with the native library inline
+        (``data/fast_pipeline.py``), and ``use_native=False`` runs the
+        per-example Python path. A native library that cannot be built raises;
+        no loader is swapped for another."""
         stats = stats if stats is not None else ScoringStats()
-        fz = featurizer.for_model(self.model.featurizer_layout)
-        batches = batches_from_files(paths, fz, batch_size, stats=stats.pipeline)
+        layout = self.model.featurizer_layout
+        if num_workers:
+            loader = MultiWorkerLoader(paths, featurizer, layout, batch_size, num_workers=num_workers,
+                                       stats=stats.pipeline, use_native=use_native)
+            batches = PrefetchIterator(iter(loader), prefetch=4)
+        elif use_native:
+            get_lib()  # built here, so a failure raises before the prefetch thread starts
+            batches = PrefetchIterator(
+                native_batches_from_files(paths, featurizer, layout, batch_size, stats=stats.pipeline), prefetch=4)
+        else:
+            batches = batches_from_files(paths, featurizer.for_model(layout), batch_size, stats=stats.pipeline)
         result: dict[str, dict[str, float]] = {}
         t0 = time.perf_counter()
         for qids, pids, scores in self.score_stream(batches, stats):
@@ -135,19 +157,6 @@ class ScoringEngine:
                 result.setdefault(str(q), {})[str(p)] = float(s)
         stats.seconds = time.perf_counter() - t0
         return result
-
-
-def load_tsv_scores(path) -> dict[str, dict[str, float]]:
-    """A qid\tpid\tscore file -> {qid: {pid: score}}; lines with fewer than
-    three fields are skipped (the JAX package's ``ensemble/fusion.py`` :36-44)."""
-    out: dict[str, dict[str, float]] = {}
-    with open(path, "r", encoding="utf-8") as f:
-        for line in f:
-            arr = line.strip().split("\t")
-            if len(arr) < 3:
-                continue
-            out.setdefault(arr[0], {})[arr[1]] = float(arr[2])
-    return out
 
 
 def write_scores_tsv(result: dict[str, dict[str, float]], path) -> None:

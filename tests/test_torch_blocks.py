@@ -81,8 +81,8 @@ def test_ffn_block_matches_pallas(approximate, dtype):
 def test_wrappers_reject_bad_arguments():
     x, ws, _ = attn_inputs(2)
     xt, wt = _torch(x), [_torch(w) for w in ws]
-    with pytest.raises(ValueError, match="key-mask"):
-        attention_block(xt, *wt, N, torch.zeros(3, 1, 40, 40))
+    with pytest.raises(ValueError, match="broadcasts"):
+        attention_block(xt, *wt, N, torch.zeros(3, N, 40, 40))  # a bias per head: the kernel's is shared
     with pytest.raises(ValueError, match="residual"):
         kernels.gemm(xt.reshape(120, 64), wt[2], wt[3], "bias", residual=xt.reshape(120, 64))
     with pytest.raises(ValueError, match="epilogue"):

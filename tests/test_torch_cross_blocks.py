@@ -154,8 +154,8 @@ def test_wrappers_reject_bad_arguments():
     xt, ct, wt = _torch(x), _torch(ctx), [_torch(w) for w in ws]
     with pytest.raises(ValueError, match="key-mask"):
         cross_attention_block(xt, ct, *wt, N, torch.zeros(3, 23))  # a mask over x's positions
-    with pytest.raises(ValueError, match="key-mask"):
-        cross_attention_block_plain(xt, ct, *wt, N, torch.zeros(3, 1, 23, 10))
+    with pytest.raises(ValueError, match="broadcasts"):
+        cross_attention_block_plain(xt, ct, *wt, N, torch.zeros(3, 1, 10, 23))  # [B, 1, T, F], not [B, 1, F, T]
     lb = torch.zeros(3, 23)
     for fn in (dual_cross_attention_block, dual_cross_attention_block_plain):
         with pytest.raises(ValueError, match="both key masks or neither"):

@@ -919,3 +919,120 @@ def test_cuda_cross_train_block_launch_or_raise(cuda):
     train_blocks.cross_attention_block_train(x, c, *ws, 12, 1, attn_dropout_rate=0.1).sum().backward()
     torch.cuda.synchronize()
     assert [z.launches - b for z, b in zip(counters, before)] == [1, 1, 3 + 6, 2, 1, 1, 1]
+
+
+# A full head-shared attention bias ([B, 1, S, S] / [B, 1, F, T] at the blocks, [B, Sq, Sk] at the
+# cores): the full-bias instance of attn_core / attn_core_cross at the 16-row tiles' edges, and a key
+# mask spread over every query, which must give the key-mask instance's output bit for bit
+FULL_BIAS_LENGTHS = [1, 17, 40, 64]
+FULL_BIAS_PAIRS = [(64, 1), (1, 64), (23, 10), (10, 23)]
+
+
+def _full_bias(device, seed, b, sq, sk, all_masked_row=False):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bias = torch.randn(b, sq, sk, generator=g)
+    masked = torch.rand(b, sq, sk, generator=g) < 0.25
+    masked[..., 0] = False
+    if all_masked_row:
+        masked[0, 0] = True  # pair 0's first query: every key at -10000, an ordinary softmax
+    return bias.masked_fill(masked, -10000.0).to(device)
+
+
+@pytest.mark.parametrize("s", FULL_BIAS_LENGTHS)
+def test_cuda_attn_core_full_bias_matches_plain(cuda, s):
+    qkv, _, _ = _core_case(cuda, 31, 5, s, s, "no-mask")
+    bias = _full_bias(cuda, 32, 5, s, s, all_masked_row=True)
+    assert within_band(kernels.attn_core(qkv, bias, 5, s, 12), kernels.attn_core_plain(qkv, bias, 5, s, 12))
+
+
+@pytest.mark.parametrize("sq,sk", FULL_BIAS_PAIRS, ids=[f"{a}<-{b}" for a, b in FULL_BIAS_PAIRS])
+def test_cuda_attn_core_cross_full_bias_matches_plain(cuda, sq, sk):
+    qkv_q, qkv_k, _ = _core_case(cuda, 33, 5, sq, sk, "no-mask")
+    q, kv = qkv_q[:, :768].contiguous(), qkv_k[:, 768:].contiguous()
+    bias = _full_bias(cuda, 34, 5, sq, sk, all_masked_row=True)
+    assert within_band(kernels.attn_core_cross(q, kv, bias, 5, sq, sk, 12),
+                       kernels.attn_core_cross_plain(q, kv, bias, 5, sq, sk, 12))
+
+
+@pytest.mark.parametrize("sq,sk", [(s, s) for s in FULL_BIAS_LENGTHS] + FULL_BIAS_PAIRS,
+                         ids=[f"{s}" for s in FULL_BIAS_LENGTHS] + [f"{a}<-{b}" for a, b in FULL_BIAS_PAIRS])
+def test_cuda_key_mask_as_full_bias_equals_key_mask(cuda, sq, sk):
+    """The key-mask and no-bias instances are untouched by the full-bias one: a key mask spread over
+    every query (and zeros for no bias) through the full-bias instance gives their output bit for bit."""
+    qkv_q, qkv_k, (_, kb) = _core_case(cuda, 35, 5, sq, sk, "all-masked-row")
+    q, kv = qkv_q[:, :768].contiguous(), qkv_k[:, 768:].contiguous()
+    for compact, spread in ((kb, kb[:, None, :].expand(5, sq, sk).contiguous()),
+                            (None, torch.zeros(5, sq, sk, device=cuda))):
+        assert torch.equal(kernels.attn_core_cross(q, kv, spread, 5, sq, sk, 12),
+                           kernels.attn_core_cross(q, kv, compact, 5, sq, sk, 12))
+        if sq == sk:
+            assert torch.equal(kernels.attn_core(qkv_q, spread, 5, sq, 12), kernels.attn_core(qkv_q, compact, 5, sq, 12))
+
+
+@pytest.mark.parametrize("f,t", LENGTHS, ids=LENGTH_IDS)
+def test_cuda_blocks_take_a_full_bias(cuda, f, t):
+    """The attention block with a [B, 1, S, S] bias and the cross block with a [B, 1, F, T] one, on the
+    kernels (one attn_core / attn_core_cross launch each), against their plain oracles."""
+    x, ws, _ = attn_inputs(36, **{**FULL, "s": f})
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    wt = _to(ws, cuda, [torch.bfloat16, torch.float32, torch.bfloat16] + [torch.float32] * 3)
+    bias = _full_bias(cuda, 37, FULL["b"], f, f)[:, None]
+    before = kernels.attn_core.launches
+    assert within_band(attention_block(xt, *wt, 12, bias), attention_block_plain(xt, *wt, 12, bias))
+    assert kernels.attn_core.launches == before + 1
+    lang, visn, cw, _ = _cross_case(cuda, 38, f, t, "no-mask")
+    bias = _full_bias(cuda, 39, 8, f, t)[:, None]
+    before = kernels.attn_core_cross.launches
+    assert within_band(cross_attention_block(lang, visn, *cw, 12, bias),
+                       cross_attention_block_plain(lang, visn, *cw, 12, bias))
+    assert kernels.attn_core_cross.launches == before + 1
+
+
+# The host loaders feeding a scoring engine on the card: the native parser inline, two worker
+# processes and the per-example Python path give the same batches, so the kernels give the same scores
+CARD_TINY = {"hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2, "intermediate_size": 256}
+
+
+def test_cuda_loaders_feed_the_engine_bit_equal(cuda, tmp_path):
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch import VOCAB_PATH
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import Featurizer
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.synthetic import SYNTHETIC_LABELS, make_testb_tsv
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine, ScoringStats
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.tokenization import FullTokenizer
+
+    p = tmp_path / "pairs.tsv"
+    p.write_text("\n".join(make_testb_tsv(70, seed=3, pairs_per_query=9)) + "\n")
+    fz = Featurizer(FullTokenizer.google_style(VOCAB_PATH), SYNTHETIC_LABELS)
+    spec = get_model("imagebert_a", overrides=CARD_TINY)
+    engine = ScoringEngine(spec, spec.init_params(1), device=cuda)
+    assert engine.attention_backend == "pallas_packed"
+    results = {}
+    for name, kw in (("native", {}), ("workers", {"num_workers": 2}), ("python", {"use_native": False})):
+        stats = ScoringStats()
+        before = kernels.attn_core.launches
+        results[name] = engine.score_files([p], fz, 16, stats=stats, **kw)
+        assert (stats.pairs, stats.pipeline.errors) == (70, 1)
+        assert kernels.attn_core.launches - before == 2 * stats.batches  # 2 layers a batch
+    assert results["workers"] == results["native"] == results["python"]
+
+
+def test_cuda_device_fusion_equals_dict_path(cuda):
+    """build_submission_vectorized on the card (float64) gives the dict path's rows, on tables whose
+    products sit under 1-3 queries with top-2 gaps on both sides of 0.92."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch import ensemble
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ensemble import vectorized
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tables = [{}, {}, {}, {}]
+    for pid in range(300):
+        homes = torch.randperm(40, generator=g)[: int(torch.randint(1, 4, (1,), generator=g))].tolist()
+        best = 1.0 + torch.rand(1, generator=g).item()
+        gap = [0.5, 0.91, 0.93, 1.5][int(torch.randint(0, 4, (1,), generator=g))]
+        for i, q in enumerate(homes):
+            m = best if i == 0 else best - gap
+            for j, t in enumerate(tables):
+                t.setdefault(f"q{q}", {})[f"p{pid}"] = m + 0.01 * (j - 1.5) * torch.rand(1, generator=g).item()
+    fused = ensemble.fuse(*tables)
+    want = ensemble.top5_rows(ensemble.dedup_filter(fused), fused.merge)
+    assert vectorized.build_submission_vectorized(*tables, device=cuda) == want
