@@ -92,6 +92,22 @@
    table in ``build/smoke/train/profile.txt``); and TRAIN_STEPS steps through
    ``cli/train.py`` (the "imagebert_a_train" path of
    the kernel line, host sampler included: end-to-end pairs/s).
+   ImageBERT-B/C (its train blocks at S=30 with its key masks, every fourth
+   pair's box keys all masked): the train blocks and ``attn_train``/
+   ``attn_train_bwd`` held to their plain versions at S=30 and timed at B=256;
+   the label conv's training Function (``ops/band_conv.py``: [2560, 6144] @ the
+   band of 8 f32 taps) forward and backward held to its plain version's
+   autograd and timed. Then the path: ImageBERT-B at full width, B=256, B's
+   recipe (Adam on the staircase, per-value clip, AM loss, EMA) through
+   ``train.Trainer`` on batches of B's sampler: step 1 held to the f32 truth as
+   A's (the taps included), one step with the word-match loss (its head gets
+   a gradient), TRAIN_STEPS timed steps with the launch counters exact at every
+   step ("imagebert_b_train"), two profiled steps
+   (``build/smoke/train/imagebert_b_profile.txt``), TRAIN_STEPS steps through
+   ``cli/train.py --model imagebert_b`` whose checkpoint (8 taps)
+   ``cli/score.py`` scores on the card (finite scores, exact launches), and
+   B_C_CLI_STEPS steps of ``--model imagebert_c``. A's, B's and LXMERT's
+   weight gradients are the glue of ``ops/train_blocks.py:weight_grads``.
 6. Training (LXMERT). Kernel checks at B=32 and B=256, 23<-10 and 10<-23
    (H=768, 12 heads, bf16, seeded key masks with some visn rows all masked):
    ``attn_train_cross``/``attn_train_cross_bwd`` (``csrc/attn_train.cu``'s
@@ -130,8 +146,9 @@
 The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
 launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
 ImageBERT-B at S=30 with its label conv, LXMERT scoring on its default route
-at 23 and 10 rows a pair with the cross blocks' Q and K/V products, both
-training steps at B=256 with the transposed-weight and aux epilogues), each
+at 23 and 10 rows a pair with the cross blocks' Q and K/V products, the three
+training steps at B=256 with the transposed-weight and aux epilogues and B's
+label conv forward and dx), each
 held against ``gemm_plain`` once and timed alone beside its bound, one
 ``torch.matmul`` of the same operands and its launches per batch or step (the
 paths' launch counts, which the per-path sums must equal); and the host time
@@ -209,6 +226,7 @@ N_ROWS, SEED = 2048, 0
 ONE_SHOT_ROWS, ONE_SHOT_TIMEOUT_S = 8192, 600
 # training: ImageBERT-A's batch (scripts/train.py:55), a check batch, the steps of the path
 TRAIN_B, TRAIN_CHECK_B, TRAIN_STEPS, TRAIN_RATE = 256, 32, 10, 0.1
+B_C_CLI_STEPS = 3  # ImageBERT-C through cli/train.py: B's path on rewritten queries
 # the train blocks vs their plain oracles' autograd, bf16: the oracle rounds its weight and GELU gradients
 # to bf16 at its casts, the kernels keep them f32, so gradients are held in relative L2
 TRAIN_GRAD_REL_L2 = 2e-2
@@ -1816,14 +1834,15 @@ class Smoke:
 
     def train_block_fns(self, kind: str, x, ws, bias, dy):
         """(forward of the kernel block, its backward, the plain oracle's forward, the oracle's autograd
-        backward, the library forward, its autograd backward) at TRAIN_RATE, each a no-argument callable."""
+        backward, the library forward, its autograd backward) at TRAIN_RATE and x's sequence length, each a
+        no-argument callable."""
         from importlib import import_module
 
         torch = self.torch
         F = torch.nn.functional
         tb = import_module(f"{PKG}.ops.train_blocks")
         dropout = import_module(f"{PKG}.ops.dropout")
-        b = x.shape[0]
+        b, s = x.shape[:2]
         if kind == "ffn":
             block = dropout.pick_block(b, dropout.train_block("ffn"))
             kernel = lambda x, *w: tb.ffn_block_train(x, *w, 42, dropout_rate=TRAIN_RATE)  # noqa: E731
@@ -1840,16 +1859,16 @@ class Smoke:
                 x, *w, N, 42, bias=bias, attn_dropout_rate=TRAIN_RATE, hidden_dropout_rate=TRAIN_RATE)
             plain = lambda x, *w: tb.attention_block_train_plain(  # noqa: E731
                 x, *w, N, 42, bias=bias, attn_dropout_rate=TRAIN_RATE, hidden_dropout_rate=TRAIN_RATE)
-            kb = None if bias is None else bias.reshape(b, S).float().contiguous()
+            kb = None if bias is None else bias.reshape(b, s).float().contiguous()
             backward = lambda: tb.attention_block_train_backward(  # noqa: E731
                 dy, x, *ws[:5], kb, N, 42, TRAIN_RATE, TRAIN_RATE, 1e-12, block)
 
             def library(x, wqkv, bqkv, wo, bo, g, be):  # bf16 matmuls, SDPA with dropout, F.layer_norm
                 qkv = torch.matmul(x, wqkv.to(torch.bfloat16)) + bqkv.to(torch.bfloat16)
-                q, k_, v = (t.reshape(b, S, N, 64).transpose(1, 2) for t in qkv.split(H, dim=-1))
-                mask = None if bias is None else bias.to(torch.bfloat16).reshape(b, 1, 1, S)
+                q, k_, v = (t.reshape(b, s, N, 64).transpose(1, 2) for t in qkv.split(H, dim=-1))
+                mask = None if bias is None else bias.to(torch.bfloat16).reshape(b, 1, 1, s)
                 ctx = F.scaled_dot_product_attention(q, k_, v, attn_mask=mask, dropout_p=TRAIN_RATE)
-                o = F.dropout(torch.matmul(ctx.transpose(1, 2).reshape(b, S, H), wo.to(torch.bfloat16))
+                o = F.dropout(torch.matmul(ctx.transpose(1, 2).reshape(b, s, H), wo.to(torch.bfloat16))
                               + bo.to(torch.bfloat16), TRAIN_RATE)
                 return F.layer_norm((o + x).float(), (H,), g, be, 1e-12).to(torch.bfloat16)
 
@@ -1863,47 +1882,56 @@ class Smoke:
 
     def time_train_kernels(self) -> dict[str, dict]:
         """At TRAIN_B: the train blocks held against their plain oracles (forward in the ulp band, the
-        backward's 7 gradients in relative L2), then every train kernel and block timed beside its bound,
-        plain version and library yardstick."""
+        backward's 7 gradients in relative L2), at ImageBERT-A's S=40 and at ImageBERT-B's S=30 with its key
+        masks; then every train kernel and block timed beside its bound, plain version and library yardstick,
+        and ImageBERT-B's label conv as its training Function (``band_conv_rows``)."""
         from importlib import import_module
 
         k = import_module(f"{PKG}.ops.kernels")
         att = import_module(f"{PKG}.ops.attention")
         torch = self.torch
-        F = torch.nn.functional
-        b, m = TRAIN_B, TRAIN_B * S
+        b = TRAIN_B
         rows = {}
-        x = self.randn(b, S, H, dtype=torch.bfloat16)
-        dy = self.randn(b, S, H, dtype=torch.bfloat16)
         mask = torch.ones(b, S)
         mask[1::3, 25:] = 0.0  # a key mask on every third pair, for the block check (ImageBERT-A passes none)
-        bias = att.mask_to_bias(mask).to(self.dev)
-        for kind in ("ffn", "attn"):
-            ws = self.train_weights(kind)
-            name = "ffn_block_train" if kind == "ffn" else "attention_block_train"
-            for label, bb in (("no mask", None), ("key mask", bias)) if kind == "attn" else (("", None),):
-                (kf, pf, _), (kb_, pb, _) = self.train_block_fns(kind, x, ws, bb, dy)
-                tag = f"[rate {TRAIN_RATE}{', ' + label if label else ''}, B={b}]"
-                self.check(f"{name} y vs plain oracle {tag}", name, kf(), pf(), CARD_ATOL, CARD_RTOL)
-                got, want = kb_(), pb()
-                if got[0].dtype != torch.bfloat16 or any(g.dtype != torch.float32 for g in got[1:]):
-                    self.failures.append(f"{name} gradient dtypes")
-                self.check_rel(f"{name}_backward dx, dW_in, db_in, dW_out, db_out, dgamma, dbeta vs the oracle's "
-                               f"autograd {tag}", f"{name}_backward", got, want, TRAIN_GRAD_REL_L2)
-            (kf, pf, lf), (kb_, pb, lb) = self.train_block_fns(kind, x, ws, None, dy)
-            wbytes = nbytes_of(ws)
-            if kind == "ffn":
-                fwd_flops, bwd_flops = 4.0 * m * H * I, 12.0 * m * H * I
-            else:
-                core = 4.0 * b * N * S * S * 64
-                fwd_flops = 2.0 * m * H * 3 * H + core + 2.0 * m * H * H
-                bwd_flops = fwd_flops + 2.0 * m * H * H + 10.0 * b * N * S * S * 64 + 2.0 * m * 3 * H * H \
-                    + 2.0 * m * H * 3 * H + 2.0 * m * H * H
-            self.time_row(rows, name, name, kf, pf, lf, 4 * m * H + wbytes, fwd_flops, PEAK_BF16_FLOPS, check=False)
-            self.time_row(rows, f"{name}_backward", f"{name}_backward", kb_, pb, lb, 6 * m * H + 2 * wbytes,
-                          bwd_flops, PEAK_BF16_FLOPS, check=False)
+        for s, checks, timed_bias in ((S, (("no mask", None), ("key mask", att.mask_to_bias(mask).to(self.dev))),
+                                       None),
+                                      (B_S, None, self.key_bias(b, B_S))):
+            checks = checks or (("ImageBERT-B key mask", timed_bias),)
+            m, suffix = b * s, "" if s == S else f" S={s}"
+            x = self.randn(b, s, H, dtype=torch.bfloat16)
+            dy = self.randn(b, s, H, dtype=torch.bfloat16)
+            for kind in ("ffn", "attn"):
+                ws = self.train_weights(kind)
+                name = "ffn_block_train" if kind == "ffn" else "attention_block_train"
+                for label, bb in checks if kind == "attn" else (("", None),):
+                    (kf, pf, _), (kb_, pb, _) = self.train_block_fns(kind, x, ws, bb, dy)
+                    tag = f"[S={s}, rate {TRAIN_RATE}{', ' + label if label else ''}, B={b}]"
+                    self.check(f"{name} y vs plain oracle {tag}", name, kf(), pf(), CARD_ATOL, CARD_RTOL)
+                    got, want = kb_(), pb()
+                    if got[0].dtype != torch.bfloat16 or any(g.dtype != torch.float32 for g in got[1:]):
+                        self.failures.append(f"{name} gradient dtypes")
+                    self.check_rel(f"{name}_backward dx, dW_in, db_in, dW_out, db_out, dgamma, dbeta vs the "
+                                   f"oracle's autograd {tag}", f"{name}_backward", got, want, TRAIN_GRAD_REL_L2)
+                bb = timed_bias if kind == "attn" else None
+                (kf, pf, lf), (kb_, pb, lb) = self.train_block_fns(kind, x, ws, bb, dy)
+                wbytes = nbytes_of(ws) + (0 if bb is None else nbytes_of((bb,)))
+                if kind == "ffn":
+                    fwd_flops, bwd_flops = 4.0 * m * H * I, 12.0 * m * H * I
+                else:
+                    core = 4.0 * b * N * s * s * 64
+                    fwd_flops = 2.0 * m * H * 3 * H + core + 2.0 * m * H * H
+                    bwd_flops = fwd_flops + 2.0 * m * H * H + 10.0 * b * N * s * s * 64 + 2.0 * m * 3 * H * H \
+                        + 2.0 * m * H * 3 * H + 2.0 * m * H * H
+                self.time_row(rows, name + suffix, name, kf, pf, lf, 4 * m * H + wbytes, fwd_flops, PEAK_BF16_FLOPS,
+                              check=False)
+                self.time_row(rows, f"{name}_backward{suffix}", f"{name}_backward", kb_, pb, lb,
+                              6 * m * H + 2 * wbytes, bwd_flops, PEAK_BF16_FLOPS, check=False)
+        rows.update(self.band_conv_rows())
 
         # the kernels inside the blocks, at the blocks' shapes (rate TRAIN_RATE, no mask)
+        F = torch.nn.functional
+        m = b * S
         c = self.train_kernel_case(b)
         fw, aw = self.train_weights("ffn"), self.train_weights("attn")
         w1, w2, wqkv, wo = (w.to(torch.bfloat16) for w in (fw[0], fw[2], aw[0], aw[2]))
@@ -1922,8 +1950,9 @@ class Smoke:
                       lambda: k.ln_train_bwd_plain(h32, x2d, dy2d, gamma, 77, TRAIN_RATE, rows_pb),
                       lambda: torch.autograd.grad(yl, (zl,), dy2d.float(), retain_graph=True),
                       m * H * 14 + H * 4 + 2 * parts * H * 4, 20.0 * m * H, PEAK_F32_FLOPS, check=False, device=True)
-        # attn_train at ImageBERT-A's S=40 (no mask) and LXMERT's S=23 and S=10 (its key masks)
-        for s in (S, LX_F, LX_T):
+        # attn_train at ImageBERT-A's S=40 (no mask), ImageBERT-B's S=30 and LXMERT's S=23 and S=10 (their key
+        # masks; B's with every fourth pair's box keys all masked)
+        for s in (S, B_S, LX_F, LX_T):
             name = "" if s == S else f" S={s}"
             if s == S:
                 qkv_s, dctx_s, bias_s = c["qkv"], c["dctx"], None
@@ -1937,9 +1966,13 @@ class Smoke:
             bwd = (lambda qkv=qkv_s, d=dctx_s, bias=bias_s, a=a: k.attn_train_bwd(qkv, d, bias, *a),
                    lambda qkv=qkv_s, d=dctx_s, bias=bias_s, a=a: k.attn_train_bwd_plain(qkv, d, bias, *a))
             if s != S:  # S=40 is held in check_train_kernels
-                tag = f"[S={s}, LXMERT key mask, rate {TRAIN_RATE}, B={b}]"
-                self.check(f"attn_train {tag}", "attn_train", fwd[0](), fwd[1](), CARD_ATOL, CARD_RTOL)
-                self.check(f"attn_train_bwd {tag}", "attn_train_bwd", bwd[0](), bwd[1](), CARD_ATOL, CARD_RTOL)
+                for rate in (0.0, TRAIN_RATE) if s == B_S else (TRAIN_RATE,):
+                    ar = (b, s, N, 55, rate, 8)
+                    tag = f"[S={s}, {'ImageBERT-B' if s == B_S else 'LXMERT'} key mask, rate {rate}, B={b}]"
+                    self.check(f"attn_train {tag}", "attn_train", k.attn_train(qkv_s, bias_s, *ar),
+                               k.attn_train_plain(qkv_s, bias_s, *ar), CARD_ATOL, CARD_RTOL)
+                    self.check(f"attn_train_bwd {tag}", "attn_train_bwd", k.attn_train_bwd(qkv_s, dctx_s, bias_s, *ar),
+                               k.attn_train_bwd_plain(qkv_s, dctx_s, bias_s, *ar), CARD_ATOL, CARD_RTOL)
             heads = [t.reshape(b, s, N, 64).transpose(1, 2).contiguous().requires_grad_()
                      for t in qkv_s.split(H, dim=1)]
             mask = None if bias_s is None else bias_s.to(torch.bfloat16).reshape(b, 1, 1, s)
@@ -1978,6 +2011,51 @@ class Smoke:
                           check=False)
         return rows
 
+    def band_conv_rows(self) -> dict[str, dict]:
+        """ImageBERT-B's label conv as its training Function (``ops/band_conv.py``) at TRAIN_B: [B*10, 8H] @
+        the band of 8 f32 taps, forward ("f32" out, F32_OUT_BAND) and backward (dx in the ulp band, the taps'
+        and bias's gradients in relative L2 against the oracle's autograd), each then timed beside its bound
+        (the band's 48 non-zero [H, H] blocks), its plain version and a library call: one ``torch.mm`` with an
+        f32 out, and autograd through a bf16 ``torch.matmul``."""
+        from importlib import import_module
+
+        torch = self.torch
+        bc = import_module(f"{PKG}.ops.band_conv")
+        mc = TRAIN_B * 10
+        x = self.randn(mc, 8 * H, dtype=torch.bfloat16)
+        taps, bias = self.randn(8, H, H, scale=0.02), self.randn(H, scale=0.1)
+        dy = self.randn(mc, 8 * H)
+        band = bc.conv_band(taps.to(torch.bfloat16), 3)
+
+        def grads_of(fn, *args):
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            y = fn(*leaves)
+            return lambda: torch.autograd.grad(y, leaves, dy.to(y.dtype), retain_graph=True)
+
+        kernel, plain = (grads_of(lambda *a, f=f: f(*a, 3), x, taps, bias)
+                         for f in (bc.band_conv_train, bc.band_conv_train_plain))
+        tag = f"[{mc} x {8 * H} @ {8 * H} x {8 * H}, B={TRAIN_B}]"
+        self.check(f"band_conv_train y vs plain {tag}", "band_conv_train", bc.band_conv_train(x, taps, bias, 3),
+                   bc.band_conv_train_plain(x, taps, bias, 3), F32_OUT_BAND)
+        got, want = kernel(), plain()
+        self.check(f"band_conv_train dx vs the plain version's autograd {tag}", "band_conv_train", got[0], want[0],
+                   CARD_ATOL, CARD_RTOL)
+        if got[0].dtype != torch.bfloat16 or any(g.dtype != torch.float32 for g in got[1:]):
+            self.failures.append("band_conv_train gradient dtypes")
+        self.check_rel(f"band_conv_train dtaps, dbias vs the plain version's autograd {tag}", "band_conv_train",
+                       got[1:], want[1:], TRAIN_GRAD_REL_L2)
+        rows: dict[str, dict] = {}
+        flops = 2.0 * mc * H * H * CONV_BLOCKS
+        ins = nbytes_of((x, taps, bias))
+        self.time_row(rows, "band_conv_train", "band_conv_train", lambda: bc.band_conv_train(x, taps, bias, 3),
+                      lambda: bc.band_conv_train_plain(x, taps, bias, 3),
+                      lambda: torch.mm(x, band, out_dtype=torch.float32), ins + mc * 8 * H * 4, flops,
+                      PEAK_BF16_FLOPS, check=False)
+        self.time_row(rows, "band_conv_train_backward", "band_conv_train", kernel, plain,
+                      grads_of(torch.matmul, x, band), ins + nbytes_of((dy, x, taps, bias)), 2 * flops,
+                      PEAK_BF16_FLOPS, check=False)
+        return rows
+
     def train_data(self, work):
         """A synthetic TSV, its labels and query_labels.txt (every synthetic query, as tests/test_scripts.py
         writes them) -> (tsv path, labels path, query-labels path)."""
@@ -1991,6 +2069,37 @@ class Smoke:
                                    for i, q in enumerate(synthetic.SYNTHETIC_QUERIES)))
         return tsv, labels, qlabels
 
+    def sampled_train_batches(self, name: str):
+        """The training data of ImageBERT-A or -B at full width: the synthetic TSV of ``train_data`` under
+        build/smoke/train, the model's spec (held to the full-width config with dropout TRAIN_RATE), its
+        params from the seed, and TRAIN_STEPS batches of TRAIN_B pairs from its recipe's hard-negative
+        sampler -> (spec, params, batches, (tsv, labels, qlabels), sampled pairs)."""
+        from importlib import import_module
+
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        models = import_module(f"{PKG}.models")
+        tok = import_module(f"{PKG}.tokenization")
+        work = pkg.BUILD_DIR / "smoke" / "train"
+        work.mkdir(parents=True, exist_ok=True)
+        tsv, labels, qlabels = self.train_data(work)
+        spec = models.get_model(name)
+        cfg = spec.config
+        if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads, cfg.hidden_dropout_prob,
+                cfg.attention_probs_dropout_prob) != (H, 12, N, TRAIN_RATE, TRAIN_RATE):
+            raise RuntimeError(f"not the full-width config with dropout {TRAIN_RATE}: {cfg}")
+        sampler_cfg = data.SamplerConfig.imagebert_a if name == "imagebert_a" else data.SamplerConfig.imagebert_b
+        sampler = data.HardNegativeSampler(
+            data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels)),
+            data.QueryLabelIndex.load(qlabels), sampler_cfg(self.seed))
+        lines = tsv.read_text().splitlines()
+        examples = []
+        while len(examples) < TRAIN_STEPS * TRAIN_B:
+            examples.extend(sampler.examples(lines))
+        batches = [data.pad_batch(data.stack_examples(examples[i * TRAIN_B:(i + 1) * TRAIN_B]), TRAIN_B)
+                   for i in range(TRAIN_STEPS)]
+        return spec, spec.init_params(self.seed), batches, (tsv, labels, qlabels), len(examples)
+
     def train_imagebert_a(self) -> tuple[dict, dict]:
         """The training path at full width: the step-1 check of the kernel route against the plain routes,
         TRAIN_STEPS timed steps with the counters read at every one, and TRAIN_STEPS steps through
@@ -2001,37 +2110,20 @@ class Smoke:
 
         torch = self.torch
         pkg = import_module(PKG)
-        data = import_module(f"{PKG}.data")
         models = import_module(f"{PKG}.models")
-        tok = import_module(f"{PKG}.tokenization")
         train = import_module(f"{PKG}.train")
         train_cli = import_module(f"{PKG}.cli.train")
         optim = import_module(f"{PKG}.train.optim")
 
         work = pkg.BUILD_DIR / "smoke" / "train"
-        work.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        tsv, labels, qlabels = self.train_data(work)
-        spec = models.get_model("imagebert_a")
+        spec, params, batches, (tsv, labels, qlabels), n_examples = self.sampled_train_batches("imagebert_a")
         cfg = spec.config
-        if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads, cfg.hidden_dropout_prob,
-                cfg.attention_probs_dropout_prob) != (H, 12, N, TRAIN_RATE, TRAIN_RATE):
-            raise RuntimeError(f"not the full-width config with dropout {TRAIN_RATE}: {cfg}")
-        params = spec.init_params(self.seed)
-        sampler = data.HardNegativeSampler(
-            data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels)),
-            data.QueryLabelIndex.load(qlabels), data.SamplerConfig.imagebert_a(self.seed))
-        lines = tsv.read_text().splitlines()
-        examples = []
-        while len(examples) < TRAIN_STEPS * TRAIN_B:
-            examples.extend(sampler.examples(lines))
-        batches = [data.pad_batch(data.stack_examples(examples[i * TRAIN_B:(i + 1) * TRAIN_B]), TRAIN_B)
-                   for i in range(TRAIN_STEPS)]
         # A's recipe with a short warmup and horizon, so the few steps move the parameters (the recipe's
         # 30k-step warmup starts at LR 0)
         tc = dataclasses.replace(train.recipe_for("imagebert_a"), num_warmup_steps=TRAIN_STEPS // 2,
                                  num_train_steps=10 * TRAIN_STEPS)
-        log(f"train setup: {len(examples)} sampled pairs, {cfg.num_hidden_layers}x{cfg.hidden_size} params, "
+        log(f"train setup: {n_examples} sampled pairs, {cfg.num_hidden_layers}x{cfg.hidden_size} params, "
             f"{time.perf_counter() - t0:.1f} s")
 
         step1 = self.step1_against_truth(spec, tc, params, batches[0], "train")
@@ -2064,6 +2156,104 @@ class Smoke:
         log(f"train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled kernels' sum "
             f"over the CUDA-event step time)")
         return launches, rates
+
+    def train_imagebert_b(self) -> tuple[dict[str, dict], dict]:
+        """ImageBERT-B training at full width through train.Trainer (B's recipe: Adam on the staircase,
+        per-value clip, AM loss, EMA; the label conv as its 8 taps): the step-1 check against the f32 truth,
+        taps included; TRAIN_STEPS timed steps with the counters read at every one; two profiled steps; one
+        step with the word-match loss; TRAIN_STEPS steps through cli/train.py, its checkpoint scored by
+        cli/score.py; B_C_CLI_STEPS steps of ImageBERT-C through cli/train.py -> (each run's launches: the
+        timed steps summed, the two training CLI runs and the scoring run, each held exact; the numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        models = import_module(f"{PKG}.models")
+        train = import_module(f"{PKG}.train")
+        train_cli = import_module(f"{PKG}.cli.train")
+        score_cli = import_module(f"{PKG}.cli.score")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+        optim = import_module(f"{PKG}.train.optim")
+
+        work = pkg.BUILD_DIR / "smoke" / "train"
+        t0 = time.perf_counter()
+        spec, params, batches, (tsv, labels, qlabels), n_examples = self.sampled_train_batches("imagebert_b")
+        cfg = spec.config
+        tc = train.recipe_for("imagebert_b")
+        n_params = sum(v.numel() for v in optim.flatten_paths(spec.train_params(params)).values())
+        log(f"imagebert_b train setup: {n_examples} sampled pairs, {cfg.num_hidden_layers}x{cfg.hidden_size}, "
+            f"{n_params} trained parameters (the label conv as 8 taps), {time.perf_counter() - t0:.1f} s")
+
+        step1 = self.step1_against_truth(spec, tc, params, batches[0], "imagebert_b train")
+        bf16 = models.Precision.bf16()
+        wm = train.Trainer(spec, dataclasses.replace(tc, word_match_loss_weight=0.5), precision=bf16, device=self.dev)
+        state = wm.init_state(params, seed=self.seed)
+        grads, metrics = wm.grads(state, wm.to_device(batches[0]), seed=1)
+        g_head = dict(zip(state.optimizer.names, grads))["kdd_query_match/output_weights"].abs().max().item()
+        wm_step = {"loss": metrics["loss"].item(), "word_match_loss": metrics["word_match_loss"].item(),
+                   "max_abs_head_grad": g_head}
+        log(f"imagebert_b train step 1 with the word-match loss (weight 0.5): {json.dumps(wm_step)}")
+        if not all(np.isfinite(list(wm_step.values()))) or not g_head > 0:
+            raise RuntimeError("the word-match step gave a non-finite loss or no gradient of its head")
+        del wm, state, grads
+
+        trainer = train.Trainer(spec, tc, precision=bf16, device=self.dev)
+        state = trainer.init_state(params)
+        runs = {}
+        runs["imagebert_b_train"], steps = self.timed_train_steps(trainer, state, batches, PER_STEP_B,
+                                                                   "imagebert_b train")
+        profile = self.profile_steps(trainer, state, batches[:2], "imagebert_b_profile.txt")
+        del trainer, state
+
+        def counted_run(path, n, per, fn):
+            torch.cuda.synchronize()
+            counted = launch_counters()
+            for w in counted:
+                w.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            runs[path] = {w.__name__: w.launches for w in counted}
+            if runs[path] != expected_launches(n, per):
+                raise RuntimeError(f"{path} launches {runs[path]}, expected {expected_launches(n, per)}")
+            log(f"launches {path}: {json.dumps(runs[path])}")
+            return out
+
+        def cli_argv(model, steps, out):
+            return ["--model", model, "--train-tsv", str(tsv), "--labels", str(labels), "--query-labels",
+                    str(qlabels), "--steps", str(steps), "--batch-size", str(TRAIN_B), "--out", str(out),
+                    "--checkpoint-every", "1000", "--seed", str(self.seed)]
+
+        report = counted_run("imagebert_b_train_cli", TRAIN_STEPS, PER_STEP_B,
+                             lambda: train_cli.main(cli_argv("imagebert_b", TRAIN_STEPS, work / "run_b")))
+        log(f"imagebert_b train end to end through cli/train.py: {report['pairs']} pairs in {report['seconds']:.3f} s "
+            f"= {report['pairs_per_second']:.1f} pairs/s (host sampler included)")
+        ckpt = work / "run_b" / f"step_{TRAIN_STEPS}.npz"
+        tree = checkpoint.load_npz(ckpt)
+        if tree["kdd_conv1"].keys() != {"weights", "biases"} or tree["kdd_conv1"]["weights"].shape != (8, H, H):
+            raise RuntimeError(f"the checkpoint's kdd_conv1 is not 8 taps: {tree['kdd_conv1'].keys()}")
+        scores = work / "scores_b.tsv"
+        n_pairs = N_ROWS
+        counted_run("imagebert_b_trained_score", -(-n_pairs // MAIN_B), PER_BATCH["imagebert_b"],
+                    lambda: score_cli.main(["--model", "imagebert_b", "--tsv", str(tsv), "--labels", str(labels),
+                                            "--checkpoint", str(ckpt), "--out", str(scores),
+                                            "--expect-pairs", str(n_pairs)]))
+        values = np.array([float(line.split("\t")[2]) for line in scores.read_text().splitlines()])
+        if len(values) != n_pairs or not np.isfinite(values).all():
+            raise RuntimeError(f"the trained checkpoint's scores: {len(values)} rows, "
+                               f"finite {np.isfinite(values).all()}")
+        log(f"imagebert_b trained checkpoint through cli/score.py: {len(values)} finite scores in "
+            f"[{values.min():.4f}, {values.max():.4f}]")
+        c_report = counted_run("imagebert_c_train_cli", B_C_CLI_STEPS, PER_STEP_B,
+                               lambda: train_cli.main(cli_argv("imagebert_c", B_C_CLI_STEPS, work / "run_c")))
+        rates = {"step1": step1, "word_match_step1": wm_step, **steps, "cli": report, "cli_imagebert_c": c_report,
+                 "trained_scores": {"pairs": len(values), "min": float(values.min()), "max": float(values.max())},
+                 "profile": profile,
+                 "device_busy_share": profile["device_busy_ms_per_step"] / steps["device_ms_per_step"]["total"]}
+        log(f"imagebert_b train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled "
+            f"kernels' sum over the CUDA-event step time)")
+        return runs, rates
 
     def step1_against_truth(self, spec, tc, params, batch, tag: str) -> dict:
         """Step 1 from one params/batch/seed on three routes: the kernels, plain in bf16 and plain in f32 (the
@@ -2689,8 +2879,11 @@ def gemm_sites() -> list[tuple]:
                                                            "f32", False, 1)]
     rows += layers("lxmert", lf, l_ + x_, "gelu_erf") + layers("lxmert", lt, r_ + x_, "gelu_erf")
     rows += cross("lxmert", lf, lt, x_) + cross("lxmert", lt, lf, x_)
-    ta, tf, tt = TRAIN_B * S, TRAIN_B * LX_F, TRAIN_B * LX_T
+    ta, tb, tf, tt = TRAIN_B * S, TRAIN_B * B_S, TRAIN_B * LX_F, TRAIN_B * LX_T
     rows += layers("imagebert_a_train", ta, 12, "gelu_tanh", bwd=12)
+    rows += layers("imagebert_b_train", tb, 12, "gelu_tanh", bwd=12) + [
+        ("imagebert_b_train", "label conv", TRAIN_B * 10, 8 * H, 8 * H, "f32", False, 1),
+        ("imagebert_b_train", "label conv dx = d band^T", TRAIN_B * 10, 8 * H, 8 * H, "bias", True, 1)]
     rows += layers("lxmert_train", tf, l_ + x_, "gelu_erf", bwd=l_ + x_)
     rows += layers("lxmert_train", tt, r_ + x_, "gelu_erf", bwd=r_ + x_ - 1)
     rows += cross("lxmert_train", tf, tt, x_, bwd=x_) + cross("lxmert_train", tt, tf, x_, bwd=x_ - 1)
@@ -2740,8 +2933,11 @@ def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
             out[-1]["f32_epilogue"] = {**times[F32_EPILOGUE_ROW], "per": "1 launch: the label conv of one "
                                        f"512-pair ImageBERT-B batch"}
             out[-1]["train_launches"] = {row: times[row] for row in times if row.startswith("gemm_bf16 train ")}
+            # ImageBERT-B's label conv in training: its Function's forward and backward, B=256
+            out[-1]["label_conv_train"] = {row: times[row] for row in ("band_conv_train", "band_conv_train_backward")}
         if name.startswith("mha") or name in ("attn_core", "attn_core_cross", "layer_tail", "attn_train",
-                                              "attn_train_bwd"):
+                                              "attn_train_bwd", "ffn_block_train", "ffn_block_train_backward",
+                                              "attention_block_train", "attention_block_train_backward"):
             out[-1]["shapes"] = {row: times[row] for row in times if row.startswith(f"{name} ") and row not in rows}
         if all("device_ms" in r for r in rs):  # the device's time alone and the host's enqueue, beside "ms"
             out[-1].update({key: sum(r[key] for r in rs) for key in ("device_ms", "library_device_ms", "host_enqueue_us")})
@@ -2855,6 +3051,10 @@ PER_STEP = {"attention_block_train": 12, "ffn_block_train": 12, "attention_block
             "ffn_block_train_backward": 12, "gemm": 12 * (2 + 2 + 4 + 4), "attn_train": 12 + 12,
             "attn_train_bwd": 12, "ln_train": 12 + 12, "ln_train_bwd": 12 + 12}
 PER_BATCH["imagebert_c_pallas"] = PER_BATCH["imagebert_b_pallas"]
+# launches per ImageBERT-B/C training step: A's 12 layers (S=30, with the key mask), and the label conv's
+# Function, one gemm forward ("f32") and one backward (dx, transposed weight); its band's gradient is
+# glue (``ops/train_blocks.py:weight_grads``), no kernel of the port
+PER_STEP_B = {**PER_STEP, "gemm": PER_STEP["gemm"] + 2}
 # launches per LXMERT training step (9/5/5). Forward: 24 self-attention and 24 FFN train blocks (the L and R
 # stacks' 14 layers, the x-layers' 10 stream layers), as ImageBERT-A's, and 10 cross train blocks (Q, KV and
 # out-proj gemms, attn_train_cross, ln_train). Backward: every block but the last x-layer's visn stream (its
@@ -2926,7 +3126,7 @@ def main(argv: list[str] | None = None) -> int:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
         per_path = {"imagebert_a": PER_BATCH["imagebert_a"]["gemm"], "imagebert_b": PER_BATCH["imagebert_b"]["gemm"],
                     "lxmert": PER_BATCH["lxmert"]["gemm"], "imagebert_a_train": PER_STEP["gemm"],
-                    "lxmert_train": PER_STEP_LXMERT["gemm"]}
+                    "imagebert_b_train": PER_STEP_B["gemm"], "lxmert_train": PER_STEP_LXMERT["gemm"]}
         if gemm_site_launches() != per_path:
             raise RuntimeError(f"gemm sites launch {gemm_site_launches()} a batch or step, the paths {per_path}")
         smoke.time_gemm_sites()
@@ -2975,6 +3175,12 @@ def main(argv: list[str] | None = None) -> int:
         if train_launches != expected:
             raise RuntimeError(f"imagebert_a_train launches {train_launches}, expected {expected}")
         log(json.dumps({"train_imagebert_a": train_rates}))
+        b_train_launches, b_train_rates = smoke.train_imagebert_b()
+        expected = expected_launches(TRAIN_STEPS, PER_STEP_B)
+        if b_train_launches["imagebert_b_train"] != expected:
+            raise RuntimeError(f"imagebert_b_train launches {b_train_launches['imagebert_b_train']}, "
+                               f"expected {expected}")
+        log(json.dumps({"train_imagebert_b": b_train_rates}))
         smoke.check_cross_train_kernels()
         if smoke.failures:
             raise RuntimeError(f"cross train kernels disagree with their plain versions: {smoke.failures}")
@@ -2993,7 +3199,7 @@ def main(argv: list[str] | None = None) -> int:
                 raise RuntimeError(f"{path} launches {counts}, expected {expected}")
         log(json.dumps({"one_shot": ot_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
-                        "mha_packed_entry": packed, "imagebert_a_train": train_launches,
+                        "mha_packed_entry": packed, "imagebert_a_train": train_launches, **b_train_launches,
                         "lxmert_train": lx_train_launches, **ot_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]

@@ -9,12 +9,12 @@
   the JAX package concatenates them on every call, ``models/core.py``
   :293-299, :315-316, :400-401). Leaves a model stores in another form
   are left to its spec's ``from_jax`` (ImageBERT-B's label-conv band).
-* ``params_to_jax``: the inverse for an ImageBERT-A or LXMERT tree: each
-  fused ``qkv`` split back into query/key/value (LXMERT's
+* ``params_to_jax``: the inverse for an ImageBERT-A, ImageBERT-B/C or
+  LXMERT tree: each fused ``qkv`` split back into query/key/value (LXMERT's
   ``visual_attention`` from its ``query`` and ``kv``, which training updates,
-  never from ``qkv``), numpy leaves, so ``save_npz`` writes a checkpoint that
-  the port's ``cli/score.py`` and the JAX package's ``scripts/score.py`` both
-  load.
+  never from ``qkv``), ImageBERT-B's banded ``kdd_conv1`` back into its taps,
+  numpy leaves, so ``save_npz`` writes a checkpoint that the port's
+  ``cli/score.py`` and the JAX package's ``scripts/score.py`` both load.
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
   embedding tables and the heads' f32 weights stay float32.
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models.core import Params, attention_forms
+from ..models.imagebert_b import label_conv_taps
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -72,9 +73,10 @@ def params_from_jax(tree: dict) -> Params:
     ImageBERT-B's ``kdd_conv1`` taps stay as in the JAX tree: its spec's
     ``from_jax`` bands them (the AM head's ``am_kernel`` stays f32).
 
-    Leaves the port never reads (the MLM and NSP heads of LXMERT, the MLM and
-    word-match heads of the ImageBERTs) are dropped; LXMERT's AM head
-    ``logit_W`` is kept (``am_loss`` trains it)."""
+    Leaves the port never reads (the MLM and NSP heads of LXMERT, the MLM
+    head of the ImageBERTs) are dropped; LXMERT's AM head ``logit_W`` and
+    ImageBERT-B's word-match head ``kdd_query_match`` are kept (``am_loss``
+    and the word-match loss train them)."""
     params = _to_torch(tree)
     enc = params["bert"]["encoder"]
     if "x_layers" in enc:
@@ -107,14 +109,18 @@ def _split_attention(att: dict) -> dict:
 
 
 def params_to_jax(params: Params) -> dict:
-    """The port's ImageBERT-A or LXMERT params (with or without LXMERT's
-    ``visual_attention/qkv``) -> the JAX package's tree layout, numpy float32
-    leaves: the inverse of ``params_from_jax``."""
+    """The port's ImageBERT-A, ImageBERT-B/C or LXMERT params (with or without
+    LXMERT's ``visual_attention/qkv``; B's ``kdd_conv1`` banded or as taps) ->
+    the JAX package's tree layout, numpy float32 leaves: the inverse of
+    ``params_from_jax``. ``kdd_query_match`` and the AM head's f32
+    ``am_kernel`` pass as they are."""
     def to_numpy(tree):
         if isinstance(tree, dict):
             return {k: to_numpy(v) for k, v in tree.items()}
         return tree.detach().float().cpu().numpy()
 
+    if "kernel" in params.get("kdd_conv1", {}):
+        params = {**params, "kdd_conv1": label_conv_taps(params["kdd_conv1"])}
     tree = to_numpy(params)
     enc = tree["bert"]["encoder"]
     if "x_layers" in enc:

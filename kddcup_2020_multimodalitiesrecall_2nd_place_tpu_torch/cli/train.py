@@ -1,21 +1,24 @@
-"""Train ImageBERT-A with hard-negative sampling (the port of the JAX
-package's ``scripts/train.py``, with the flags its ImageBERT-A path uses).
+"""Train ImageBERT-A, -B or -C with hard-negative sampling (the port of the
+JAX package's ``scripts/train.py``, with the flags its cross-encoder paths use).
 
 Each step samples a batch of (positive, mined negative) pairs from the TSV
-files (``data/sampling.py``, A's recipe: MLM-masked query ids, seeded by
-``--seed``), runs one ``Trainer`` step (BERT-Adam, global-norm clip 1.0, NSP
-loss, + ``--ms-weight`` times the Multi-Similarity loss), writes a JSON line
-of ``loss``/``accuracy``/``grad_norm`` to ``<out>/metrics.jsonl`` every 20
-steps, and ``<out>/step_<N>.npz`` (the JAX package's param tree, loadable by
-``cli/score.py`` and ``scripts/score.py``) every ``--checkpoint-every`` steps
-and at the end. Runs on the card by default (bf16, the kernels of the train
-blocks); ``--device cpu`` runs the plain versions in f32. Example:
+files (``data/sampling.py``, seeded by ``--seed``: A's recipe with MLM-masked
+query ids; B's with word-match targets, and for C the sen2forest query
+rewrite), runs one ``Trainer`` step (A: BERT-Adam, global-norm clip 1.0, NSP
+loss, + ``--ms-weight`` times the Multi-Similarity loss; B/C: Adam on the
+0.94/2500 staircase, per-value clip 1.0, AM loss, + ``--word-match-weight``
+times the word-match loss, EMA 0.997), writes a JSON line of its metrics to
+``<out>/metrics.jsonl`` every 20 steps, and ``<out>/step_<N>.npz`` (the JAX
+package's param tree, the EMA shadows where the recipe keeps them, loadable
+by ``cli/score.py`` and ``scripts/score.py``) every ``--checkpoint-every``
+steps and at the end. Runs on the card by default (bf16, the kernels of the
+train blocks); ``--device cpu`` runs the plain versions in f32. Example:
 
   python -m kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli.train \\
-      --model imagebert_a --train-tsv train.tsv --labels multimodal_labels.txt \\
-      --query-labels query_labels.txt --steps 1000 --batch-size 256 --out runs/a
+      --model imagebert_b --train-tsv train.tsv --labels multimodal_labels.txt \\
+      --query-labels query_labels.txt --steps 1000 --batch-size 256 --out runs/b
 
-The other models' training, ``--packed-dir``, ``--distributed``,
+``--model two_tower``, ``--packed-dir``, ``--distributed``,
 ``--resume``/``--init-from``, ``--distill-from``, ``--valid-tsv`` and
 ``--mlm-weight`` are not ported yet and exit 2 naming the ROADMAP item.
 LXMERT trains through ``train.Trainer`` (as the JAX package trains it, on
@@ -48,12 +51,12 @@ from ..train import Trainer, TrainState, recipe_for
 LOG_EVERY = 20
 # flags of scripts/train.py that are not ported: flag -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "--packed-dir": "Queue 1 item 9 (data/packed.py)",
+    "--packed-dir": "Queue 1 item 9c (data/packed.py)",
     "--distributed": "Queue 1 item 12 (multi-device)",
-    "--resume": "Queue 1 item 9 (resumable train state)",
+    "--resume": "Queue 1 item 9c (resumable train state)",
     "--init-from": "Queue 1 item 10 (depth-mapped init)",
     "--distill-from": "Queue 1 item 10 (distillation)",
-    "--valid-tsv": "Queue 1 item 9 (the training-time valid loop)",
+    "--valid-tsv": "Queue 1 item 9c (the training-time valid loop)",
 }
 
 
@@ -78,6 +81,8 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
                     help="override the decay horizon of the polynomial schedule (recipe: 100k)")
     ap.add_argument("--ms-weight", type=float, default=0.0,
                     help="Multi-Similarity loss weight (A's MS-loss fine-tune)")
+    ap.add_argument("--word-match-weight", type=float, default=0.0,
+                    help="ImageBERT-B/C word-match loss weight (0 = off, as the reference trained)")
     ap.add_argument("--mlm-weight", type=float, default=0.0, help="auxiliary MLM loss weight (not yet ported)")
     ap.add_argument("--out", required=True)
     ap.add_argument("--checkpoint-every", type=int, default=500)
@@ -90,12 +95,12 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             ap.error(f"{flag} is not yet ported, see ROADMAP.md {item}")
     if args.mlm_weight:
-        ap.error("--mlm-weight (the MLM head) is not yet ported, see ROADMAP.md Queue 1 item 9")
+        ap.error("--mlm-weight (the MLM head) is not yet ported, see ROADMAP.md Queue 1 item 9c")
     if args.model == "lxmert":
         ap.error("--model lxmert: no sampler yields LXMERT's batch layout, in the JAX package either "
                  "(ROADMAP.md Queue 3, JAX fault 3); LXMERT trains through train.Trainer")
-    if args.model != "imagebert_a":
-        ap.error(f"training {args.model} is not yet ported (ImageBERT-A is), see ROADMAP.md Queue 1 item 9")
+    if args.model == "two_tower":
+        ap.error("training two_tower is not yet ported, see ROADMAP.md Queue 1 item 11")
     if not args.train_tsv:
         ap.error("--train-tsv is required")
     if not args.query_labels:
@@ -103,10 +108,12 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
 
     device = resolve_device(args.device)
     spec = get_model(args.model)
-    featurizer = Featurizer(FullTokenizer.google_style(VOCAB_PATH), load_multimodal_labels(args.labels))
-    sampler = HardNegativeSampler(featurizer, QueryLabelIndex.load(args.query_labels),
-                                  SamplerConfig.imagebert_a(args.seed))
-    overrides = {"ms_loss_weight": args.ms_weight}
+    featurizer = Featurizer(FullTokenizer.google_style(VOCAB_PATH), load_multimodal_labels(args.labels),
+                            sen2forest=spec.sen2forest)
+    sampler_cfg = (SamplerConfig.imagebert_a(args.seed) if spec.name == "imagebert_a"
+                   else SamplerConfig.imagebert_b(args.seed))
+    sampler = HardNegativeSampler(featurizer, QueryLabelIndex.load(args.query_labels), sampler_cfg)
+    overrides = {"ms_loss_weight": args.ms_weight, "word_match_loss_weight": args.word_match_weight}
     for name, value in (("learning_rate", args.lr), ("num_warmup_steps", args.warmup_steps),
                         ("num_train_steps", args.total_steps)):
         if value is not None:

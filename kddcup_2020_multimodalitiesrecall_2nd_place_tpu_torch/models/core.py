@@ -43,6 +43,7 @@ from ..ops.activations import gelu_erf, gelu_tanh
 from ..ops.attention import merge_heads, mha, packed_attention_active, split_heads
 from ..ops.attention_block import attention_block as attention_block_op
 from ..ops.attention_block import attention_block_plain, is_compact
+from ..ops.band_conv import band_conv_train, band_conv_train_plain
 from ..ops.cross_attention_block import cross_attention_block as cross_attention_block_op
 from ..ops.cross_attention_block import cross_attention_block_plain
 from ..ops.dual_cross_attention_block import dual_cross_attention_block as dual_cross_attention_block_op
@@ -136,18 +137,21 @@ PLAIN_BLOCKS = Blocks(attention_block_plain, ffn_block_plain, cross_attention_bl
 
 class TrainBlocks(NamedTuple):
     """The self-attention, FFN and cross-attention blocks a model trains
-    with: with dropout, their masks from per-block seeds, and a backward."""
+    with (with dropout, their masks from per-block seeds, and a backward), and
+    ImageBERT-B's label conv from its taps (``ops/band_conv.py``)."""
 
     attention: Callable[..., torch.Tensor]
     ffn: Callable[..., torch.Tensor]
     cross: Callable[..., torch.Tensor]
+    band_conv: Callable[..., torch.Tensor]
 
 
 # the autograd Functions over the kernels (plain versions on CPU tensors)
-TRAIN_KERNEL_BLOCKS = TrainBlocks(attention_block_train, ffn_block_train, cross_attention_block_train)
+TRAIN_KERNEL_BLOCKS = TrainBlocks(attention_block_train, ffn_block_train, cross_attention_block_train,
+                                  band_conv_train)
 # the plain differentiable oracles, on any device (chip_smoke.py runs one step on both)
 TRAIN_PLAIN_BLOCKS = TrainBlocks(attention_block_train_plain, ffn_block_train_plain,
-                                 cross_attention_block_train_plain)
+                                 cross_attention_block_train_plain, band_conv_train_plain)
 
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
 GELU = {"gelu": gelu_tanh, "gelu_erf": gelu_erf}

@@ -14,8 +14,10 @@
   compute dtype, like every ``dense``.
 
 ``nsp_loss`` is ImageBERT-A's training loss, ``cross_entropy`` LXMERT's (on
-``logit_fc``, or on ``am_margin_logits`` of its ``logit_W`` cosines); the MLM
-head is not ported yet (ROADMAP.md Queue 1 item 9)."""
+``logit_fc``, or on ``am_margin_logits`` of its ``logit_W`` cosines),
+``am_loss`` ImageBERT-B/C's, plus ``word_match_loss`` when its weight is set
+(the reference trained with it off, ``model_triple.py:207-210``); the MLM head
+is not ported yet (ROADMAP.md Queue 1 item 9c)."""
 
 from __future__ import annotations
 
@@ -84,6 +86,42 @@ def am_margin_logits(cos: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def am_probs(p: Params, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.softmax(am_margin_logits(am_cosines(p, pooled), labels), dim=-1)
+
+
+def am_loss(p: Params, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of the AM-margin logits against 0/1 labels (the
+    JAX package's ``models/heads.py`` :97-101)."""
+    return cross_entropy(am_margin_logits(am_cosines(p, pooled), labels), labels)
+
+
+WORD_MATCH_POSITIONS = 18
+
+
+def word_match_head_init(cfg: BertConfig, gen: torch.Generator, n_positions: int = WORD_MATCH_POSITIONS) -> Params:
+    """The word-match head (``model_triple.py:108-160``, ``pixelbert.py:268-278``;
+    the JAX package's ``models/heads.py`` :114-124): the shared tanh dense
+    ``kdd`` and per-position binary classifiers, stacked."""
+    h, std = cfg.hidden_size, cfg.initializer_range
+    return {
+        "kdd": dense_init(h, h, std, gen),
+        "output_weights": trunc_normal((n_positions, 2, h), std, gen),
+        "output_bias": torch.zeros((n_positions, 2)),
+    }
+
+
+def word_match_loss(p: Params, seq: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
+                    prec: Precision) -> torch.Tensor:
+    """Sequence positions 1..n through the tanh dense and their position's
+    classifier; the sum over positions of the batch-mean weighted cross
+    entropy (the JAX package's ``models/heads.py`` :127-150). The classifiers'
+    [H] x [H, 2] products are elementwise f32 sums (JAX runs them at HIGHEST)."""
+    n = p["output_bias"].shape[0]
+    h = torch.tanh(dense(p["kdd"], seq[:, 1:1 + n].float(), prec))
+    logits = (h[:, :, None, :] * p["output_weights"].float()[None]).sum(dim=-1) + p["output_bias"].float()
+    log_probs = torch.log_softmax(logits, dim=-1)
+    one_hot = torch.nn.functional.one_hot(labels.long(), 2).float()
+    per = -(one_hot * log_probs).sum(dim=-1) * weights.float()  # [B, n]
+    return per.mean(dim=0).sum()
 
 
 def logit_fc_init(cfg: BertConfig, gen: torch.Generator, num_answers: int = 2) -> Params:

@@ -38,7 +38,7 @@ class ModelSpec:
     # the model's own step after checkpoint.params_from_jax (ImageBERT-B bands its label conv)
     from_jax: Callable[[Params], Params] = _as_loaded
     # the tree a trainer holds, and back to the tree scored and saved (LXMERT trains visual_attention
-    # as query and kv, and rebuilds its qkv)
+    # as query and kv, and rebuilds its qkv; ImageBERT-B trains its label conv's taps, and bands them)
     train_params: Callable[[Params], Params] = _as_loaded
     eval_params: Callable[[Params], Params] = _as_loaded
 
@@ -93,6 +93,8 @@ def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
             matmul_kernels=imagebert_b.MATMUL_KERNELS,
             sen2forest=(name == "imagebert_c"),
             from_jax=imagebert_b.from_jax,
+            train_params=imagebert_b.train_params,
+            eval_params=imagebert_b.eval_params,
         )
     return ModelSpec(
         name,

@@ -27,10 +27,12 @@ they keep the units the JAX package's interpret-mode kernels keep.
   dx = bf16(dz + dqkv @ Wqkv^T); cross (``_cross_train_bwd`` :1300) the same
   with ``attn_train_cross_bwd`` -> dq, dkv, dx = bf16(dz + dq @ Wq^T) and the
   gradient of ctx bf16(dkv @ Wkv^T), in x's dtype as JAX casts it (:1354-1357).
-  The weight gradients are plain f32 products
+  The weight gradients are library products
   and sums over the B*S rows, as the JAX package leaves them to XLA
-  (:363-374, :943-953); their operands are bf16 values, so TF32 rounds none
-  of them and is allowed for those products alone.
+  (:363-374, :943-953: ``dot_general`` of the bf16 operands with f32
+  accumulation and output): on the card one ``torch.mm`` with
+  ``out_dtype=float32`` straight from the bf16 operands (``weight_grads``),
+  with no f32 copies of them.
 
 f32 weights come in, are cast to x's dtype inside and get f32 gradients; dx
 is in x's dtype. On CPU tensors every kernel runs its plain version.
@@ -45,8 +47,6 @@ times against the bounds.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -67,22 +67,15 @@ from .library import (
 )
 
 
-@contextlib.contextmanager
-def _tf32_for_bf16_values(on: bool):
-    """TF32 for f32 products of bf16-valued operands (exact in TF32's 10-bit
-    mantissa), restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = prev or on
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def _weight_grads(a: torch.Tensor, d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """a [M, K], d [M, N] -> (a^T d [K, N], sum of d over rows [N]), f32."""
-    with _tf32_for_bf16_values(a.is_cuda and a.dtype == torch.bfloat16):
-        return torch.matmul(a.float().T, d.float()), d.float().sum(0)
+def weight_grads(a: torch.Tensor, d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """a [M, K], d [M, N] -> (a^T d [K, N], sum of d over rows [N]), f32. bf16
+    operands on the card: one cuBLAS product, bf16 in and f32 sums and out
+    (``aten::mm.dtype``), and a sum accumulated in f32, with no f32 copies of
+    the operands; other operands (f32, or on the CPU, where ``mm.dtype`` has
+    no kernel): the plain f32 product."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a.T, d, out_dtype=torch.float32), d.sum(0, dtype=torch.float32)
+    return torch.matmul(a.float().T, d.float()), d.float().sum(0)
 
 
 # --------------------------------------------------------------------------
@@ -112,8 +105,8 @@ def ffn_block_train_backward(dy, x, w1, b1, w2, b2, gamma, seed: int, rate: floa
                                              block * s, eps)
     du = gemm(dh, w2c, None, "gelu_bwd_tanh" if approximate else "gelu_bwd_erf", aux=u, trans_b=True)
     dx = gemm(du, w1c, None, "residual_f32", aux=dz, trans_b=True)
-    dw1, db1 = _weight_grads(x2d, du)
-    dw2, db2 = _weight_grads(g, dh)
+    dw1, db1 = weight_grads(x2d, du)
+    dw2, db2 = weight_grads(g, dh)
     if x.is_cuda:
         ffn_block_train_backward.launches += 1
     return dx.reshape(b, s, h), dw1, db1, dw2, db2, dgamma_p.sum(0), dbeta_p.sum(0)
@@ -198,8 +191,8 @@ def attention_block_train_backward(dy, x, wqkv, bqkv, wo, bo, gamma, key_bias, n
     dctx = gemm(do, woc, None, "bias", trans_b=True)
     dqkv = attn_train_bwd(qkv, dctx, key_bias, b, s, num_heads, seed, arate, block)
     dx = gemm(dqkv, wqkvc, None, "residual_f32", aux=dz, trans_b=True)
-    dwqkv, dbqkv = _weight_grads(x2d, dqkv)
-    dwo, dbo = _weight_grads(ctx, do)
+    dwqkv, dbqkv = weight_grads(x2d, dqkv)
+    dwo, dbo = weight_grads(ctx, do)
     if x.is_cuda:
         attention_block_train_backward.launches += 1
     return dx.reshape(b, s, h), dwqkv, dbqkv, dwo, dbo, dgamma_p.sum(0), dbeta_p.sum(0)
@@ -300,9 +293,9 @@ def cross_attention_block_train_backward(dy, x, ctx, wq, bq, wkv, bkv, wo, bo, g
     dq, dkv = attn_train_cross_bwd(q, kv, dco, key_bias, b, f, t, num_heads, seed, arate, block)
     dx = gemm(dq, wq.to(dt), None, "residual_f32", aux=dz, trans_b=True)
     dctx = gemm(dkv, wkv.to(dt), None, "bias", trans_b=True)
-    dwq, dbq = _weight_grads(x2d, dq)
-    dwkv, dbkv = _weight_grads(c2d, dkv)
-    dwo, dbo = _weight_grads(co, do)
+    dwq, dbq = weight_grads(x2d, dq)
+    dwkv, dbkv = weight_grads(c2d, dkv)
+    dwo, dbo = weight_grads(co, do)
     if x.is_cuda:
         cross_attention_block_train_backward.launches += 1
     return (dx.reshape(b, f, h), dctx.reshape(b, t, h), dwq, dbq, dwkv, dbkv, dwo, dbo, dgamma_p.sum(0),

@@ -1,6 +1,7 @@
 from .ema import Ema
 from .losses import ms_loss
 from .optim import (
+    Adam,
     BertAdamW,
     clip_by_global_norm,
     clip_by_value,
@@ -11,6 +12,7 @@ from .optim import (
 from .trainer import Trainer, TrainConfig, TrainState, make_loss_fn, recipe_for
 
 __all__ = [
+    "Adam",
     "BertAdamW",
     "Ema",
     "TrainConfig",

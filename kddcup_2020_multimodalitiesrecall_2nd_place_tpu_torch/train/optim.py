@@ -9,6 +9,9 @@ ops over the parameter tree (no optimizer library).
   layer_norm or bias (``decay_mask``). The port's fused ``qkv/bias`` is
   excluded and ``qkv/kernel`` decayed, as their query/key/value parts are in
   the JAX tree.
+* ``Adam``: ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) with
+  bias correction, ImageBERT-B/C's optimizer (zk ``train_normal.py:133-137``;
+  the JAX package's ``train/trainer.py`` :118-120).
 * ``polynomial_warmup_schedule``: linear warmup, then linear decay to 0
   (``optimization.py:25-67``).
 * ``exponential_staircase_schedule``: 0.94 every 2500 steps, staircase
@@ -26,6 +29,8 @@ import torch
 DECAY_EXCLUDE_SUBSTRINGS = ("LayerNorm", "layer_norm", "bias")
 # AdamWeightDecayOptimizer's settings in the reference (optimization.py:59-65)
 WEIGHT_DECAY_RATE, BETA_1, BETA_2, EPSILON = 0.01, 0.9, 0.999, 1e-6
+# optax.adam's defaults, ImageBERT-B/C's tf.train.AdamOptimizer
+ADAM_EPSILON = 1e-8
 
 
 def flatten_paths(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -94,6 +99,43 @@ class BertAdamW:
         torch._foreach_add_(params, upd, alpha=-lr)
         self.step += 1
         return lr
+
+
+class Adam:
+    """Adam with bias correction over the leaves of a parameter tree, as
+    ``optax.adam``: m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2, after t
+    updates p -= lr(t - 1) * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps).
+    The schedule reads the count before its increment, as optax's
+    ``scale_by_schedule`` does. ``names`` and ``step`` as ``BertAdamW``'s."""
+
+    def __init__(self, params: dict, learning_rate: Callable[[int], float]):
+        named = flatten_paths(params)
+        self.names = list(named)
+        self.lr = learning_rate
+        self.m = [torch.zeros_like(p) for p in named.values()]
+        self.v = [torch.zeros_like(p) for p in named.values()]
+        self.step = 0
+
+    @torch.no_grad()
+    def update(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> float:
+        """One step on ``params`` (the leaves in ``names`` order) in place; -> the LR used."""
+        lr = self.lr(self.step)
+        t = self.step + 1
+        torch._foreach_mul_(self.m, BETA_1)
+        torch._foreach_add_(self.m, grads, alpha=1.0 - BETA_1)
+        torch._foreach_mul_(self.v, BETA_2)
+        torch._foreach_addcmul_(self.v, grads, grads, value=1.0 - BETA_2)
+        denom = torch._foreach_div(self.v, 1.0 - BETA_2**t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPSILON)
+        upd = torch._foreach_div(self.m, 1.0 - BETA_1**t)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(params, upd, alpha=-lr)
+        self.step = t
+        return lr
+
+
+Optimizer = BertAdamW | Adam
 
 
 @torch.no_grad()

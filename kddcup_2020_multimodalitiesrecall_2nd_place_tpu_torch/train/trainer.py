@@ -8,17 +8,18 @@ Per-model recipes mirror the reference training scripts (``recipe_for``):
 * LXMERT: BERT-Adam, global-norm clip 1.0, cross entropy on ``logit_fc``,
   or with ``am_loss`` on the AM-margin logits of the ``logit_W`` cosines --
   ported.
-* ImageBERT-B/C: plain Adam with the 0.94/2500 staircase, per-value clip
-  +-1, AM-softmax loss, EMA 0.997 -- the recipe is here, its loss and Adam
-  are not ported yet (``make_loss_fn`` and ``make_optimizer`` raise, naming
-  the ROADMAP item).
+* ImageBERT-B/C: Adam with bias correction on the 0.94/2500 staircase,
+  per-value clip +-1, AM-softmax loss (+ ``word_match_loss_weight`` times the
+  word-match loss, off by default as the reference trained), EMA 0.997 --
+  ported; the label conv trains as its 8 taps (``models/imagebert_b.py``).
 
 A step is the JAX package's two phases: ``grads`` (forward and backward of
 the loss) and ``apply`` (clip, optimizer, EMA), with the same metrics
 (``loss``, ``accuracy``, ``grad_norm``). Parameters are float32 leaves on the
 device in the port's tree layout (query/key/value fused as ``qkv``; the
 spec's ``train_params`` keeps LXMERT's ``visual_attention`` as ``query`` and
-``kv`` only, and ``eval_params`` rebuilds its ``qkv``); matmul inputs are
+``kv`` only, and ``eval_params`` rebuilds its ``qkv``; ImageBERT-B's
+``kdd_conv1`` as taps, banded again by ``eval_params``); matmul inputs are
 rounded to ``precision.compute_dtype`` inside the model, whose encoder
 blocks are the train blocks of ``blocks`` (the kernels' by default).
 Dropout comes from a ``torch.Generator`` seeded per step from the caller's
@@ -40,9 +41,20 @@ from ..models.core import TRAIN_KERNEL_BLOCKS, Params, TrainBlocks
 from ..parallel.engine import default_precision, resolve_device
 from .ema import Ema
 from .losses import ms_loss
-from .optim import BertAdamW, clip_by_global_norm, clip_by_value, flatten_paths, polynomial_warmup_schedule
+from .optim import (
+    Adam,
+    BertAdamW,
+    Optimizer,
+    clip_by_global_norm,
+    clip_by_value,
+    exponential_staircase_schedule,
+    flatten_paths,
+    polynomial_warmup_schedule,
+)
 
-TRAINED = ("imagebert_a", "lxmert")
+TRAINED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert")
+# the word-match loss's batch entries (data/sampling.py, ImageBERT-B's recipe)
+WORD_MATCH_KEYS = ("word_match_labels", "word_match_weights")
 
 
 @dataclass(frozen=True)
@@ -50,13 +62,15 @@ class TrainConfig:
     learning_rate: float = 2e-5
     num_train_steps: int = 100_000
     num_warmup_steps: int = 30_000
-    optimizer: str = "bert_adamw"  # or "adam_staircase" (not yet ported)
+    optimizer: str = "bert_adamw"  # or "adam_staircase"
     clip: str = "global_norm"  # "global_norm" | "value" | "none"
     clip_value: float = 1.0
     ema_decay: float | None = None
     ms_loss_weight: float = 0.0
     # LXMERT --taskAMSloss: train the cosine logit_W head instead of logit_fc (tasks/kdd_model.py:207-210)
     am_loss: bool = False
+    # ImageBERT-B's word-match loss; 0 = off, as the reference trained (model_triple.py:207-210)
+    word_match_loss_weight: float = 0.0
 
 
 def recipe_for(model_name: str) -> TrainConfig:
@@ -71,37 +85,49 @@ def recipe_for(model_name: str) -> TrainConfig:
     raise ValueError(model_name)
 
 
-def make_optimizer(tc: TrainConfig, params: Params) -> BertAdamW:
+def make_optimizer(tc: TrainConfig, params: Params) -> Optimizer:
     if tc.optimizer == "bert_adamw":
         return BertAdamW(params, polynomial_warmup_schedule(tc.learning_rate, tc.num_train_steps,
                                                             tc.num_warmup_steps))
-    raise NotImplementedError(f"optimizer {tc.optimizer!r} is not yet ported, see ROADMAP.md Queue 1 item 9")
+    if tc.optimizer == "adam_staircase":
+        return Adam(params, exponential_staircase_schedule(tc.learning_rate))
+    raise ValueError(tc.optimizer)
 
 
 def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
                  blocks: TrainBlocks = TRAIN_KERNEL_BLOCKS) -> Callable:
     """-> loss_fn(params, batch, gen) -> (loss, metrics): ImageBERT-A's NSP
     loss, plus ``ms_loss_weight`` times the Multi-Similarity loss of the
-    pooled output; LXMERT's cross entropy on ``logit_fc``, or with
+    pooled output; ImageBERT-B/C's ``am_loss``, plus
+    ``word_match_loss_weight`` times the word-match loss when the batch
+    carries its labels; LXMERT's cross entropy on ``logit_fc``, or with
     ``am_loss`` on the AM-margin logits of the clipped ``logit_W`` cosines
-    (the JAX package's ``train/trainer.py`` :174-183, :198-209)."""
+    (the JAX package's ``train/trainer.py`` :174-209)."""
     if model.name not in TRAINED:
-        raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 9")
+        raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 11")
     am = model.name == "lxmert" and tc.am_loss
     head = {"use_am_head": True} if am else {}
 
     def loss_fn(params: Params, batch: dict, gen: torch.Generator):
         out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen, **head)
         labels = batch["labels"]
+        metrics = {}
         if model.name == "lxmert":
             logits = heads.am_margin_logits(out["logit"].float().clamp(-1.0, 1.0), labels) if am else out["logit"]
             loss = heads.cross_entropy(logits, labels)
-        else:
+        elif model.name == "imagebert_a":
             loss = heads.nsp_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
-        if tc.ms_loss_weight:
-            loss = loss + tc.ms_loss_weight * ms_loss(labels, out["pooled"])
+            if tc.ms_loss_weight:
+                loss = loss + tc.ms_loss_weight * ms_loss(labels, out["pooled"])
+        else:
+            loss = heads.am_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
+            if tc.word_match_loss_weight and "word_match_labels" in batch:
+                wm = heads.word_match_loss(params["kdd_query_match"], out["sequence"], batch["word_match_labels"],
+                                           batch["word_match_weights"], precision)
+                metrics["word_match_loss"] = wm.detach()
+                loss = loss + tc.word_match_loss_weight * wm
         accuracy = (out["probs"].argmax(dim=-1) == labels.long()).float().mean()
-        return loss, {"loss": loss.detach(), "accuracy": accuracy}
+        return loss, {**metrics, "loss": loss.detach(), "accuracy": accuracy}
 
     return loss_fn
 
@@ -109,7 +135,7 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
 @dataclass
 class TrainState:
     params: Params  # f32 leaves on the device, requiring grad
-    optimizer: BertAdamW
+    optimizer: Optimizer
     ema: Ema | None
 
     @property
@@ -133,8 +159,13 @@ class Trainer:
 
     def init_state(self, params: Params | None = None, seed: int = 0) -> TrainState:
         """Fresh optimizer state over ``params`` (or the model's random init from ``seed``), copied to the
-        device, in the tree the spec trains (``ModelSpec.train_params``)."""
+        device, in the tree the spec trains (``ModelSpec.train_params``). With
+        the word-match loss on, a ``kdd_query_match`` head is added from
+        ``seed`` where ``params`` has none (the JAX package's :303-309)."""
         params = self.model.train_params(params if params is not None else self.model.init_params(seed))
+        if self.tc.word_match_loss_weight and "kdd_query_match" not in params:
+            gen = torch.Generator().manual_seed(seed + 1)
+            params = {**params, "kdd_query_match": heads.word_match_head_init(self.model.config, gen)}
 
         def leaf(t):
             return t.detach().to(self.device, torch.float32).clone().requires_grad_()
@@ -148,7 +179,11 @@ class Trainer:
                           Ema(leaves, self.tc.ema_decay) if self.tc.ema_decay else None)
 
     def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        keys = (*self.model.input_keys, "labels")
+        """The entries the loss reads: the model's inputs, the labels and, with
+        the word-match loss on, its labels and weights where the batch has them."""
+        keys = [*self.model.input_keys, "labels"]
+        if self.tc.word_match_loss_weight:
+            keys += [k for k in WORD_MATCH_KEYS if k in batch]
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in keys}
 
     def grads(self, state: TrainState, batch: dict, seed: int) -> tuple[list[torch.Tensor], dict]:

@@ -830,6 +830,86 @@ def test_cuda_train_blocks_launch_or_raise(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 2 + 4, 1, 1]
 
 
+# ---- ImageBERT-B/C training: S=30 with its key masks, the label conv's Function, the weight gradients ----
+
+
+def _b_key_bias(device, b, seed):
+    """ImageBERT-B's [b, 30] key-mask bias: query lengths 2..20, box counts 0..10, pair 0 with no box
+    (its 10 image keys all masked) and pair 1 with all 10."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    len_query = torch.randint(2, 21, (b,), generator=g)
+    num_boxes = torch.randint(0, 11, (b,), generator=g)
+    num_boxes[0], num_boxes[1] = 0, 10
+    keep = torch.cat([torch.arange(20)[None] < len_query[:, None], torch.arange(10)[None] < num_boxes[:, None]], 1)
+    return mask_to_bias(keep.float()).to(device)
+
+
+@pytest.mark.parametrize("rate", TRAIN_RATES)
+def test_cuda_attn_train_b_masks_match_plain(cuda, rate):
+    """attn_train forward and backward at S=30 (16-row tiles pad it to 32) with B's masks, a pair whose
+    every box key is masked among them."""
+    qkv, _, _, dctx = _attn_train_edge_case(cuda, 37, 8, 30, 30, 12, "no-mask")
+    bias = _b_key_bias(cuda, 8, 38)
+    assert bool((bias[0, 20:] == -10000.0).all())
+    args = (8, 30, 12, 55, rate, 8)
+    assert within_band(kernels.attn_train(qkv, bias, *args), kernels.attn_train_plain(qkv, bias, *args))
+    assert within_band(kernels.attn_train_bwd(qkv, dctx, bias, *args),
+                       kernels.attn_train_bwd_plain(qkv, dctx, bias, *args))
+
+
+def test_cuda_b_train_block_matches_the_oracle(cuda):
+    """The attention train block at S=30 with B's masks, forward and the 7 gradients."""
+    x, ws, dy = _train_block_case(cuda, "attn", 14, s=30)
+    bias = _b_key_bias(cuda, 8, 39)
+    fns = [lambda x, *w, f=f: f(x, *w, 12, 42, bias=bias, attn_dropout_rate=0.1, hidden_dropout_rate=0.1)
+           for f in (train_blocks.attention_block_train, train_blocks.attention_block_train_plain)]
+    (y, grads), (wy, wgrads) = (_block_grads(f, x, ws, dy) for f in fns)
+    assert within_band(y, wy)
+    errs = [rel_l2(g, w) for g, w in zip(grads, wgrads)]
+    assert max(errs) <= TRAIN_GRAD_REL_L2, errs
+
+
+def test_cuda_band_conv_matches_its_plain_version(cuda):
+    """ImageBERT-B's label conv as its training Function, [333, 8H] @ the band built from 8 f32 taps: the
+    f32 output within F32_OUT_BAND, dx in the ulp band, the taps' and bias's gradients (f32 in the
+    Function, bf16 at the oracle's casts) in relative L2; two gemm launches, forward and dx."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import band_conv
+
+    g = torch.Generator(device="cpu").manual_seed(40)
+    x = torch.randn(333, 8 * 768, generator=g).to(cuda, torch.bfloat16)
+    taps, bias = (0.02 * torch.randn(8, 768, 768, generator=g)).to(cuda), (0.1 * torch.randn(768, generator=g)).to(cuda)
+    dy = torch.randn(333, 8 * 768, generator=g).to(cuda)
+    before = kernels.gemm.launches
+    (y, grads), (wy, wgrads) = (_block_grads(lambda *a, f=f: f(*a, 3), x, [taps, bias], dy)
+                                for f in (band_conv.band_conv_train, band_conv.band_conv_train_plain))
+    torch.cuda.synchronize()
+    assert kernels.gemm.launches - before == 2
+    assert y.dtype == torch.float32 and within_band(y, wy, atol=F32_OUT_BAND, rtol=0.0)
+    assert grads[0].dtype == torch.bfloat16 and within_band(grads[0], wgrads[0])
+    assert all(gr.dtype == torch.float32 for gr in grads[1:])
+    errs = [rel_l2(gr, w) for gr, w in zip(grads[1:], wgrads[1:])]
+    assert max(errs) <= TRAIN_GRAD_REL_L2, errs
+
+
+@pytest.mark.parametrize("m,k,n", [(7680, 768, 2304), (7680, 3072, 768), (2560, 6144, 6144)],
+                         ids=["B-qkv", "B-ffn-down", "label-conv"])
+def test_cuda_weight_grads_match_f32(cuda, m, k, n):
+    """The weight-gradient glue on bf16 operands (one f32-out product, no f32 copies) against the f32
+    product of the same bf16 values, TF32 off: summation order only."""
+    g = torch.Generator(device="cpu").manual_seed(41)
+    a, d = (torch.randn(m, c, generator=g).to(cuda, torch.bfloat16) for c in (k, n))
+    dw, db = train_blocks.weight_grads(a, d)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = a.float().T @ d.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert dw.dtype == db.dtype == torch.float32 and dw.shape == (k, n)
+    assert rel_l2(dw, want) <= 1e-5
+    torch.testing.assert_close(db, d.float().sum(0), atol=1e-3, rtol=1e-5)
+
+
 # ---- the train cross-attention kernels (csrc/attn_train.cu's cross entry points) and block ----
 
 

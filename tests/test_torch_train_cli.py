@@ -1,8 +1,9 @@
-"""The port's train CLI on the CPU at a tiny ImageBERT-A: two steps write
-``metrics.jsonl`` and ``step_2.npz`` in the JAX package's param tree; that
-checkpoint scores through the port's ``cli/score.py`` exactly as the trained
-params in memory do, and through the JAX package's ``apply`` within 1e-4; the
-device policy and the flags that are not ported (exit 2)."""
+"""The port's train CLI on the CPU at a tiny ImageBERT-A and ImageBERT-B/C:
+two steps write ``metrics.jsonl`` and ``step_2.npz`` in the JAX package's
+param tree (B's label conv as its taps, the EMA shadows); that checkpoint
+scores through the port's ``cli/score.py`` exactly as the trained params in
+memory do, and through the JAX package's ``apply`` within 1e-4; the device
+policy and the models and flags that are not ported (exit 2)."""
 
 import json
 
@@ -96,10 +97,48 @@ def test_unported_flags_exit_2(data_dir, extra, capsys):
     assert e.value.code == 2 and "ROADMAP" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("model", ["imagebert_b", "lxmert"])
+@pytest.mark.parametrize("model", ["two_tower", "lxmert"])
 def test_other_models_exit_2(data_dir, model, capsys):
     argv = _argv(data_dir)
     argv[1] = model
     with pytest.raises(SystemExit) as e:
         train_cli.run(argv)
     assert e.value.code == 2 and "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("model", ["imagebert_b", "imagebert_c"])
+def test_train_cli_b_and_c_write_taps_that_score(data_dir, model):
+    argv = _argv(data_dir, "--word-match-weight", "0.5") if model == "imagebert_b" else _argv(data_dir)
+    argv[1] = model
+    trainer, state, report = train_cli.run(argv)
+    assert report["steps"] == state.step == 2 and state.ema is not None
+    lines = [json.loads(line) for line in (data_dir / "run" / "metrics.jsonl").read_text().splitlines()]
+    assert np.isfinite(lines[0]["loss"]) and ("word_match_loss" in lines[0]) == (model == "imagebert_b")
+    ckpt = data_dir / "run" / "step_2.npz"
+    tree = load_npz(ckpt)
+    h = trainer.model.config.hidden_size
+    assert tree["kdd_conv1"].keys() == {"weights", "biases"} and tree["kdd_conv1"]["weights"].shape == (8, h, h)
+    assert ("kdd_query_match" in tree) == (model == "imagebert_b")
+
+    # the checkpoint through cli/score.py vs the EMA shadows in memory, on the same batches (the AM head's
+    # scale 30 turns another CPU blocking of a product into a last-bit difference of the score)
+    out = data_dir / "scores.tsv"
+    score_cli.main(["--model", model, "--tsv", str(data_dir / "train.tsv"), "--labels", str(data_dir / "labels.txt"),
+                    "--checkpoint", str(ckpt), "--out", str(out), "--device", "cpu", "--batch-size", "16"])
+    got = {tuple(line.split("\t")[:2]): float(line.split("\t")[2]) for line in out.read_text().splitlines()}
+    engine = ScoringEngine(trainer.model, trainer.eval_params(state), device="cpu", precision=Precision.f32())
+    featurizer = Featurizer(FullTokenizer.google_style(VOCAB_PATH), load_multimodal_labels(data_dir / "labels.txt"),
+                            sen2forest=trainer.model.sen2forest)
+    want = engine.score_files([data_dir / "train.tsv"], featurizer, 16)
+    assert len(got) == sum(len(r) for r in want.values()) > 0
+    for (q, p), s in got.items():
+        assert s == want[q][p]
+
+    # and through the JAX package's apply
+    spec = jax_get_model(model)
+    batch = next(iter(batches_from_files([data_dir / "train.tsv"], featurizer.imagebert_b, 16, prefetch=0)))
+    keys = ("input_ids", "len_query", "num_boxes", "segment_ids", "boxes", "features", "label_ids", "labels")
+    jax_scores = np.asarray(spec.apply(tree, {k: batch[k] for k in keys}, spec.config, JaxPrecision.f32())["score"])
+    with torch.inference_mode():
+        port_scores = engine.score_batch(batch).numpy()
+    np.testing.assert_allclose(port_scores, jax_scores, atol=1e-4)
