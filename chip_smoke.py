@@ -91,7 +91,20 @@
    under torch.profiler (device time by kernel, the device's busy share; the
    table in ``build/smoke/train/profile.txt``); and TRAIN_STEPS steps through
    ``cli/train.py`` (the "imagebert_a_train" path of
-   the kernel line, host sampler included: end-to-end pairs/s).
+   the kernel line, host sampler included: end-to-end pairs/s). The rest of
+   training: step 1's check runs with the MLM loss on (weight
+   MLM_WEIGHT), so it holds ``cls/predictions`` and the tied word embeddings
+   too; the MLM head's forward and backward at B=256 are timed beside their
+   bound; ``cli/build_packed.py`` drains A's sampler over the TSV into packed
+   shards (instances/s, bytes on disk), and TRAIN_STEPS steps through
+   ``cli/train.py --packed-dir`` with the MLM loss, ``--grad-summaries`` and
+   a valid pass every VALID_EVERY steps over a VALID_ROWS-row planted valid
+   set ("imagebert_a_train_packed": the train launches of every step plus the
+   scoring launches of every valid batch, exact; its pairs/s beside the
+   sampler path's and the device's; each valid pass's seconds); then that run
+   again as RESUME_AT steps and ``--resume`` for the rest, every parameter
+   and moment bit-equal to the straight run's, and no gradient varying
+   between three runs of one step on the same inputs.
    ImageBERT-B/C (its train blocks at S=30 with its key masks, every fourth
    pair's box keys all masked): the train blocks and ``attn_train``/
    ``attn_train_bwd`` held to their plain versions at S=30 and timed at B=256;
@@ -106,7 +119,10 @@
    (``build/smoke/train/imagebert_b_profile.txt``), TRAIN_STEPS steps through
    ``cli/train.py --model imagebert_b`` whose checkpoint (8 taps)
    ``cli/score.py`` scores on the card (finite scores, exact launches), and
-   B_C_CLI_STEPS steps of ``--model imagebert_c``. A's, B's and LXMERT's
+   B_C_CLI_STEPS steps of ``--model imagebert_c``; B's sampler drained by
+   ``cli/build_packed.py`` (its word-match fields among the shards) and
+   B_PACKED_STEPS steps through ``cli/train.py --packed-dir
+   --word-match-weight 0.5`` ("imagebert_b_train_packed"). A's, B's and LXMERT's
    weight gradients are the glue of ``ops/train_blocks.py:weight_grads``.
 6. Training (LXMERT). Kernel checks at B=32 and B=256, 23<-10 and 10<-23
    (H=768, 12 heads, bf16, seeded key masks with some visn rows all masked):
@@ -121,7 +137,9 @@
    LXMERT 9/5/5 x 768, batch 256, dropout 0.1, random weights from the seed,
    batches of the LXMERT featurizer over the synthetic TSV with labels drawn
    from the seed, through ``train.Trainer``: step 1 on the kernel route, the
-   plain route in bf16 and the f32 truth, held as ImageBERT-A's; one step
+   plain route in bf16 and the f32 truth, with the MLM loss on the lang stream
+   (MLM_POSITIONS masked positions a pair from the seed), held as
+   ImageBERT-A's; one step
    with ``am_loss`` (the ``logit_W`` head gets a gradient); TRAIN_STEPS steps
    on the kernel route with the split device time and the launch counters
    exact at every step; two profiled steps (the table in
@@ -227,6 +245,17 @@ ONE_SHOT_ROWS, ONE_SHOT_TIMEOUT_S = 8192, 600
 # training: ImageBERT-A's batch (scripts/train.py:55), a check batch, the steps of the path
 TRAIN_B, TRAIN_CHECK_B, TRAIN_STEPS, TRAIN_RATE = 256, 32, 10, 0.1
 B_C_CLI_STEPS = 3  # ImageBERT-C through cli/train.py: B's path on rewritten queries
+# the rest of training: the MLM loss's weight in A's and LXMERT's step-1 checks and A's packed run (the
+# sampler's 10 masked positions a pair), the valid TSV of A's packed run (make_eval_tsv rows, scored in
+# MAIN_B batches every TRAIN_STEPS // 2 steps), ImageBERT-B's steps through --packed-dir, and the step at
+# which the resume check splits A's packed run
+MLM_WEIGHT, MLM_POSITIONS = 0.1, 10
+# the MLM head's leaves and the table it is tied to: each must get a gradient in a step-1 check with the MLM on
+MLM_HEAD = ("cls/predictions/output_bias", "cls/predictions/transform/dense/kernel",
+            "cls/predictions/transform/LayerNorm/gamma", "bert/embeddings/word_embeddings")
+VALID_ROWS, VALID_EVERY = 1024, TRAIN_STEPS // 2
+B_PACKED_STEPS = 3
+RESUME_AT = TRAIN_STEPS // 2
 # the train blocks vs their plain oracles' autograd, bf16: the oracle rounds its weight and GELU gradients
 # to bf16 at its casts, the kernels keep them f32, so gradients are held in relative L2
 TRAIN_GRAD_REL_L2 = 2e-2
@@ -2100,10 +2129,14 @@ class Smoke:
                    for i in range(TRAIN_STEPS)]
         return spec, spec.init_params(self.seed), batches, (tsv, labels, qlabels), len(examples)
 
-    def train_imagebert_a(self) -> tuple[dict, dict]:
-        """The training path at full width: the step-1 check of the kernel route against the plain routes,
-        TRAIN_STEPS timed steps with the counters read at every one, and TRAIN_STEPS steps through
-        cli/train.py with the counters around the run -> (its launches, the phase's numbers)."""
+    def train_imagebert_a(self) -> tuple[dict[str, dict], dict]:
+        """The training path at full width: the step-1 check of the kernel route against the plain routes
+        with the MLM loss on; TRAIN_STEPS timed steps with the counters read at every one; the MLM head's
+        forward and backward timed; TRAIN_STEPS steps through cli/train.py on the sampler; packed shards of
+        the same TSV from cli/build_packed.py and TRAIN_STEPS steps through cli/train.py --packed-dir with the
+        MLM loss, the gradient summaries and a valid pass every VALID_EVERY steps; that run again as
+        RESUME_AT steps and a --resume for the rest, held bit-equal to it -> (each counted CLI run's
+        launches, held exact; the phase's numbers)."""
         from importlib import import_module
 
         import numpy as np
@@ -2113,6 +2146,7 @@ class Smoke:
         models = import_module(f"{PKG}.models")
         train = import_module(f"{PKG}.train")
         train_cli = import_module(f"{PKG}.cli.train")
+        build_packed = import_module(f"{PKG}.cli.build_packed")
         optim = import_module(f"{PKG}.train.optim")
 
         work = pkg.BUILD_DIR / "smoke" / "train"
@@ -2126,36 +2160,164 @@ class Smoke:
         log(f"train setup: {n_examples} sampled pairs, {cfg.num_hidden_layers}x{cfg.hidden_size} params, "
             f"{time.perf_counter() - t0:.1f} s")
 
-        step1 = self.step1_against_truth(spec, tc, params, batches[0], "train")
+        step1 = self.step1_against_truth(spec, dataclasses.replace(tc, mlm_loss_weight=MLM_WEIGHT), params,
+                                         batches[0], "train (MLM loss on)", MLM_HEAD)
         trainer = train.Trainer(spec, tc, precision=models.Precision.bf16(), device=self.dev)
         state = trainer.init_state(params)
         _, steps = self.timed_train_steps(trainer, state, batches, PER_STEP, "train")
         profile = self.profile_steps(trainer, state, batches[:2])
         del trainer, state
+        mlm = self.time_mlm_head(params)
 
         # the user's entry point: cli/train.py, counters around the whole run
-        torch.cuda.synchronize()
-        counted = launch_counters()
-        for w in counted:
-            w.launches = 0
-        report = train_cli.main(["--model", "imagebert_a", "--train-tsv", str(tsv), "--labels", str(labels),
-                                 "--query-labels", str(qlabels), "--steps", str(TRAIN_STEPS), "--batch-size",
-                                 str(TRAIN_B), "--out", str(work / "run"), "--checkpoint-every", "1000",
-                                 "--warmup-steps", str(tc.num_warmup_steps), "--total-steps",
-                                 str(tc.num_train_steps), "--seed", str(self.seed)])
-        torch.cuda.synchronize()
-        launches = {w.__name__: w.launches for w in counted}
-        log(f"launches imagebert_a_train (cli/train.py, {TRAIN_STEPS} steps): {json.dumps(launches)}")
+        runs = {}
+        schedule = ["--warmup-steps", str(tc.num_warmup_steps), "--total-steps", str(tc.num_train_steps),
+                    "--seed", str(self.seed), "--checkpoint-every", "1000", "--batch-size", str(TRAIN_B)]
+        report = counted_run(torch, runs, "imagebert_a_train", expected_launches(TRAIN_STEPS, PER_STEP),
+                             lambda: train_cli.main(["--model", "imagebert_a", "--train-tsv", str(tsv), "--labels",
+                                                     str(labels), "--query-labels", str(qlabels), "--steps",
+                                                     str(TRAIN_STEPS), "--out", str(work / "run"), *schedule]))
         log(f"train end to end through cli/train.py: {report['pairs']} pairs in {report['seconds']:.3f} s = "
             f"{report['pairs_per_second']:.1f} pairs/s (host sampler included)")
         ckpt = optim.flatten_paths(import_module(f"{PKG}.checkpoint").load_npz(work / "run" / f"step_{TRAIN_STEPS}.npz"))
         if not all(np.isfinite(v).all() for v in ckpt.values()):
             raise RuntimeError("the trained checkpoint holds non-finite values")
-        rates = {"step1": step1, **steps, "cli": report, "profile": profile,
+
+        # the sampler drained once into packed shards, then cli/train.py --packed-dir with the MLM loss, the
+        # gradient summaries and the valid loop; counters around the training run, valid passes included
+        packed = work / "packed_a"
+        for d in (packed, work / "run_packed", work / "run_resume"):
+            shutil.rmtree(d, ignore_errors=True)
+        build = build_packed.main(["--model", "imagebert_a", "--train-tsv", str(tsv), "--labels", str(labels),
+                                   "--query-labels", str(qlabels), "--out", str(packed), "--seed", str(self.seed)])
+        log(f"cli/build_packed.py: {build['num_instances']} instances in {build['seconds']:.3f} s = "
+            f"{build['instances_per_second']:.1f} instances/s, {build['bytes']} bytes on disk")
+        valid_tsv, answers = self.valid_data(work)
+
+        def packed_argv(n_steps, out, *extra):
+            return ["--model", "imagebert_a", "--packed-dir", str(packed), "--labels", str(labels), "--steps",
+                    str(n_steps), "--out", str(out), *schedule, "--mlm-weight", str(MLM_WEIGHT), "--grad-summaries",
+                    "--valid-tsv", str(valid_tsv), "--answers", str(answers), "--valid-every", str(VALID_EVERY),
+                    "--valid-batch-size", str(MAIN_B), *extra]
+
+        n_valid = (TRAIN_STEPS // VALID_EVERY) * -(-VALID_ROWS // MAIN_B)
+        train_part, valid_part = expected_launches(TRAIN_STEPS, PER_STEP), expected_launches(n_valid,
+                                                                                              PER_BATCH["imagebert_a"])
+        packed_trainer, straight, packed_report = counted_run(
+            torch, runs, "imagebert_a_train_packed", {k: train_part[k] + valid_part[k] for k in train_part},
+            lambda: train_cli.run(packed_argv(TRAIN_STEPS, work / "run_packed")))
+        first = json.loads((work / "run_packed" / "metrics.jsonl").read_text().splitlines()[0])
+        ndcgs = [v["valid_ndcg5"] for v in packed_report["valid"]]
+        summaries = [k for k in first if k.startswith("grad_norm_pre_clip/")]
+        if (len(ndcgs) != TRAIN_STEPS // VALID_EVERY or not all(0.0 <= v <= 1.0 for v in ndcgs)
+                or not np.isfinite(first["mlm_loss"]) or "grad_norm_post_clip/cls/predictions" not in first
+                or not (work / "run_packed" / "best.npz").exists()):
+            raise RuntimeError(f"the packed run's valid passes {ndcgs}, first metrics {sorted(first)}")
+        log(f"train end to end through cli/train.py --packed-dir (MLM loss {MLM_WEIGHT}, {len(summaries)} gradient "
+            f"groups summarised): {packed_report['pairs']} pairs in {packed_report['seconds']:.3f} s = "
+            f"{packed_report['pairs_per_second']:.1f} pairs/s (sampler path {report['pairs_per_second']:.1f}, "
+            f"device {steps['device_pairs_per_second']:.1f}); valid passes {json.dumps(packed_report['valid'])}; "
+            f"checkpoint {packed_report['checkpoint_seconds']:.3f} s")
+
+        # the resume check: RESUME_AT steps, then --resume for the rest, against the straight run
+        train_cli.run(packed_argv(RESUME_AT, work / "run_resume"))
+        _, resumed, _ = train_cli.run(packed_argv(TRAIN_STEPS - RESUME_AT, work / "run_resume", "--resume",
+                                                  str(work / "run_resume" / f"state_{RESUME_AT}.npz")))
+        # bit for bit: every parameter and both moments of the resumed run equal the straight run's. The
+        # probe names any gradient that differs between runs of one step on the same inputs (an op that sums
+        # in a varying order on the card would part the two runs)
+        varying = self.varying_grads(packed_trainer, straight, batches[0])
+        names = straight.optimizer.names
+        pairs = {"params": (straight.leaves(), resumed.leaves()), "m": (straight.optimizer.m, resumed.optimizer.m),
+                 "v": (straight.optimizer.v, resumed.optimizer.v)}
+        differ = [f"{kind}/{n}" for kind, (xs, ys) in pairs.items()
+                  for n, x, y in zip(names, xs, ys, strict=True) if not torch.equal(x, y)]
+        if resumed.step != straight.step or differ or varying:
+            raise RuntimeError(f"{RESUME_AT} + {TRAIN_STEPS - RESUME_AT} resumed steps (step {resumed.step}) are not "
+                               f"{TRAIN_STEPS} straight ones bit for bit: {differ[:8]}; gradients varying between "
+                               f"runs of one step: {varying}")
+        resume = {"bit_equal_tensors": len(names) * len(pairs), "tensors": len(names) * len(pairs),
+                  "grads_varying_between_runs_of_a_step": varying}
+        log(f"resume: {RESUME_AT} steps, then --resume for {TRAIN_STEPS - RESUME_AT}, against {TRAIN_STEPS} straight "
+            f"steps (step {resumed.step}): bit-equal {json.dumps(resume)}")
+        del packed_trainer, straight, resumed
+        for d in (work / "run", work / "run_packed", work / "run_resume"):  # ~1.8 GB of checkpoints each
+            shutil.rmtree(d)
+        rates = {"step1": step1, **steps, "cli": report, "profile": profile, "mlm_head": mlm, "build_packed": build,
+                 "cli_packed": packed_report, "resume": resume,
                  "device_busy_share": profile["device_busy_ms_per_step"] / steps["device_ms_per_step"]["total"]}
         log(f"train: the device busy {100 * rates['device_busy_share']:.1f}% of a step (the profiled kernels' sum "
             f"over the CUDA-event step time)")
-        return launches, rates
+        return runs, rates
+
+    def varying_grads(self, trainer, state, batch, runs: int = 3) -> list[str]:
+        """One step's gradients ``runs`` times on the same params, batch and dropout seed -> the parameters whose
+        gradient differs between any two runs (the ops that sum in a varying order on the card)."""
+        torch = self.torch
+        dev_batch = trainer.to_device(batch)
+        first, _ = trainer.grads(state, dev_batch, seed=3)
+        varying = set()
+        for _ in range(runs - 1):
+            again, _ = trainer.grads(state, dev_batch, seed=3)
+            varying.update(n for n, a, b in zip(state.optimizer.names, first, again) if not torch.equal(a, b))
+        log(f"one step's gradients {runs} times on the same inputs: {len(varying)} of {len(first)} vary: "
+            f"{sorted(varying)}")
+        return sorted(varying)
+
+    def valid_data(self, work):
+        """A planted valid set (``make_eval_tsv``, VALID_ROWS rows from the seed) and its answers -> their paths."""
+        from importlib import import_module
+
+        lines, answers = import_module(f"{PKG}.data.synthetic").make_eval_tsv(VALID_ROWS, seed=self.seed)
+        tsv, path = work / "valid.tsv", work / "valid_answer.json"
+        tsv.write_text("\n".join(lines) + "\n")
+        path.write_text(json.dumps(answers))
+        return tsv, path
+
+    def time_mlm_head(self, params) -> dict:
+        """The tied MLM head and loss of one B=TRAIN_B step (MLM_POSITIONS masked positions a pair, the
+        seed's A weights, bf16 operands into f32 products), forward and forward + backward by CUDA events,
+        beside their bound: the products' operations at the bf16 tensor-core rate (their operands are bf16) or
+        the bytes (hidden states, the table, the head, the logits written), whichever is larger."""
+        from importlib import import_module
+
+        torch = self.torch
+        heads = import_module(f"{PKG}.models.heads")
+        models = import_module(f"{PKG}.models")
+        rows = TRAIN_B * MLM_POSITIONS
+        head = params["cls"]["predictions"]
+        table = params["bert"]["embeddings"]["word_embeddings"].to(self.dev).requires_grad_()
+        vocab = table.shape[0]
+        tree = {"transform": {"dense": {k: v.to(self.dev).requires_grad_() for k, v in head["transform"]["dense"].items()},
+                              "LayerNorm": {k: v.to(self.dev) for k, v in head["transform"]["LayerNorm"].items()}},
+                "output_bias": head["output_bias"].to(self.dev).requires_grad_()}
+        g = torch.Generator(device="cpu").manual_seed(self.seed + 70)
+        hidden = torch.randn(rows, H, generator=g).to(self.dev).requires_grad_()
+        ids = torch.randint(0, vocab, (rows,), generator=g).to(self.dev)
+        weights = (torch.rand(rows, generator=g) > 0.3).float().to(self.dev)
+        leaves = [hidden, table, tree["transform"]["dense"]["kernel"], tree["output_bias"]]
+        prec = models.Precision.bf16()
+
+        def forward():
+            return heads.mlm_loss(heads.mlm_logits(tree, hidden, table, prec), ids, weights)
+
+        def forward_backward():
+            torch.autograd.grad(forward(), leaves)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(torch, forward)
+        both_ms = cuda_ms(torch, forward_backward)
+        flops = 2 * rows * H * (H + vocab)
+        logits_bytes = rows * vocab * 4
+        ins = nbytes_of((hidden, table, tree["transform"]["dense"]["kernel"], tree["output_bias"]))
+        fwd_bound, fwd_by = bound_ms(ins + logits_bytes, flops, PEAK_BF16_FLOPS)
+        bwd_bound, bwd_by = bound_ms(2 * ins + logits_bytes, 2 * flops, PEAK_BF16_FLOPS)
+        out = {"rows": rows, "vocab": vocab, "forward_ms": fwd_ms, "backward_ms": both_ms - fwd_ms,
+               "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by, "backward_bound_ms": bwd_bound,
+               "backward_bound_by": bwd_by}
+        log(f"MLM head at B={TRAIN_B} ({rows} masked positions, vocab {vocab}): forward {fwd_ms:.4f} ms "
+            f"(bound {fwd_bound:.4f}, {fwd_by}), backward {both_ms - fwd_ms:.4f} ms (bound {bwd_bound:.4f}, {bwd_by})")
+        return out
 
     def train_imagebert_b(self) -> tuple[dict[str, dict], dict]:
         """ImageBERT-B training at full width through train.Trainer (B's recipe: Adam on the staircase,
@@ -2207,25 +2369,15 @@ class Smoke:
         profile = self.profile_steps(trainer, state, batches[:2], "imagebert_b_profile.txt")
         del trainer, state
 
-        def counted_run(path, n, per, fn):
-            torch.cuda.synchronize()
-            counted = launch_counters()
-            for w in counted:
-                w.launches = 0
-            out = fn()
-            torch.cuda.synchronize()
-            runs[path] = {w.__name__: w.launches for w in counted}
-            if runs[path] != expected_launches(n, per):
-                raise RuntimeError(f"{path} launches {runs[path]}, expected {expected_launches(n, per)}")
-            log(f"launches {path}: {json.dumps(runs[path])}")
-            return out
+        def counted(path, n, per, fn):
+            return counted_run(torch, runs, path, expected_launches(n, per), fn)
 
         def cli_argv(model, steps, out):
             return ["--model", model, "--train-tsv", str(tsv), "--labels", str(labels), "--query-labels",
                     str(qlabels), "--steps", str(steps), "--batch-size", str(TRAIN_B), "--out", str(out),
                     "--checkpoint-every", "1000", "--seed", str(self.seed)]
 
-        report = counted_run("imagebert_b_train_cli", TRAIN_STEPS, PER_STEP_B,
+        report = counted("imagebert_b_train_cli", TRAIN_STEPS, PER_STEP_B,
                              lambda: train_cli.main(cli_argv("imagebert_b", TRAIN_STEPS, work / "run_b")))
         log(f"imagebert_b train end to end through cli/train.py: {report['pairs']} pairs in {report['seconds']:.3f} s "
             f"= {report['pairs_per_second']:.1f} pairs/s (host sampler included)")
@@ -2235,7 +2387,7 @@ class Smoke:
             raise RuntimeError(f"the checkpoint's kdd_conv1 is not 8 taps: {tree['kdd_conv1'].keys()}")
         scores = work / "scores_b.tsv"
         n_pairs = N_ROWS
-        counted_run("imagebert_b_trained_score", -(-n_pairs // MAIN_B), PER_BATCH["imagebert_b"],
+        counted("imagebert_b_trained_score", -(-n_pairs // MAIN_B), PER_BATCH["imagebert_b"],
                     lambda: score_cli.main(["--model", "imagebert_b", "--tsv", str(tsv), "--labels", str(labels),
                                             "--checkpoint", str(ckpt), "--out", str(scores),
                                             "--expect-pairs", str(n_pairs)]))
@@ -2245,9 +2397,32 @@ class Smoke:
                                f"finite {np.isfinite(values).all()}")
         log(f"imagebert_b trained checkpoint through cli/score.py: {len(values)} finite scores in "
             f"[{values.min():.4f}, {values.max():.4f}]")
-        c_report = counted_run("imagebert_c_train_cli", B_C_CLI_STEPS, PER_STEP_B,
+        c_report = counted("imagebert_c_train_cli", B_C_CLI_STEPS, PER_STEP_B,
                                lambda: train_cli.main(cli_argv("imagebert_c", B_C_CLI_STEPS, work / "run_c")))
+        # B's sampler drained into packed shards (its word-match fields among them), then B_PACKED_STEPS steps
+        # through cli/train.py --packed-dir with the word-match loss on
+        packed = work / "packed_b"
+        for d in (packed, work / "run_b_packed"):
+            shutil.rmtree(d, ignore_errors=True)
+        build = import_module(f"{PKG}.cli.build_packed").main([
+            "--model", "imagebert_b", "--train-tsv", str(tsv), "--labels", str(labels), "--query-labels", str(qlabels),
+            "--out", str(packed), "--seed", str(self.seed)])
+        if not {"word_match_labels", "word_match_weights"} <= set(build["fields"]):
+            raise RuntimeError(f"B's packed shards hold no word-match fields: {build['fields']}")
+        b_packed = counted("imagebert_b_train_packed", B_PACKED_STEPS, PER_STEP_B, lambda: train_cli.main([
+            "--model", "imagebert_b", "--packed-dir", str(packed), "--labels", str(labels), "--steps",
+            str(B_PACKED_STEPS), "--batch-size", str(TRAIN_B), "--out", str(work / "run_b_packed"),
+            "--checkpoint-every", "1000", "--seed", str(self.seed), "--word-match-weight", "0.5"]))
+        first = json.loads((work / "run_b_packed" / "metrics.jsonl").read_text().splitlines()[0])
+        if not np.isfinite([first["loss"], first["word_match_loss"]]).all():
+            raise RuntimeError(f"B's packed run: first metrics {first}")
+        log(f"imagebert_b through cli/train.py --packed-dir with the word-match loss: {b_packed['pairs']} pairs in "
+            f"{b_packed['seconds']:.3f} s = {b_packed['pairs_per_second']:.1f} pairs/s; step 0 loss "
+            f"{first['loss']:.5f}, word-match loss {first['word_match_loss']:.5f}")
+        for d in (work / "run_b", work / "run_c", work / "run_b_packed"):  # ~2.3 GB of checkpoints each
+            shutil.rmtree(d)
         rates = {"step1": step1, "word_match_step1": wm_step, **steps, "cli": report, "cli_imagebert_c": c_report,
+                 "build_packed": build, "cli_packed": b_packed,
                  "trained_scores": {"pairs": len(values), "min": float(values.min()), "max": float(values.max())},
                  "profile": profile,
                  "device_busy_share": profile["device_busy_ms_per_step"] / steps["device_ms_per_step"]["total"]}
@@ -2255,11 +2430,12 @@ class Smoke:
             f"kernels' sum over the CUDA-event step time)")
         return runs, rates
 
-    def step1_against_truth(self, spec, tc, params, batch, tag: str) -> dict:
+    def step1_against_truth(self, spec, tc, params, batch, tag: str, must_hold: tuple[str, ...] = ()) -> dict:
         """Step 1 from one params/batch/seed on three routes: the kernels, plain in bf16 and plain in f32 (the
         truth, TF32 off). Fails unless each parameter's gradient on the kernel route is within TRAIN_STEP_REL_L2
         of the truth in relative L2, or within TRAIN_OVER_PLAIN times the bf16 plain route's own error, whichever
-        is larger, and the losses are finite and within 1e-2 -> the losses and the worst 5 parameters."""
+        is larger, the losses are finite and within 1e-2, and every parameter of ``must_hold`` got a non-zero
+        gradient among those held -> the losses (and the MLM loss where it is on) and the worst 5 parameters."""
         from importlib import import_module
 
         import numpy as np
@@ -2270,12 +2446,14 @@ class Smoke:
         bf16 = models.Precision.bf16()
         routes = {"kernel": (bf16, models.TRAIN_KERNEL_BLOCKS), "plain_bf16": (bf16, models.TRAIN_PLAIN_BLOCKS),
                   "plain_f32": (models.Precision.f32(), models.TRAIN_PLAIN_BLOCKS)}
-        step1 = {}
+        step1, mlm_losses = {}, {}
         for route_name, (prec, blocks) in routes.items():
             trainer = train.Trainer(spec, tc, precision=prec, device=self.dev, blocks=blocks)
             state = trainer.init_state(params)
             grads, metrics = trainer.grads(state, trainer.to_device(batch), seed=1)
             step1[route_name] = (metrics["loss"].item(), [g.detach() for g in grads], state.optimizer.names)
+            if "mlm_loss" in metrics:
+                mlm_losses[route_name] = metrics["mlm_loss"].item()
             del trainer, state, grads
         tf32 = torch.backends.cuda.matmul.allow_tf32
         (loss_k, gk, names), (loss_p, gp, _), (loss_t, gt, _) = (step1[r] for r in routes)
@@ -2293,8 +2471,16 @@ class Smoke:
             f"{TRAIN_OVER_PLAIN:g} x plain); TF32 after the f32 route: {tf32}")
         if failed or not all(np.isfinite([loss_k, loss_p, loss_t])) or abs(loss_k - loss_t) > 1e-2:
             raise RuntimeError(f"{tag}: step-1 gradients of the kernel route disagree with the f32 truth: {failed}")
-        return {"loss_kernel": loss_k, "loss_plain_bf16": loss_p, "loss_f32_truth": loss_t,
-                "worst_rel_l2": [{"param": n, "kernel": a, "plain_bf16": b_} for a, b_, n in worst[:5]]}
+        by_name = dict(zip(names, gk))
+        unheld = [n for n in must_hold if n not in by_name or not by_name[n].abs().max().item() > 0]
+        if unheld:
+            raise RuntimeError(f"{tag}: no gradient held for {unheld}")
+        out = {"loss_kernel": loss_k, "loss_plain_bf16": loss_p, "loss_f32_truth": loss_t, "params": len(names),
+               "worst_rel_l2": [{"param": n, "kernel": a, "plain_bf16": b_} for a, b_, n in worst[:5]]}
+        if mlm_losses:
+            out["mlm_loss"] = mlm_losses
+            log(f"{tag} step 1: MLM loss {json.dumps(mlm_losses)}")
+        return out
 
     def timed_train_steps(self, trainer, state, batches, per_step: dict, tag: str) -> tuple[dict, dict]:
         """One step per batch on the kernel route, the device time split into forward, backward and optimizer by
@@ -2578,7 +2764,14 @@ class Smoke:
         log(f"lxmert train setup: {len(staged)} featurized {TRAIN_B}-pair batches, LXMERT {LX_DEPTHS}x{H}, "
             f"{n_params} trained parameters, {time.perf_counter() - t0:.1f} s")
 
-        step1 = self.step1_against_truth(spec, tc, params, batches[0], "lxmert train")
+        # step 1 with the MLM loss on the lang stream: MLM_POSITIONS masked positions a pair inside the query
+        # (LXMERT's featurizer makes no MLM targets), their ids and 0/1 weights from the seed
+        mlm_batch = {**batches[0],
+                     "masked_lm_positions": rng.integers(1, LX_F - 1, (TRAIN_B, MLM_POSITIONS)).astype(np.int32),
+                     "masked_lm_ids": rng.integers(0, cfg.bert.vocab_size, (TRAIN_B, MLM_POSITIONS)).astype(np.int32),
+                     "masked_lm_weights": (rng.random((TRAIN_B, MLM_POSITIONS)) > 0.3).astype(np.float32)}
+        step1 = self.step1_against_truth(spec, dataclasses.replace(tc, mlm_loss_weight=MLM_WEIGHT), params, mlm_batch,
+                                         "lxmert train (MLM loss on the lang stream)", MLM_HEAD)
         bf16 = models.Precision.bf16()
         am = train.Trainer(spec, dataclasses.replace(tc, am_loss=True), precision=bf16, device=self.dev)
         state = am.init_state(params)
@@ -3007,6 +3200,22 @@ def backends_breakdown(times: dict, a_rates: dict, a_batches: int, b_rates: dict
     return out
 
 
+def counted_run(torch, runs: dict, path: str, expected: dict, fn):
+    """``fn()`` with every launch counter set to 0 just before it and read just after it into
+    ``runs[path]``, which must equal ``expected`` -> what ``fn`` returned."""
+    torch.cuda.synchronize()
+    counted = launch_counters()
+    for w in counted:
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    runs[path] = {w.__name__: w.launches for w in counted}
+    if runs[path] != expected:
+        raise RuntimeError(f"{path} launches {runs[path]}, expected {expected}")
+    log(f"launches {path}: {json.dumps(runs[path])}")
+    return out
+
+
 def expected_launches(n: int, per_batch: dict) -> dict:
     """Every counter's expected launches over n batches; unnamed counters 0."""
     return {w.__name__: n * per_batch.get(w.__name__, 0) for w in launch_counters()}
@@ -3170,10 +3379,10 @@ def main(argv: list[str] | None = None) -> int:
         times.update(smoke.time_train_kernels())
         if smoke.failures:
             raise RuntimeError(f"train blocks disagree with their plain oracles: {smoke.failures}")
-        train_launches, train_rates = smoke.train_imagebert_a()
+        train_runs, train_rates = smoke.train_imagebert_a()
         expected = expected_launches(TRAIN_STEPS, PER_STEP)
-        if train_launches != expected:
-            raise RuntimeError(f"imagebert_a_train launches {train_launches}, expected {expected}")
+        if train_runs["imagebert_a_train"] != expected:
+            raise RuntimeError(f"imagebert_a_train launches {train_runs['imagebert_a_train']}, expected {expected}")
         log(json.dumps({"train_imagebert_a": train_rates}))
         b_train_launches, b_train_rates = smoke.train_imagebert_b()
         expected = expected_launches(TRAIN_STEPS, PER_STEP_B)
@@ -3199,7 +3408,7 @@ def main(argv: list[str] | None = None) -> int:
                 raise RuntimeError(f"{path} launches {counts}, expected {expected}")
         log(json.dumps({"one_shot": ot_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
-                        "mha_packed_entry": packed, "imagebert_a_train": train_launches, **b_train_launches,
+                        "mha_packed_entry": packed, **train_runs, **b_train_launches,
                         "lxmert_train": lx_train_launches, **ot_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]

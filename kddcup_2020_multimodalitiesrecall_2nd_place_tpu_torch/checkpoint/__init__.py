@@ -5,6 +5,7 @@ from .npz import (
     params_from_jax,
     params_to_jax,
     save_npz,
+    scoring_params,
     tree_to,
     unflatten_tree,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "params_from_jax",
     "params_to_jax",
     "save_npz",
+    "scoring_params",
     "tree_to",
     "unflatten_tree",
 ]

@@ -15,6 +15,7 @@
   never from ``qkv``), ImageBERT-B's banded ``kdd_conv1`` back into its taps,
   numpy leaves, so ``save_npz`` writes a checkpoint that the port's
   ``cli/score.py`` and the JAX package's ``scripts/score.py`` both load.
+* ``scoring_params``: a tree without the MLM head, which no scorer reads.
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
   embedding tables and the heads' f32 weights stay float32.
@@ -73,10 +74,12 @@ def params_from_jax(tree: dict) -> Params:
     ImageBERT-B's ``kdd_conv1`` taps stay as in the JAX tree: its spec's
     ``from_jax`` bands them (the AM head's ``am_kernel`` stays f32).
 
-    Leaves the port never reads (the MLM and NSP heads of LXMERT, the MLM
-    head of the ImageBERTs) are dropped; LXMERT's AM head ``logit_W`` and
-    ImageBERT-B's word-match head ``kdd_query_match`` are kept (``am_loss``
-    and the word-match loss train them)."""
+    The MLM head ``cls/predictions`` is kept (the MLM loss of A and LXMERT
+    trains it; ``scoring_params`` leaves it out; ImageBERT-B's ``from_jax``
+    drops it), as are LXMERT's AM head ``logit_W`` and ImageBERT-B's
+    word-match head ``kdd_query_match`` (``am_loss`` and the word-match loss
+    train them). LXMERT's NSP head ``cls/seq_relationship``, which no loss or
+    scorer of the port reads, is dropped."""
     params = _to_torch(tree)
     enc = params["bert"]["encoder"]
     if "x_layers" in enc:
@@ -88,10 +91,22 @@ def params_from_jax(tree: dict) -> Params:
         xs["visual_attention"] = attention_forms(xs["visual_attention"], cross=True)
         for name in ("lang_self_att", "visn_self_att"):
             xs[name] = attention_forms(xs[name])
-        return {k: params[k] for k in ("bert", "logit_fc", "logit_W") if k in params}
+        out = {k: params[k] for k in ("bert", "logit_fc", "logit_W") if k in params}
+        if "predictions" in params.get("cls", {}):
+            out["cls"] = {"predictions": params["cls"]["predictions"]}
+        return out
     enc["attention"] = attention_forms(enc["attention"])
-    params["cls"] = {"seq_relationship": params["cls"]["seq_relationship"]}
     return params
+
+
+def scoring_params(params: Params) -> Params:
+    """``params`` without the MLM head (``cls/predictions``), which only the
+    MLM loss reads: the tree a scorer holds and an export bakes in."""
+    if "predictions" not in params.get("cls", {}):
+        return params
+    cls = {k: v for k, v in params["cls"].items() if k != "predictions"}
+    out = {k: v for k, v in params.items() if k != "cls"}
+    return {**out, "cls": cls} if cls else out
 
 
 def _split_attention(att: dict) -> dict:

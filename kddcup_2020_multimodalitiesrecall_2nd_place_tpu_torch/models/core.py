@@ -218,6 +218,16 @@ def embeddings_init(cfg: BertConfig, gen: torch.Generator) -> Params:
     }
 
 
+def token_type_embed(table: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+    """[..., H] rows of the 2-row token-type table picked by ``segment_ids``
+    (0 or 1): the gather as a select, whose backward sums each row's gradient
+    in a fixed order (``F.embedding``'s CUDA backward sums the many rows into
+    these 2 in a varying order, so two runs of one step differ)."""
+    if table.shape[0] != 2:
+        raise ValueError(f"a token-type table of {table.shape[0]} rows; the models have 2")
+    return torch.where(segment_ids[..., None] == 0, table[0], table[1])
+
+
 # --------------------------------------------------------------------------
 # primitives
 # --------------------------------------------------------------------------

@@ -13,17 +13,22 @@
   ``models/heads.py`` :197-210: its two denses round their inputs to the
   compute dtype, like every ``dense``.
 
+* The tied-embedding MLM head of ImageBERT-A and LXMERT (``cls/predictions``;
+  the JAX package's ``models/heads.py`` :156-194): a tanh-GELU transform
+  dense and LayerNorm in f32, then the product with the word-embedding table
+  over the whole vocabulary plus ``output_bias``.
+
 ``nsp_loss`` is ImageBERT-A's training loss, ``cross_entropy`` LXMERT's (on
 ``logit_fc``, or on ``am_margin_logits`` of its ``logit_W`` cosines),
 ``am_loss`` ImageBERT-B/C's, plus ``word_match_loss`` when its weight is set
-(the reference trained with it off, ``model_triple.py:207-210``); the MLM head
-is not ported yet (ROADMAP.md Queue 1 item 9c)."""
+(the reference trained with it off, ``model_triple.py:207-210``), and
+``mlm_loss`` the auxiliary MLM term of A and LXMERT."""
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.activations import gelu_erf
+from ..ops.activations import gelu_erf, gelu_tanh
 from .core import BertConfig, Params, Precision, dense, dense_init, layer_norm, layer_norm_init, trunc_normal
 
 
@@ -122,6 +127,64 @@ def word_match_loss(p: Params, seq: torch.Tensor, labels: torch.Tensor, weights:
     one_hot = torch.nn.functional.one_hot(labels.long(), 2).float()
     per = -(one_hot * log_probs).sum(dim=-1) * weights.float()  # [B, n]
     return per.mean(dim=0).sum()
+
+
+def mlm_head_init(cfg: BertConfig, gen: torch.Generator) -> Params:
+    """``cls/predictions``: the transform dense (drawn from ``gen``), its
+    LayerNorm and the vocabulary-wide output bias (zeros)."""
+    h = cfg.hidden_size
+    return {
+        "transform": {"dense": dense_init(h, h, cfg.initializer_range, gen), "LayerNorm": layer_norm_init(h)},
+        "output_bias": torch.zeros((cfg.vocab_size,)),
+    }
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 sums and an f32 result: on the card, bf16 operands go
+    into one cuBLAS product (``aten::mm.dtype``) with no f32 copies; other
+    operands (f32, or on the CPU, where ``mm.dtype`` has no kernel) take the
+    f32 product of their values."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _TiedProduct(torch.autograd.Function):
+    """h [N, H] @ table [V, H]^T of compute-dtype operands -> [N, V] f32 (the
+    JAX dot with preferred_element_type=float32). The backward's products take
+    the cotangent in the operands' dtype too (as a bf16 dot on the TPU rounds
+    its f32 operand), and return gradients in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(h, table)
+        return _mm_f32(h, table.T)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, table = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return _mm_f32(g, table).to(h.dtype), _mm_f32(g.T, h).to(table.dtype)
+
+
+def mlm_logits(p: Params, hidden: torch.Tensor, word_embeddings: torch.Tensor, prec: Precision) -> torch.Tensor:
+    """[..., H] hidden states -> [..., vocab] f32 logits tied to the word
+    embeddings: the transform dense, tanh GELU and LayerNorm in f32, then one
+    product of compute-dtype operands with an f32 result, plus ``output_bias``."""
+    h = layer_norm(p["transform"]["LayerNorm"], gelu_tanh(dense(p["transform"]["dense"], hidden, prec)))
+    dt = prec.compute_dtype
+    lead = h.shape[:-1]
+    logits = _TiedProduct.apply(h.reshape(-1, h.shape[-1]).to(dt), word_embeddings.to(dt))
+    return logits.reshape(*lead, -1) + p["output_bias"].float()
+
+
+def mlm_loss(logits: torch.Tensor, label_ids: torch.Tensor, label_weights: torch.Tensor) -> torch.Tensor:
+    """The weighted mean cross entropy of the masked positions' logits against
+    their token ids, the weights' sum plus 1e-5 as the denominator."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    picked = log_probs.gather(-1, label_ids.long()[..., None])[..., 0]
+    weights = label_weights.float()
+    return (weights * -picked).sum() / (weights.sum() + 1e-5)
 
 
 def logit_fc_init(cfg: BertConfig, gen: torch.Generator, num_answers: int = 2) -> Params:

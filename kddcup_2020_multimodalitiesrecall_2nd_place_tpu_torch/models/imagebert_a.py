@@ -9,6 +9,8 @@ so image and label tokens carry no position/type embedding and skip the
 embedding LayerNorm. The attention mask is all-ones over all 40 positions:
 padding is deliberately not masked (``pixelmodel.py:189-195``), so the
 encoder runs with no bias. Head: binary NSP softmax, score = probs[:, 1].
+The tree also holds the tied MLM head (``cls/predictions``), which only the
+MLM loss reads and no scorer holds (``checkpoint.scoring_params``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .core import (
     layer_norm,
     num_layers,
     pooler,
+    token_type_embed,
     trunc_normal,
 )
 
@@ -68,7 +71,8 @@ def init_params(cfg: BertConfig, gen: torch.Generator) -> Params:
             "pooler": {"dense": dense_init(cfg.hidden_size, cfg.hidden_size, cfg.initializer_range, gen)},
         },
         "featureemb": dense_init(FEATURE_DIM, cfg.hidden_size, cfg.initializer_range, gen),
-        "cls": {"seq_relationship": heads.nsp_head_init(cfg, gen)},
+        # the MLM head drawn last, so every other tensor of a seed's stream is as it was without it
+        "cls": {"seq_relationship": heads.nsp_head_init(cfg, gen), "predictions": heads.mlm_head_init(cfg, gen)},
     }
 
 
@@ -97,7 +101,7 @@ def embed(p: Params, batch: dict, cfg: BertConfig, prec: Precision,
     # F.embedding, not indexing: the same gather, and a backward that sums duplicate ids
     # (every padding id 0) in one sorted pass where index_put's accumulate serializes them
     text = F.embedding(batch["input_ids"].long(), table)  # [B, 20, H]
-    text = text + F.embedding(batch["segment_ids"].long(), emb["token_type_embeddings"])
+    text = text + token_type_embed(emb["token_type_embeddings"], batch["segment_ids"])
     text = text + emb["position_embeddings"][:TEXT_LEN][None]
     text = dropout(layer_norm(emb["LayerNorm"], text), cfg.hidden_dropout_prob, gen)
     feat = dense(p["featureemb"], batch["features"], prec)  # [B, 10, H]

@@ -70,6 +70,7 @@ from .core import (
     layer_norm,
     num_layers,
     pooler,
+    token_type_embed,
     trunc_normal,
 )
 
@@ -114,9 +115,11 @@ def label_conv_taps(conv: Params) -> Params:
 def from_jax(params: Params) -> Params:
     """``checkpoint.params_from_jax``'s output for a B tree -> the port's
     layout: kdd_conv1's taps (``weights``/``biases``) banded once, stored as
-    the ``kernel``/``bias`` that ``cast_matmul_weights`` casts like any dense."""
+    the ``kernel``/``bias`` that ``cast_matmul_weights`` casts like any dense;
+    an MLM head ``cls/predictions``, which no loss of B's reads, dropped."""
     conv = params["kdd_conv1"]
-    return {**params, "kdd_conv1": label_conv_band(conv["weights"], conv["biases"])}
+    return {**params, "cls": {"seq_relationship": params["cls"]["seq_relationship"]},
+            "kdd_conv1": label_conv_band(conv["weights"], conv["biases"])}
 
 
 def train_params(p: Params) -> Params:
@@ -191,7 +194,7 @@ def embed(p: Params, batch: dict, cfg: BertConfig, prec: Precision, blocks: Bloc
     # F.embedding, not indexing: the same gather, and a backward that sums duplicate ids in one sorted pass
     text = F.embedding(batch["input_ids"].long(), emb["word_embeddings"])
     x = torch.cat([text.float(), img.float()], dim=1)
-    x = x + F.embedding(batch["segment_ids"].long(), emb["token_type_embeddings"])
+    x = x + token_type_embed(emb["token_type_embeddings"], batch["segment_ids"])
     positions = torch.cat([torch.arange(TEXT_LEN), torch.full((MAX_BOXES,), BOX_POSITION_ID)])
     x = x + emb["position_embeddings"][positions.to(x.device)][None]
     return dropout(layer_norm(emb["LayerNorm"], x), cfg.hidden_dropout_prob, gen)

@@ -26,6 +26,10 @@ cosines of the L2-normalised pooled output against the L2-normalised
 ``logit_W`` [H, 2] (``--taskAMSloss``, :207-210; the JAX package's
 ``models/lxmert.py`` :330-334), which training with ``am_loss`` reads.
 
+The tree also holds the tied MLM head (``cls/predictions``, the JAX tree's
+:121-122), which only the MLM loss on the ``lang`` stream reads and no scorer
+holds (``checkpoint.scoring_params``).
+
 Training (``apply(..., train=True, gen=)``, the JAX ``apply`` with an rng):
 dropout from ``gen`` on the query embedding, the [B, 10, 8, H] label
 embedding and the visual encoder's output (JAX :151-152, :181-182), and per
@@ -147,6 +151,8 @@ def init_params(lcfg: LxmertConfig, gen: torch.Generator) -> Params:
         "logit_fc": heads.logit_fc_init(cfg, gen),
         # the AM head's [H, 2] weight, xavier normal (JAX :126-127)
         "logit_W": (2.0 / (cfg.hidden_size + 2)) ** 0.5 * torch.randn((cfg.hidden_size, 2), generator=gen),
+        # the MLM head drawn last, so every other tensor of a seed's stream is as it was without it
+        "cls": {"predictions": heads.mlm_head_init(cfg, gen)},
     }
 
 

@@ -29,7 +29,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from ..checkpoint.npz import cast_matmul_weights, tree_to
+from ..checkpoint.npz import cast_matmul_weights, scoring_params, tree_to
 from ..data import Featurizer, PipelineStats, PrefetchIterator, batches_from_files
 from ..data.fast_pipeline import native_batches_from_files
 from ..data.multiworker import MultiWorkerLoader
@@ -86,9 +86,15 @@ class ScoringEngine:
             raise ValueError(f"unknown attention backend {attention_backend!r}, expected one of "
                              f"{attention.BACKENDS}")
         self.attention_backend = attention_backend
-        self.params = tree_to(
-            cast_matmul_weights(params, self.precision.compute_dtype, model.matmul_kernels), self.device
-        )
+        self.update_params(params)
+
+    @torch.no_grad()
+    def update_params(self, params) -> None:
+        """Swap in new weights (a training run's valid pass), prepared as at
+        construction: the MLM head left out, the matmul kernels cast to the
+        compute dtype, the tree on the engine's device."""
+        self.params = tree_to(cast_matmul_weights(scoring_params(params), self.precision.compute_dtype,
+                                                  self.model.matmul_kernels), self.device)
 
     def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return {

@@ -10,7 +10,7 @@ traced once by ``torch.export`` into an ``ExportedProgram``, saved as a
 without any model Python: weights baked in, like a frozen graph.
 
 * **Weights are baked in**: the param tree, prepared as the engine prepares
-  it (matmul kernels cast to the compute dtype, on the export's device), is
+  it (no MLM head, matmul kernels cast to the compute dtype, on the export's device), is
   held by the traced module as buffers. One artifact = one (model, weights,
   batch size, device) tuple.
 * **The "xla" attention backend is the default export path**: plain PyTorch
@@ -76,7 +76,7 @@ def export_scorer(spec, params, batch_size: int | None, precision=None, backend:
     ``backend``: the attention backend traced into the artifact ("xla", the
     portable default, or "pallas_packed", the kernels as custom ops).
     ``device``: default CUDA, as every entry point of the port."""
-    from ..checkpoint.npz import cast_matmul_weights, tree_to
+    from ..checkpoint.npz import cast_matmul_weights, scoring_params, tree_to
     from ..data.batchspec import batch_spec
     from ..ops.attention import BACKENDS, attention_backend
     from ..parallel.engine import default_precision, resolve_device
@@ -87,7 +87,8 @@ def export_scorer(spec, params, batch_size: int | None, precision=None, backend:
     precision = precision if precision is not None else default_precision(device)
     if backend != "xla":
         from ..ops import library  # noqa: F401  (the kernels as custom ops)
-    prepared = tree_to(cast_matmul_weights(params, precision.compute_dtype, spec.matmul_kernels), device)
+    prepared = tree_to(cast_matmul_weights(scoring_params(params), precision.compute_dtype, spec.matmul_kernels),
+                       device)
     module = _Scorer(spec, prepared, precision).eval()
     specs = batch_spec(spec.name, spec.config, TRACE_BATCH if batch_size is None else batch_size)
     example = {k: torch.zeros(shape, dtype=torch.from_numpy(np.zeros(0, dt)).dtype, device=device)

@@ -7,6 +7,7 @@ from .optim import (
     clip_by_value,
     decay_mask,
     exponential_staircase_schedule,
+    grad_group_norms,
     polynomial_warmup_schedule,
 )
 from .trainer import Trainer, TrainConfig, TrainState, make_loss_fn, recipe_for
@@ -22,6 +23,7 @@ __all__ = [
     "clip_by_value",
     "decay_mask",
     "exponential_staircase_schedule",
+    "grad_group_norms",
     "make_loss_fn",
     "ms_loss",
     "polynomial_warmup_schedule",

@@ -18,6 +18,8 @@ ops over the parameter tree (no optimizer library).
   (zk ``train_normal.py:133-137``).
 * ``clip_by_global_norm`` (``run_pretraining_predict_score.py:234-286``, 1.0)
   and ``clip_by_value`` (``train_normal.py:93``, +-1), in place.
+* ``grad_group_norms``: the per-group gradient norms of the reference's
+  ``clip_by_global_norm_summary`` (``:234-258``), as the JAX package groups them.
 """
 
 from __future__ import annotations
@@ -152,3 +154,18 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float = 1.0) -> tor
 def clip_by_value(grads: list[torch.Tensor], clip: float = 1.0) -> None:
     for g in grads:
         g.clamp_(-clip, clip)
+
+
+@torch.no_grad()
+def grad_group_norms(names: list[str], grads: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+    """L2 norm of the gradients of each group of leaves, the group being the
+    first two components of a leaf's path (``bert/embeddings``,
+    ``bert/encoder``, ``cls/seq_relationship``; a one-component path is its
+    own group), as the JAX package's ``train/optim.py`` :134-152 groups its
+    tree. The port's fused forms (``qkv``, LXMERT's ``query``/``kv``) lie below
+    the second component, so the groups carry the JAX tree's names. Summed in
+    f32 on the gradients' device; -> group -> 0-d tensor (no host sync)."""
+    groups: dict[str, list[torch.Tensor]] = {}
+    for name, g in zip(names, grads, strict=True):
+        groups.setdefault("/".join(name.split("/")[:2]), []).append(g.float())
+    return {group: torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs))) for group, gs in groups.items()}

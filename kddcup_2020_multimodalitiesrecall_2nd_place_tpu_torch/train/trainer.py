@@ -4,31 +4,39 @@
 Per-model recipes mirror the reference training scripts (``recipe_for``):
 
 * ImageBERT-A: BERT-Adam (poly decay + warmup), global-norm clip 1.0, NSP
-  loss (+ the Multi-Similarity term of its fine-tune) -- ported.
+  loss (+ the Multi-Similarity term of its fine-tune, + ``mlm_loss_weight``
+  times the tied-embedding MLM loss on the masked query positions).
 * LXMERT: BERT-Adam, global-norm clip 1.0, cross entropy on ``logit_fc``,
-  or with ``am_loss`` on the AM-margin logits of the ``logit_W`` cosines --
-  ported.
+  or with ``am_loss`` on the AM-margin logits of the ``logit_W`` cosines
+  (+ ``mlm_loss_weight`` times the MLM loss on the ``lang`` stream).
 * ImageBERT-B/C: Adam with bias correction on the 0.94/2500 staircase,
   per-value clip +-1, AM-softmax loss (+ ``word_match_loss_weight`` times the
-  word-match loss, off by default as the reference trained), EMA 0.997 --
-  ported; the label conv trains as its 8 taps (``models/imagebert_b.py``).
+  word-match loss, off by default as the reference trained), EMA 0.997; the
+  label conv trains as its 8 taps (``models/imagebert_b.py``).
 
-A step is the JAX package's two phases: ``grads`` (forward and backward of
-the loss) and ``apply`` (clip, optimizer, EMA), with the same metrics
-(``loss``, ``accuracy``, ``grad_norm``). Parameters are float32 leaves on the
-device in the port's tree layout (query/key/value fused as ``qkv``; the
-spec's ``train_params`` keeps LXMERT's ``visual_attention`` as ``query`` and
-``kv`` only, and ``eval_params`` rebuilds its ``qkv``; ImageBERT-B's
-``kdd_conv1`` as taps, banded again by ``eval_params``); matmul inputs are
-rounded to ``precision.compute_dtype`` inside the model, whose encoder
-blocks are the train blocks of ``blocks`` (the kernels' by default).
-Dropout comes from a ``torch.Generator`` seeded per step from the caller's
-int. Data parallelism across devices is not ported (ROADMAP.md Queue 1 item
-12).
+``TrainConfig.optimizer`` overrides a recipe's optimizer (``bert_adamw`` or
+``adam_staircase``). A step is the JAX package's two phases: ``grads``
+(forward and backward of the loss) and ``apply`` (clip, optimizer, EMA),
+with the same metrics (``loss``, ``accuracy``, ``grad_norm``, ``mlm_loss``,
+and with ``grad_summaries`` each group's norm before and after the clip).
+``save_state`` / ``load_state`` write and read a resumable state
+(``state_<N>.npz``: params, moments, EMA shadows, step, the config).
+
+Parameters are float32 leaves on the device in the port's tree layout
+(query/key/value fused as ``qkv``; the spec's ``train_params`` keeps
+LXMERT's ``visual_attention`` as ``query`` and ``kv`` only, and
+``eval_params`` rebuilds its ``qkv``; ImageBERT-B's ``kdd_conv1`` as taps,
+banded again by ``eval_params``); matmul inputs are rounded to
+``precision.compute_dtype`` inside the model, whose encoder blocks are the
+train blocks of ``blocks`` (the kernels' by default). Dropout comes from a
+``torch.Generator`` seeded per step from the caller's int. Data parallelism
+across devices is not ported (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Callable
 
@@ -49,12 +57,17 @@ from .optim import (
     clip_by_value,
     exponential_staircase_schedule,
     flatten_paths,
+    grad_group_norms,
     polynomial_warmup_schedule,
 )
 
 TRAINED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert")
 # the word-match loss's batch entries (data/sampling.py, ImageBERT-B's recipe)
 WORD_MATCH_KEYS = ("word_match_labels", "word_match_weights")
+# the MLM loss's batch entries (data/sampling.py, ImageBERT-A's recipe)
+MLM_KEYS = ("masked_lm_positions", "masked_lm_ids", "masked_lm_weights")
+# the stream the MLM head reads, by model (the JAX package's trainer.py :180-183, :210-213)
+MLM_SEQUENCE = {"imagebert_a": "sequence", "lxmert": "lang"}
 
 
 @dataclass(frozen=True)
@@ -71,6 +84,10 @@ class TrainConfig:
     am_loss: bool = False
     # ImageBERT-B's word-match loss; 0 = off, as the reference trained (model_triple.py:207-210)
     word_match_loss_weight: float = 0.0
+    # the tied-embedding MLM loss of ImageBERT-A and LXMERT; 0 = off
+    mlm_loss_weight: float = 0.0
+    # per-group gradient norms before and after the clip (run_pretraining_predict_score.py:234-258); off
+    grad_summaries: bool = False
 
 
 def recipe_for(model_name: str) -> TrainConfig:
@@ -94,6 +111,26 @@ def make_optimizer(tc: TrainConfig, params: Params) -> Optimizer:
     raise ValueError(tc.optimizer)
 
 
+class _GatherPositions(torch.autograd.Function):
+    """seq [B, S, H], pos [B, P] -> the rows of ``seq`` at ``pos`` [B, P, H]
+    (``take_along_axis``). The backward sums the gradients of a repeated
+    position in a fixed order, as one [S, P] x [P, H] one-hot product a pair;
+    ``gather``'s own backward (``scatter_add``) sums them by atomics on the
+    card, in a varying order, so two runs of one step would differ."""
+
+    @staticmethod
+    def forward(ctx, seq: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(pos)
+        ctx.seq_len = seq.shape[1]
+        return seq.gather(1, pos[..., None].expand(-1, -1, seq.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (pos,) = ctx.saved_tensors
+        one_hot = torch.nn.functional.one_hot(pos, ctx.seq_len).to(g.dtype)  # [B, P, S]
+        return torch.bmm(one_hot.transpose(1, 2), g), None
+
+
 def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
                  blocks: TrainBlocks = TRAIN_KERNEL_BLOCKS) -> Callable:
     """-> loss_fn(params, batch, gen) -> (loss, metrics): ImageBERT-A's NSP
@@ -101,12 +138,27 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
     pooled output; ImageBERT-B/C's ``am_loss``, plus
     ``word_match_loss_weight`` times the word-match loss when the batch
     carries its labels; LXMERT's cross entropy on ``logit_fc``, or with
-    ``am_loss`` on the AM-margin logits of the clipped ``logit_W`` cosines
-    (the JAX package's ``train/trainer.py`` :174-209)."""
+    ``am_loss`` on the AM-margin logits of the clipped ``logit_W`` cosines;
+    for A and LXMERT, plus ``mlm_loss_weight`` times the MLM loss when the
+    batch carries its masked positions (the JAX package's
+    ``train/trainer.py`` :174-213)."""
     if model.name not in TRAINED:
         raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 11")
     am = model.name == "lxmert" and tc.am_loss
     head = {"use_am_head": True} if am else {}
+
+    def mlm_term(params: Params, out: dict, batch: dict) -> torch.Tensor:
+        """The tied-embedding MLM loss over the masked positions of the text
+        stream (the JAX package's :129-141): gathered from ``out``, through
+        ``cls/predictions`` and the word-embedding table."""
+        seq = out[MLM_SEQUENCE[model.name]]
+        pos = batch["masked_lm_positions"].long()
+        hidden = _GatherPositions.apply(seq, pos)
+        logits = heads.mlm_logits(params["cls"]["predictions"], hidden,
+                                  params["bert"]["embeddings"]["word_embeddings"], precision)
+        return heads.mlm_loss(logits, batch["masked_lm_ids"], batch["masked_lm_weights"])
+
+    mlm = tc.mlm_loss_weight and model.name in MLM_SEQUENCE
 
     def loss_fn(params: Params, batch: dict, gen: torch.Generator):
         out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen, **head)
@@ -126,6 +178,10 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
                                            batch["word_match_weights"], precision)
                 metrics["word_match_loss"] = wm.detach()
                 loss = loss + tc.word_match_loss_weight * wm
+        if mlm and "masked_lm_positions" in batch:
+            term = mlm_term(params, out, batch)
+            metrics["mlm_loss"] = term.detach()
+            loss = loss + tc.mlm_loss_weight * term
         accuracy = (out["probs"].argmax(dim=-1) == labels.long()).float().mean()
         return loss, {**metrics, "loss": loss.detach(), "accuracy": accuracy}
 
@@ -178,12 +234,74 @@ class Trainer:
         return TrainState(params, make_optimizer(self.tc, params),
                           Ema(leaves, self.tc.ema_decay) if self.tc.ema_decay else None)
 
+    def save_state(self, state: TrainState, path) -> None:
+        """Write the resumable state to ``path`` (an npz): every trained leaf
+        in the port's layout (``params/<path>``), the optimizer's moments
+        (``m/``, ``v/``) and count, the EMA shadows (``ema/``) and count, the
+        model's name and the ``TrainConfig`` as JSON."""
+        arrays = {"model": np.array(self.model.name), "step": np.array(state.step, np.int64),
+                  "train_config": np.array(json.dumps(dataclasses.asdict(self.tc)))}
+        for prefix, tensors in self._state_tensors(state).items():
+            for name, t in zip(state.optimizer.names, tensors, strict=True):
+                arrays[f"{prefix}/{name}"] = t.detach().cpu().numpy()
+        if state.ema is not None:
+            arrays["ema_num_updates"] = np.array(state.ema.num_updates, np.int64)
+        np.savez(path, **arrays)
+
+    @torch.no_grad()
+    def load_state(self, state: TrainState, path) -> TrainState:
+        """Fill ``state`` (from ``init_state``) in place from a ``save_state``
+        file, bit for bit; -> ``state``. Raises ``ValueError`` when the file
+        holds another model, a run of another ``TrainConfig`` (every field
+        but the ``grad_summaries`` switch, which changes no state), or other
+        leaves or shapes than ``state``."""
+        with np.load(path) as f:
+            arrays = {k: f[k] for k in f.files}
+        saved = str(arrays["model"])
+        if saved != self.model.name:
+            raise ValueError(f"{path} holds a {saved} train state, not {self.model.name}")
+        saved_tc = json.loads(str(arrays["train_config"]))
+        ours = dataclasses.asdict(self.tc)
+        differ = sorted(k for k in ours.keys() | saved_tc.keys()
+                        if k != "grad_summaries" and saved_tc.get(k) != ours.get(k))
+        if differ:
+            raise ValueError(f"{path} holds a run of another train config: "
+                             + ", ".join(f"{k} {saved_tc.get(k)!r} there, {ours.get(k)!r} here" for k in differ))
+        targets = self._state_tensors(state)
+        want = {f"{prefix}/{name}": t for prefix, tensors in targets.items()
+                for name, t in zip(state.optimizer.names, tensors, strict=True)}
+        have = {k for k in arrays if "/" in k}
+        if have != set(want):
+            raise ValueError(f"{path} holds other leaves than this trainer's state: missing "
+                             f"{sorted(set(want) - have)[:5]}, unexpected {sorted(have - set(want))[:5]}")
+        bad = [k for k, t in want.items() if tuple(arrays[k].shape) != tuple(t.shape)]
+        if bad:
+            raise ValueError(f"{path}: shapes differ from this trainer's state at {bad[:5]}, e.g. "
+                             f"{bad[0]} {arrays[bad[0]].shape} vs {tuple(want[bad[0]].shape)}")
+        for k, t in want.items():
+            t.copy_(torch.from_numpy(arrays[k]))
+        state.optimizer.step = int(arrays["step"])
+        if state.ema is not None:
+            state.ema.num_updates = int(arrays["ema_num_updates"])
+        return state
+
+    @staticmethod
+    def _state_tensors(state: TrainState) -> dict[str, list[torch.Tensor]]:
+        """The tensors of a resumable state, each list in ``optimizer.names`` order."""
+        out = {"params": state.leaves(), "m": state.optimizer.m, "v": state.optimizer.v}
+        if state.ema is not None:
+            out["ema"] = state.ema.shadow
+        return out
+
     def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        """The entries the loss reads: the model's inputs, the labels and, with
-        the word-match loss on, its labels and weights where the batch has them."""
+        """The entries the loss reads: the model's inputs, the labels and,
+        with the word-match or MLM loss on, their entries where the batch
+        has them."""
         keys = [*self.model.input_keys, "labels"]
         if self.tc.word_match_loss_weight:
             keys += [k for k in WORD_MATCH_KEYS if k in batch]
+        if self.tc.mlm_loss_weight:
+            keys += [k for k in MLM_KEYS if k in batch]
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in keys}
 
     def grads(self, state: TrainState, batch: dict, seed: int) -> tuple[list[torch.Tensor], dict]:
@@ -195,12 +313,19 @@ class Trainer:
         return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)], metrics
 
     def apply(self, state: TrainState, grads: list[torch.Tensor]) -> dict:
-        """Phase 2: clip, optimizer update and EMA, in place."""
+        """Phase 2: clip, optimizer update and EMA, in place; with
+        ``grad_summaries``, each group's gradient norm before and after the
+        clip (the JAX package's :271-283)."""
         metrics = {}
+        names = state.optimizer.names
+        if self.tc.grad_summaries:
+            metrics.update({f"grad_norm_pre_clip/{g}": n for g, n in grad_group_norms(names, grads).items()})
         if self.tc.clip == "global_norm":
             metrics["grad_norm"] = clip_by_global_norm(grads, self.tc.clip_value)
         elif self.tc.clip == "value":
             clip_by_value(grads, self.tc.clip_value)
+        if self.tc.grad_summaries and self.tc.clip != "none":
+            metrics.update({f"grad_norm_post_clip/{g}": n for g, n in grad_group_norms(names, grads).items()})
         leaves = state.leaves()
         state.optimizer.update(leaves, grads)
         if state.ema is not None:

@@ -12,6 +12,7 @@ the kernels round where the plain versions round, but their 768- and
 rounding of an output or of an intermediate.
 """
 
+import dataclasses
 import itertools
 
 import pytest
@@ -1116,3 +1117,133 @@ def test_cuda_device_fusion_equals_dict_path(cuda):
     fused = ensemble.fuse(*tables)
     want = ensemble.top5_rows(ensemble.dedup_filter(fused), fused.merge)
     assert vectorized.build_submission_vectorized(*tables, device=cuda) == want
+
+
+# ---- the tied MLM head of ImageBERT-A and LXMERT (no kernel of its own; the train blocks around it) ----
+
+MLM_ROWS = 256  # masked positions: one tenth of a B=256 step's 2560
+# the head's gradients, card vs CPU: a few flipped bf16 roundings of the transform's output move them by
+# a few 1e-4 in relative L2, against the 2e-2 of a whole train block
+MLM_GRAD_REL_L2 = 1e-3
+
+
+def test_cuda_mlm_head_matches_its_cpu_run(cuda):
+    """The MLM head and loss at full width (H=768, vocab 21128) on the card, bf16 operands into f32
+    products, forward and backward, against the same function on the CPU on the same inputs. The f32
+    sums run in another order, which also flips some bf16 roundings of the transform's output before
+    the tied product (one ulp, 2^-8 relative): logits within F32_OUT_BAND, the loss within 1e-4
+    relative, the gradients within MLM_GRAD_REL_L2."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model, heads
+
+    cfg = get_model("imagebert_a").config
+    g = torch.Generator(device="cpu").manual_seed(61)
+    p = heads.mlm_head_init(cfg, g)
+    p["output_bias"] = 0.02 * torch.randn(cfg.vocab_size, generator=g)
+    hidden = torch.randn(MLM_ROWS, cfg.hidden_size, generator=g)
+    table = 0.02 * torch.randn(cfg.vocab_size, cfg.hidden_size, generator=g)
+    ids = torch.randint(0, cfg.vocab_size, (MLM_ROWS,), generator=g)
+    weights = (torch.rand(MLM_ROWS, generator=g) > 0.3).float()
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        leaves = [t.to(device).requires_grad_() for t in (hidden, table, p["transform"]["dense"]["kernel"],
+                                                           p["output_bias"])]
+        tree = {"transform": {"dense": {"kernel": leaves[2], "bias": p["transform"]["dense"]["bias"].to(device)},
+                              "LayerNorm": {k: v.to(device) for k, v in p["transform"]["LayerNorm"].items()}},
+                "output_bias": leaves[3]}
+        logits = heads.mlm_logits(tree, leaves[0], leaves[1], Precision.bf16())
+        loss = heads.mlm_loss(logits, ids.to(device), weights.to(device))
+        runs.append((logits.detach(), loss.detach(), torch.autograd.grad(loss, leaves)))
+    (lg, ls, gs), (lw, lsw, gw) = runs
+    assert lg.dtype == torch.float32 and lg.shape == (MLM_ROWS, cfg.vocab_size)
+    assert (lg.cpu() - lw).abs().max().item() <= F32_OUT_BAND
+    assert abs(ls.item() - lsw.item()) <= 1e-4 * abs(lsw.item())
+    errs = [rel_l2(a.cpu(), b) for a, b in zip(gs, gw)]
+    assert max(errs) <= MLM_GRAD_REL_L2, errs
+
+
+@pytest.mark.parametrize("model", ["imagebert_a", "lxmert"])
+def test_cuda_mlm_step_kernel_route_matches_plain_route(cuda, model):
+    """One step with the MLM loss on (a 2-layer model at full width, B=32, dropout 0.1): the train
+    kernels' route against the plain blocks' route in bf16, the loss within 1e-2 and every gradient,
+    ``cls/predictions`` and the word embeddings (gathered and tied) included, within TRAIN_GRAD_REL_L2."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models.core import (
+        TRAIN_KERNEL_BLOCKS,
+        TRAIN_PLAIN_BLOCKS,
+    )
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.train import Trainer, recipe_for
+    from torch_parity import imagebert_a_batch
+
+    b, rows = 32, 10
+    r = np.random.default_rng(62)
+    if model == "imagebert_a":
+        spec = get_model(model, overrides={"num_hidden_layers": 2})
+        batch, text = imagebert_a_batch(b, spec.config.vocab_size, 63), 20
+    else:
+        spec = get_model(model, overrides={"l_layers": 1, "x_layers": 1, "r_layers": 1})
+        vocab, text = spec.config.bert.vocab_size, 23
+        n_query, n_boxes = r.integers(3, 24, b), r.integers(1, 11, b)
+        batch = {"input_ids": r.integers(0, vocab, (b, text)).astype(np.int32),
+                 "input_mask": (np.arange(text)[None] < n_query[:, None]).astype(np.int32),
+                 "label_ids": r.integers(0, vocab, (b, 10, 8)).astype(np.int32),
+                 "boxes": r.random((b, 10, 4)).astype(np.float32),
+                 "features": r.standard_normal((b, 10, 2048)).astype(np.float32),
+                 "feats_mask": (np.arange(10)[None] < n_boxes[:, None]).astype(np.float32)}
+    vocab = spec.config.vocab_size if model == "imagebert_a" else spec.config.bert.vocab_size
+    batch.update(labels=r.integers(0, 2, b).astype(np.int32),
+                 masked_lm_positions=r.integers(1, text - 1, (b, rows)).astype(np.int32),
+                 masked_lm_ids=r.integers(0, vocab, (b, rows)).astype(np.int32),
+                 masked_lm_weights=(r.random((b, rows)) > 0.3).astype(np.float32))
+    tc = dataclasses.replace(recipe_for(model), mlm_loss_weight=1.0)
+    out = []
+    for blocks in (TRAIN_KERNEL_BLOCKS, TRAIN_PLAIN_BLOCKS):
+        trainer = Trainer(spec, tc, precision=Precision.bf16(), device=cuda, blocks=blocks)
+        state = trainer.init_state(seed=64)
+        grads, metrics = trainer.grads(state, trainer.to_device(batch), seed=65)
+        out.append((metrics, dict(zip(state.optimizer.names, grads))))
+    (mk, gk), (mp, gp) = out
+    for key in ("loss", "mlm_loss"):
+        assert abs(mk[key].item() - mp[key].item()) <= 1e-2, key
+    for name in ("cls/predictions/output_bias", "cls/predictions/transform/dense/kernel",
+                 "bert/embeddings/word_embeddings"):
+        assert gk[name].abs().max().item() > 0, name
+    errs = {name: rel_l2(gk[name], gp[name]) for name in gk if gp[name].abs().max().item() > 0}
+    assert max(errs.values()) <= TRAIN_GRAD_REL_L2, sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+
+
+@pytest.mark.parametrize("model", ["imagebert_a", "imagebert_b"])
+def test_cuda_train_step_gradients_repeat_bit_equal(cuda, model):
+    """Three runs of one step on the same params, batch and dropout seed (a 2-layer model at full width,
+    B=256, the MLM loss on for A) give the same gradients bit for bit: no op of the step sums in a varying
+    order, which a resumed run's bit-equality on the card rests on (the token-type rows are picked by a
+    select, whose backward sums in a fixed order)."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.train import Trainer, recipe_for
+    from torch_parity import imagebert_a_batch, imagebert_b_batch
+
+    b = 256
+    spec = get_model(model, overrides={"num_hidden_layers": 2})
+    vocab = spec.config.vocab_size
+    tc = recipe_for(model)
+    if model == "imagebert_a":
+        r = np.random.default_rng(66)
+        batch = imagebert_a_batch(b, vocab, 67)
+        batch.update(masked_lm_positions=r.integers(1, 19, (b, 10)).astype(np.int32),
+                     masked_lm_ids=r.integers(0, vocab, (b, 10)).astype(np.int32),
+                     masked_lm_weights=(r.random((b, 10)) > 0.3).astype(np.float32))
+        tc = dataclasses.replace(tc, mlm_loss_weight=1.0)
+    else:
+        batch = imagebert_b_batch(b, vocab, 67)
+    batch["labels"] = np.random.default_rng(68).integers(0, 2, b).astype(np.int32)
+    trainer = Trainer(spec, tc, precision=Precision.bf16(), device=cuda)
+    state = trainer.init_state(seed=69)
+    dev_batch = trainer.to_device(batch)
+    first, _ = trainer.grads(state, dev_batch, seed=70)
+    for _ in range(2):
+        again, _ = trainer.grads(state, dev_batch, seed=70)
+        differ = [n for n, x, y in zip(state.optimizer.names, first, again, strict=True) if not torch.equal(x, y)]
+        assert not differ, differ

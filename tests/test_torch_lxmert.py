@@ -29,6 +29,7 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import lxmert as jax
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.tokenization import FullTokenizer as JaxTokenizer
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch import VOCAB_PATH, data
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import cast_matmul_weights, params_from_jax
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import scoring_params
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import synthetic
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import PLAIN_BLOCKS, BertConfig, Precision, get_model
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import attention_backend
@@ -150,9 +151,9 @@ def _leaves(tree, prefix=""):
 
 def test_param_layout():
     """The JAX tree keeps every leaf the JAX apply reads, and the AM head's
-    ``logit_W``; each attention gains its fused forms; the registry's random
-    init has the same layout; the
-    matmul-kernel list of each model covers every ``kernel`` leaf."""
+    ``logit_W`` and the MLM head; each attention gains its fused forms; the
+    registry's random init has the same layout; the matmul-kernel list of each
+    model covers every ``kernel`` leaf of the tree a scorer holds."""
     jcfg, pcfg = _configs(False)
     params = params_from_jax(jax_lxmert_params(jcfg, seed=7))
     init = get_model("lxmert", overrides={**TINY_BERT, "l_layers": 2, "x_layers": 2, "r_layers": 2}).init_params(0)
@@ -160,10 +161,12 @@ def test_param_layout():
     assert set(va) == {"qkv", "query", "kv", "output"}
     torch.testing.assert_close(va["qkv"]["kernel"][..., :32], va["query"]["kernel"], rtol=0, atol=0)
     torch.testing.assert_close(va["qkv"]["kernel"][..., 32:], va["kv"]["kernel"], rtol=0, atol=0)
-    assert set(params) == {"bert", "logit_fc", "logit_W"}  # logit_W: the AM head am_loss trains
+    # logit_W: the AM head am_loss trains; cls: the MLM head the MLM loss trains, which no scorer holds
+    assert set(params) == {"bert", "logit_fc", "logit_W", "cls"} and set(params["cls"]) == {"predictions"}
     assert set(_leaves(params)) == set(_leaves(init))
-    for tree, paths in ((params, lxmert.MATMUL_KERNELS),
-                        (get_model("imagebert_a", overrides=TINY_BERT).init_params(0), imagebert_a.MATMUL_KERNELS)):
+    for tree, paths in ((scoring_params(params), lxmert.MATMUL_KERNELS),
+                        (scoring_params(get_model("imagebert_a", overrides=TINY_BERT).init_params(0)),
+                         imagebert_a.MATMUL_KERNELS)):
         kernel_leaves = {k for k in _leaves(tree) if k.endswith("/kernel")}
         assert kernel_leaves == {"/".join((*p, "kernel")) for p in paths}
         cast = _leaves(cast_matmul_weights(tree, torch.bfloat16, paths))

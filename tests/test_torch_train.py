@@ -235,8 +235,7 @@ def test_params_to_jax_inverts_params_from_jax():
     cfg = JaxBertConfig(**{**TINY, "vocab_size": 97})
     jtree = jax_imagebert_a_params(cfg, 1)
     back = params_to_jax(params_from_jax(jtree))
-    del jtree["cls"]["predictions"]  # the MLM head: not read, not trained, not written
-    assert flatten_paths(back).keys() == flatten_paths(jtree).keys()
+    assert flatten_paths(back).keys() == flatten_paths(jtree).keys()  # the MLM head included: the MLM loss trains it
     for name, value in flatten_paths(jtree).items():
         np.testing.assert_array_equal(flatten_paths(back)[name], value, err_msg=name)
 
