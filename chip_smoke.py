@@ -160,6 +160,27 @@
    for each query, and ``ensemble.vectorized.build_submission_vectorized`` on the card
    (float64) giving its rows, with the dedup filter keeping some pairs and
    dropping others; each scorer's wall and engine seconds and the total.
+8. Checkpoint import and distillation, at full width. The reference's checkpoint
+   forms written from the seed's weights by ``tests/torch_tf_bundle_writer.py``
+   (numpy only) into ``build/smoke/distill/``: ImageBERT-A a TF1 bundle,
+   ImageBERT-B a TF1 bundle of raw variables and EMA shadows (snappy index
+   blocks), LXMERT 9/5/5 a ``BEST.pth`` state dict with ``module.`` prefixes.
+   Each read by ``checkpoint.load_checkpoint`` (seconds, bytes), its params equal
+   to the npz tree's, and ``cli/score.py`` on it (A, B, C, LXMERT; 2048 pairs)
+   bit-equal to the npz route, B's scores unlike its raw variables'. Then
+   ``cli/distill.py``: a DISTIL_LAYERS-layer ImageBERT-B student from the live
+   12-layer teacher (the B bundle), ``--init-from-teacher``, TRAIN_STEPS steps at
+   TRAIN_B and a valid pass (launches exact: the teacher's scoring blocks and
+   the student's train blocks every step, the valid and agreement batches); the
+   teacher's ms a batch and the student's step ms (CUDA events), pairs/s on the
+   device and end to end; the student's ``best.npz`` through ``cli/score.py``
+   (its shape from ``student_config.json``) equal to ``ScoringEngine`` on its
+   params, its rank fidelity to the teacher (``cli/score_fidelity.py``) and
+   both scorers' device pairs/s at B=512. ``cli/train.py --layers
+   DISTIL_LAYERS --init-from <A npz> --distill-from <A bundle>`` for
+   A_DISTIL_STEPS steps on phase 5's packed shards; ``cli/distill.py`` of an
+   LX_STUDENT LXMERT student from ``BEST.pth``; step 1 of the B and A students
+   against the f32 truth under phase 5's rule.
 
 The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
 launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
@@ -2967,6 +2988,312 @@ class Smoke:
         )
         return same, len(by_q)
 
+    # ---- phase 8: checkpoint import and distillation ------------------------------
+
+    def reference_checkpoints(self, work) -> dict:
+        """The reference's three checkpoint forms at full width, from the seed's weights, each beside an npz
+        tree of the same weights (``tests/torch_tf_bundle_writer.py``, numpy only): ImageBERT-A a TF1 bundle
+        (its MLM head included); ImageBERT-B a TF1 bundle with snappy index blocks, its raw variables from the
+        seed and ``/ExponentialMovingAverage`` shadows from the next seed (the npz holds the shadows, and
+        ``b_raw.npz`` the raw variables); LXMERT 9/5/5 a ``BEST.pth`` state dict (``module.`` prefixes, the
+        KDDModel's heads, an NSP head from the seed) -> {model: (reference path, npz path, the reference
+        files' bytes)}."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        sys.path.insert(0, str(REPO / "tests"))
+        writer = import_module("torch_tf_bundle_writer")
+        models = import_module(f"{PKG}.models")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+
+        def tree(name, seed):
+            return checkpoint.params_to_jax(models.get_model(name).init_params(seed))
+
+        out = {}
+        a = tree("imagebert_a", self.seed)
+        writer.write_tf_bundle(work / "ImageBertKDD.ckpt-85002", writer.imagebert_a_tf_names(a), tensor_crcs=False)
+        checkpoint.save_npz(work / "a.npz", a)
+        out["imagebert_a"] = work / "ImageBertKDD.ckpt-85002", work / "a.npz"
+        raw, shadows = tree("imagebert_b", self.seed), tree("imagebert_b", self.seed + 1)
+        b_prefix = work / "model_attention_kdd_am_word_match_finetune_valid.ckpt-251"
+        writer.write_tf_bundle(b_prefix, writer.with_ema_shadows(writer.imagebert_b_tf_names(raw),
+                                                                 writer.imagebert_b_tf_names(shadows)),
+                               snappy=True, tensor_crcs=False)
+        checkpoint.save_npz(work / "b.npz", shadows)
+        checkpoint.save_npz(work / "b_raw.npz", raw)
+        out["imagebert_b"] = out["imagebert_c"] = b_prefix, work / "b.npz"
+        lx = tree("lxmert", self.seed)
+        rng = np.random.default_rng(self.seed)
+        lx["cls"]["seq_relationship"] = {"kernel": (0.02 * rng.standard_normal((H, 2))).astype(np.float32),
+                                         "bias": np.zeros(2, np.float32)}
+        torch.save({k: torch.from_numpy(v) for k, v in writer.lxmert_torch_names(lx).items()}, work / "BEST.pth")
+        checkpoint.save_npz(work / "lxmert.npz", lx)
+        out["lxmert"] = work / "BEST.pth", work / "lxmert.npz"
+        return {name: (ref, npz, sum(p.stat().st_size for p in work.glob(ref.name + "*")))
+                for name, (ref, npz) in out.items()}
+
+    def import_and_distil(self) -> tuple[dict[str, dict], dict]:
+        """Phase 8: the reference's checkpoint forms (``reference_checkpoints``) read by ``load_checkpoint``,
+        each import's seconds and bytes, its params equal to the npz route's, and ``cli/score.py`` on each
+        (A, B through its EMA shadows, C, LXMERT) bit-equal to the npz route's scores, B's unlike its raw
+        variables'. Then distillation on the card: ``cli/distill.py`` of a 4-layer ImageBERT-B student from
+        the live 12-layer teacher (the B bundle), ``--init-from-teacher``, TRAIN_STEPS steps at TRAIN_B and a
+        valid pass; the teacher's ms a batch, the student's step ms, pairs/s on the device and end to end; the
+        student's ``best.npz`` through ``cli/score.py`` (its shape from the sidecar) equal to ``ScoringEngine``
+        on the same params, its rank fidelity to the teacher (``cli/score_fidelity.py``) and both scorers'
+        device pairs/s; ``cli/train.py --layers 4 --init-from <A npz> --distill-from <A bundle>`` on phase 5's
+        packed shards; ``cli/distill.py`` of a 3/2/2 LXMERT student from the ``BEST.pth`` teacher; the step-1
+        gradients of the B and A students against the f32 truth (phase 5's rule) -> (each counted run's
+        launches, held exact; the phase's numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        models = import_module(f"{PKG}.models")
+        data = import_module(f"{PKG}.data")
+        pipeline = import_module(f"{PKG}.data.pipeline")
+        tok = import_module(f"{PKG}.tokenization")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+        train = import_module(f"{PKG}.train")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        attention = import_module(f"{PKG}.ops.attention")
+        ensemble = import_module(f"{PKG}.ensemble")
+        score_cli = import_module(f"{PKG}.cli.score")
+        distill_cli = import_module(f"{PKG}.cli.distill")
+        train_cli = import_module(f"{PKG}.cli.train")
+        fidelity = import_module(f"{PKG}.cli.score_fidelity")
+
+        t_phase = time.perf_counter()
+        work = pkg.BUILD_DIR / "smoke" / "distill"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        tsv, labels, _ = self.train_data(work)
+        valid_tsv, answers = self.valid_data(work)
+        t0 = time.perf_counter()
+        ckpts = self.reference_checkpoints(work)
+        log(f"phase 8 setup: the reference's checkpoint forms written at full width in "
+            f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{m} {ref.name} {nbytes} bytes"
+                                                           for m, (ref, _, nbytes) in ckpts.items()))
+        runs, rates = {}, {"card": nvidia_smi()}
+        n_score = -(-N_ROWS // MAIN_B)
+
+        def counted(path, expected, fn):
+            return counted_run(torch, runs, path, {k: expected.get(k, 0) for k in expected_launches(0, {})}, fn)
+
+        def scores_of(path) -> dict:
+            load = ensemble.load_csv_scores if str(path).endswith(".csv") else ensemble.load_tsv_scores
+            return {(q, p): s for q, row in load(path).items() for p, s in row.items()}
+
+        # 1-2: each import against the npz route, its params and its scores through cli/score.py
+        imports, scored = {}, {}
+        for model in ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert"):
+            ref, npz, nbytes = ckpts[model]
+            spec = models.get_model(model)
+            timed = {}
+            for kind, path in (("reference", ref), ("npz", npz)):
+                t0 = time.perf_counter()
+                timed[kind] = checkpoint.flatten_tree(checkpoint.load_checkpoint(model, path, spec))
+                timed[f"{kind}_s"] = time.perf_counter() - t0
+            differ = [k for k in timed["npz"] if not np.array_equal(timed["reference"][k], timed["npz"][k])]
+            if timed["reference"].keys() != timed["npz"].keys() or differ:
+                raise RuntimeError(f"{model}: the imported params differ from the npz route's: {differ[:5]}")
+            imports[model] = {"format": ref.name, "bytes": nbytes, "import_s": timed["reference_s"],
+                              "npz_bytes": npz.stat().st_size, "npz_s": timed["npz_s"], "leaves": len(timed["npz"])}
+            del timed
+            suffix = ".csv" if model == "lxmert" else ".tsv"
+            for kind, path in (("reference", ref), ("npz", npz)):
+                out = work / f"scores_{model}_{kind}{suffix}"
+                counted(f"import_{model}_{kind}", expected_launches(n_score, PER_BATCH[model]),
+                        lambda: score_cli.main(["--model", model, "--tsv", str(tsv), "--labels", str(labels),
+                                                "--checkpoint", str(path), "--out", str(out),
+                                                "--expect-pairs", str(N_ROWS)]))
+                scored[(model, kind)] = scores_of(out)
+            got, want = scored[(model, "reference")], scored[(model, "npz")]
+            if got != want or len(got) != N_ROWS or not np.isfinite(list(got.values())).all():
+                raise RuntimeError(f"{model}: scores through {ref.name} differ from the npz route's "
+                                   f"({sum(got.get(k) != v for k, v in want.items())} of {len(want)} pairs)")
+            log(f"import {model}: {ref.name} ({nbytes} bytes) read in {imports[model]['import_s']:.3f} s, the npz "
+                f"({imports[model]['npz_bytes']} bytes) in {imports[model]['npz_s']:.3f} s; params and "
+                f"{len(got)} scores bit-equal to the npz route's")
+        raw = work / "scores_imagebert_b_raw.tsv"
+        counted("import_imagebert_b_raw", expected_launches(n_score, PER_BATCH["imagebert_b"]),
+                lambda: score_cli.main(["--model", "imagebert_b", "--tsv", str(tsv), "--labels", str(labels),
+                                        "--checkpoint", str(work / "b_raw.npz"), "--out", str(raw)]))
+        shadow_scores, raw_scores = scored[("imagebert_b", "reference")], scores_of(raw)
+        moved = sum(shadow_scores[k] != raw_scores[k] for k in raw_scores)
+        if moved < N_ROWS // 2:
+            raise RuntimeError(f"B's EMA shadows were not read: {moved} of {N_ROWS} scores differ from the raw "
+                               "variables'")
+        imports["imagebert_b"]["scores_unlike_the_raw_variables"] = moved
+        log(f"import imagebert_b: the EMA shadows read ({moved} of {N_ROWS} scores differ from the raw variables')")
+        rates["imports"] = imports
+
+        # 3: live distillation of a 4-layer B student from the 12-layer teacher bundle
+        b_prefix = ckpts["imagebert_b"][0]
+        student_b = models.get_model("imagebert_b", overrides={"num_hidden_layers": DISTIL_LAYERS})
+        teacher_b = models.get_model("imagebert_b")
+        n_distil = -(-N_ROWS // TRAIN_B)
+        n_valid = -(-VALID_ROWS // TRAIN_B)
+        run_b = work / "distill_b"
+        teacher_per, student_per = scoring_launches("imagebert_b", 12), scoring_launches("imagebert_b", DISTIL_LAYERS)
+        expected = sum_launches((TRAIN_STEPS, teacher_per), (TRAIN_STEPS, train_launches("imagebert_b", DISTIL_LAYERS)),
+                                (n_valid, student_per), (n_distil, teacher_per), (n_distil, student_per))
+        report_b = counted("distill_imagebert_b", expected, lambda: distill_cli.main([
+            "--model", "imagebert_b", "--student-layers", str(DISTIL_LAYERS), "--tsv", str(tsv), "--labels",
+            str(labels), "--teacher-checkpoint", str(b_prefix), "--init-from-teacher", "--batch-size", str(TRAIN_B),
+            "--steps", str(TRAIN_STEPS), "--out", str(run_b), "--valid-tsv", str(valid_tsv), "--answers",
+            str(answers), "--checkpoint-every", "1000", "--seed", str(self.seed)]))
+        lines = [json.loads(line) for line in (run_b / "metrics.jsonl").read_text().splitlines()]
+        if (not np.isfinite([lines[0]["distill_loss"], report_b["distill_mae"]]).all()
+                or not (run_b / "best.npz").exists() or report_b["pairs"] != TRAIN_STEPS * TRAIN_B):
+            raise RuntimeError(f"the B distillation run: {lines[:2]}, {report_b}")
+
+        # the teacher's forward and the student's step, staged: the student from the teacher's layers
+        fz = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels))
+        batches = list(pipeline.iter_batches(tsv.read_text().splitlines(), fz.imagebert_b, TRAIN_B))
+        teacher_params = checkpoint.load_checkpoint("imagebert_b", b_prefix, teacher_b)
+        teacher = train.LiveTeacher(teacher_b, teacher_params)
+        for b in batches[:2]:
+            teacher.attach(b)  # warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        attached = [teacher.attach(b) for b in batches]
+        ev[1].record()
+        torch.cuda.synchronize()
+        teacher_ms = ev[0].elapsed_time(ev[1]) / len(batches)
+        # the teacher's forward alone, on batches staged on the device (attach also copies the features)
+        staged = [teacher.engine.to_device({**b, "labels": np.ones_like(b["labels"])}) for b in batches]
+
+        def teacher_forward():
+            with torch.inference_mode(), attention.attention_backend(teacher.engine.attention_backend):
+                for f in staged:
+                    teacher_b.apply(teacher.engine.params, f, teacher_b.config, teacher.engine.precision)
+
+        teacher_forward_ms = cuda_ms(torch, teacher_forward, iters=5, warmup=1) / len(staged)
+        del staged
+        tc_b =dataclasses.replace(train.recipe_for("imagebert_b"), distill_weight=1.0, distill_temperature=2.0,
+                                   hard_loss_weight=0.0)
+        mapped = train.init_student_from_teacher(checkpoint.params_to_jax(student_b.init_params(self.seed)),
+                                                 checkpoint.params_to_jax(teacher_params))
+        student_params = student_b.from_jax(checkpoint.params_from_jax(mapped))
+        step1_b = self.step1_against_truth(student_b, tc_b, student_params, attached[0], "imagebert_b student (distil)")
+        trainer = train.Trainer(student_b, tc_b, precision=models.Precision.bf16(), device=self.dev)
+        state = trainer.init_state(student_params)
+        _, steps_b = self.timed_train_steps(trainer, state, attached, train_launches("imagebert_b", DISTIL_LAYERS),
+                                            "imagebert_b student (distil)")
+        del trainer, state, attached
+        step_ms = steps_b["device_ms_per_step"]["total"]
+        distil = {"teacher_ms_per_batch": teacher_ms, "teacher_forward_ms_per_batch_staged": teacher_forward_ms,
+                  "student_step_ms": steps_b["device_ms_per_step"],
+                  "device_pairs_per_second": TRAIN_B / (teacher_ms + step_ms) * 1e3,
+                  "end_to_end_pairs_per_second": report_b["pairs_per_second"], "cli": report_b, "step1": step1_b,
+                  "first_metrics": lines[0]}
+        log(f"distil imagebert_b 12 -> {DISTIL_LAYERS} layers at B={TRAIN_B}: the teacher {teacher_ms:.3f} ms a batch "
+            f"(its forward on staged batches {teacher_forward_ms:.3f} ms), "
+            f"the student's step {step_ms:.3f} ms (device) = {distil['device_pairs_per_second']:.1f} pairs/s on the "
+            f"device, {report_b['pairs_per_second']:.1f} pairs/s end to end through cli/distill.py "
+            f"({report_b['seconds']:.3f} s for {report_b['pairs']} pairs; checkpoints {report_b['checkpoint_seconds']:.3f} s, "
+            f"valid {report_b['valid_seconds']:.3f} s apart); step 0 distill loss "
+            f"{lines[0]['distill_loss']:.5f}, valid {json.dumps(report_b['valid'])}")
+
+        # the student's best.npz through cli/score.py (its shape from the sidecar) against ScoringEngine
+        student_scores = work / "scores_student_b.tsv"
+        counted("distill_imagebert_b_student_score", expected_launches(n_score, scoring_launches("imagebert_b",
+                                                                                                   DISTIL_LAYERS)),
+                lambda: score_cli.main(["--model", "imagebert_b", "--tsv", str(tsv), "--labels", str(labels),
+                                        "--checkpoint", str(run_b / "best.npz"), "--out", str(student_scores)]))
+        best = student_b.from_jax(checkpoint.params_from_jax(checkpoint.load_npz(run_b / "best.npz")))
+        engine = engine_mod.ScoringEngine(student_b, best)
+        want = engine.score_files([tsv], fz, MAIN_B)
+        got = scores_of(student_scores)
+        if got != {(q, p): s for q, row in want.items() for p, s in row.items()}:
+            raise RuntimeError("the student's best.npz through cli/score.py differs from ScoringEngine on its params")
+        fid = fidelity.main(["--reference", str(work / "scores_imagebert_b_reference.tsv"), "--candidate",
+                             str(student_scores)])
+        distil["fidelity_vs_teacher"] = fid
+        teacher_engine = teacher.engine
+        device_rates = {}
+        stage = list(pipeline.iter_batches(tsv.read_text().splitlines(), fz.imagebert_b, MAIN_B))
+        for name, eng, spec in (("teacher_12", teacher_engine, teacher_b), (f"student_{DISTIL_LAYERS}", engine,
+                                                                            student_b)):
+            feats = [eng.to_device(b) for b in stage]
+
+            def run_all(eng=eng, spec=spec, feats=feats):
+                with torch.inference_mode(), attention.attention_backend(eng.attention_backend):
+                    for f in feats:
+                        spec.apply(eng.params, f, spec.config, eng.precision)
+
+            ms = cuda_ms(torch, run_all, iters=5, warmup=1)
+            device_rates[name] = {"ms_per_batch": ms / len(stage),
+                                  "pairs_per_second": len(stage) * MAIN_B / ms * 1e3}
+        distil["scoring_device"] = device_rates
+        log(f"distil imagebert_b: the student's best.npz through cli/score.py equals ScoringEngine on its params; "
+            f"fidelity to the teacher {json.dumps(fid)}; device scoring at B={MAIN_B}: "
+            f"{json.dumps(device_rates)}")
+        del teacher, teacher_engine, teacher_params, engine
+        rates["distill_imagebert_b"] = distil
+
+        # 4: ImageBERT-A through cli/train.py: 4 layers from the 12-layer npz, a live teacher from the bundle
+        packed = pkg.BUILD_DIR / "smoke" / "train" / "packed_a"
+        a_prefix, a_npz, _ = ckpts["imagebert_a"]
+        expected = sum_launches((A_DISTIL_STEPS, scoring_launches("imagebert_a", 12)),
+                                (A_DISTIL_STEPS, train_launches("imagebert_a", DISTIL_LAYERS)))
+        report_a = counted("train_imagebert_a_distill_from", expected, lambda: train_cli.main([
+            "--model", "imagebert_a", "--packed-dir", str(packed), "--labels", str(labels), "--steps",
+            str(A_DISTIL_STEPS), "--batch-size", str(TRAIN_B), "--out", str(work / "train_a"), "--layers",
+            str(DISTIL_LAYERS), "--init-from", str(a_npz), "--distill-from", str(a_prefix), "--warmup-steps", "2",
+            "--total-steps", "50", "--checkpoint-every", "1000", "--seed", str(self.seed)]))
+        first = json.loads((work / "train_a" / "metrics.jsonl").read_text().splitlines()[0])
+        sidecar = json.loads((work / "train_a" / "student_config.json").read_text())
+        if not np.isfinite([first["loss"], first["distill_loss"]]).all() or sidecar["overrides"] != {
+                "num_hidden_layers": DISTIL_LAYERS}:
+            raise RuntimeError(f"cli/train.py --distill-from: first metrics {first}, sidecar {sidecar}")
+        student_a = models.get_model("imagebert_a", overrides={"num_hidden_layers": DISTIL_LAYERS})
+        teacher_a_spec = models.get_model("imagebert_a")
+        teacher_a = train.LiveTeacher(teacher_a_spec, checkpoint.load_checkpoint("imagebert_a", a_prefix,
+                                                                                 teacher_a_spec))
+        batch_a = teacher_a.attach(next(iter(data.PackedDataset(packed).batches(TRAIN_B, epochs=None,
+                                                                                 seed=self.seed))))
+        mapped = train.init_student_from_teacher(checkpoint.params_to_jax(student_a.init_params(self.seed)),
+                                                 checkpoint.load_npz(a_npz))
+        tc_a = dataclasses.replace(train.recipe_for("imagebert_a"), distill_weight=1.0, distill_temperature=2.0,
+                                   hard_loss_weight=0.5, num_warmup_steps=2, num_train_steps=50)
+        step1_a = self.step1_against_truth(student_a, tc_a, student_a.from_jax(checkpoint.params_from_jax(mapped)),
+                                           batch_a, "imagebert_a student (--distill-from)")
+        del teacher_a, batch_a
+        rates["train_imagebert_a_distill_from"] = {"cli": report_a, "first_metrics": first, "step1": step1_a}
+        log(f"cli/train.py --layers {DISTIL_LAYERS} --init-from <A npz> --distill-from <A bundle>: "
+            f"{report_a['pairs']} pairs in {report_a['seconds']:.3f} s = {report_a['pairs_per_second']:.1f} pairs/s "
+            f"(the live teacher's forward in every step); step 0 loss {first['loss']:.5f}, distill loss "
+            f"{first['distill_loss']:.5f}")
+
+        # 5: a 3/2/2 LXMERT student from the BEST.pth teacher
+        lx_teacher = scoring_launches("lxmert", LX_DEPTHS)
+        lx_student = scoring_launches("lxmert", LX_STUDENT)
+        expected = sum_launches((LX_DISTIL_STEPS, lx_teacher), (LX_DISTIL_STEPS, train_launches("lxmert", LX_STUDENT)),
+                                (n_distil, lx_teacher), (n_distil, lx_student))
+        overrides = dict(zip(("l_layers", "r_layers", "x_layers"), LX_STUDENT))
+        report_lx = counted("distill_lxmert", expected, lambda: distill_cli.main([
+            "--model", "lxmert", "--student-overrides", json.dumps(overrides), "--tsv", str(tsv), "--labels",
+            str(labels), "--teacher-checkpoint", str(ckpts["lxmert"][0]), "--init-from-teacher", "--batch-size",
+            str(TRAIN_B), "--steps", str(LX_DISTIL_STEPS), "--out", str(work / "distill_lx"), "--checkpoint-every",
+            "1000", "--seed", str(self.seed)]))
+        if not np.isfinite([report_lx["distill_mae"], report_lx["distill_tau"]]).all():
+            raise RuntimeError(f"the LXMERT distillation run: {report_lx}")
+        rates["distill_lxmert"] = report_lx
+        log(f"distil lxmert 9/5/5 -> {'/'.join(map(str, LX_STUDENT))} (l/r/x) from BEST.pth: {report_lx['pairs']} "
+            f"pairs in {report_lx['seconds']:.3f} s = {report_lx['pairs_per_second']:.1f} pairs/s end to end; tau "
+            f"{report_lx['distill_tau']:.4f}, MAE {report_lx['distill_mae']:.4f}")
+        shutil.rmtree(work)  # ~4 GB of checkpoints and runs
+        rates["phase_seconds"] = time.perf_counter() - t_phase
+        log(f"phase 8: {rates['phase_seconds']:.1f} s")
+        return runs, rates
+
 
 PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
 PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
@@ -3278,6 +3605,51 @@ PER_STEP_LXMERT = {"attention_block_train": 24, "ffn_block_train": 24, "cross_at
                    "ln_train": 24 + 24 + 10, "ln_train_bwd": 23 + 23 + 9}
 
 
+# phase 8: the students' depth (ImageBERT-B through cli/distill.py, ImageBERT-A through cli/train.py --layers),
+# the steps of A's run and of the LXMERT student's, and that student's stacks (l, r, x as LX_DEPTHS)
+DISTIL_LAYERS, A_DISTIL_STEPS, LX_DISTIL_STEPS, LX_STUDENT = 4, 5, 3, (3, 2, 2)
+
+
+def scoring_launches(model: str, depth) -> dict:
+    """Launches per scored batch on the default route at any depth: ``depth`` layers of ImageBERT-A or -B/C
+    (B/C with its label conv's gemm), or LXMERT's (l, r, x) stacks; PER_BATCH's counts at the full depths."""
+    if model == "lxmert":
+        l_, r_, x_ = depth
+        n, c = l_ + r_ + 2 * x_, 2 * x_
+        return {"attention_block": n, "ffn_block": n, "cross_attention_block": c, "gemm": 4 * n + 3 * c,
+                "attn_core": n, "attn_core_cross": c, "layernorm": 2 * n + c}
+    conv = 1 if model in ("imagebert_b", "imagebert_c") else 0
+    return {"attention_block": depth, "ffn_block": depth, "gemm": 4 * depth + conv, "attn_core": depth,
+            "layernorm": 2 * depth}
+
+
+def train_launches(model: str, depth) -> dict:
+    """Launches per training step at any depth (PER_STEP, PER_STEP_B and PER_STEP_LXMERT at the full depths):
+    LXMERT's backward skips the last x-layer's visn stream, whose output no loss reads."""
+    if model == "lxmert":
+        l_, r_, x_ = depth
+        n, c = l_ + r_ + 2 * x_, 2 * x_
+        return {"attention_block_train": n, "ffn_block_train": n, "cross_attention_block_train": c,
+                "attention_block_train_backward": n - 1, "ffn_block_train_backward": n - 1,
+                "cross_attention_block_train_backward": c - 1,
+                "gemm": 2 * n + 2 * n + 3 * c + 4 * (n - 1) + 4 * (n - 1) + 6 * (c - 1),
+                "attn_train": 2 * n - 1, "attn_train_bwd": n - 1, "attn_train_cross": 2 * c - 1,
+                "attn_train_cross_bwd": c - 1, "ln_train": 2 * n + c, "ln_train_bwd": 2 * (n - 1) + c - 1}
+    per = {k: v * depth // 12 for k, v in PER_STEP.items()}
+    if model in ("imagebert_b", "imagebert_c"):
+        per["gemm"] += 2  # the label conv's Function, forward and dx
+    return per
+
+
+def sum_launches(*parts: tuple[int, dict]) -> dict:
+    """(n, launches per batch or step) pairs -> the launches of them all."""
+    out: dict[str, int] = {}
+    for n, per in parts:
+        for name, v in per.items():
+            out[name] = out.get(name, 0) + n * v
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3299,6 +3671,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: the port package is not beside this script ({e})", file=sys.stderr)
         return 2
     try:
+        t_run = time.perf_counter()
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         t0 = time.perf_counter()
         logs = build.build_all()
@@ -3333,6 +3706,13 @@ def main(argv: list[str] | None = None) -> int:
         times.update(smoke.time_path_shapes(weights))
         if smoke.failures:
             raise RuntimeError(f"kernels disagree with their plain versions: {smoke.failures}")
+        depth_rules = [(scoring_launches("imagebert_a", 12), PER_BATCH["imagebert_a"]),
+                       (scoring_launches("imagebert_b", 12), PER_BATCH["imagebert_b"]),
+                       (scoring_launches("lxmert", LX_DEPTHS), PER_BATCH["lxmert"]),
+                       (train_launches("imagebert_a", 12), PER_STEP), (train_launches("imagebert_b", 12), PER_STEP_B),
+                       (train_launches("lxmert", LX_DEPTHS), PER_STEP_LXMERT)]
+        if any(got != want for got, want in depth_rules):
+            raise RuntimeError("the launch counts at any depth disagree with the full-depth tables")
         per_path = {"imagebert_a": PER_BATCH["imagebert_a"]["gemm"], "imagebert_b": PER_BATCH["imagebert_b"]["gemm"],
                     "lxmert": PER_BATCH["lxmert"]["gemm"], "imagebert_a_train": PER_STEP["gemm"],
                     "imagebert_b_train": PER_STEP_B["gemm"], "lxmert_train": PER_STEP_LXMERT["gemm"]}
@@ -3407,14 +3787,17 @@ def main(argv: list[str] | None = None) -> int:
             if counts != expected or ot_batches == 0:
                 raise RuntimeError(f"{path} launches {counts}, expected {expected}")
         log(json.dumps({"one_shot": ot_rates}))
+        di_launches, di_rates = smoke.import_and_distil()
+        log(json.dumps({"import_and_distil": di_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
                         "mha_packed_entry": packed, **train_runs, **b_train_launches,
-                        "lxmert_train": lx_train_launches, **ot_launches}
+                        "lxmert_train": lx_train_launches, **ot_launches, **di_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:
             raise RuntimeError(f"kernels never launched on a driven path: {unlaunched}")
         log(json.dumps(line))
+        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-8, the build included")
         log(f"nvidia-smi: {nvidia_smi()}")
     except Exception:  # any phase failing fails the run, with its traceback
         traceback.print_exc()

@@ -12,8 +12,11 @@ each attention backend, the AOT serving export (``serving/``,
 ``cli/export.py``), ImageBERT-A and LXMERT training (``data/sampling.py``,
 ``ops/train_blocks.py``, ``train/``, ``cli/train.py``), the native TSV parser
 and the multi-process loader (``data/native/``, ``data/fast_pipeline.py``,
-``data/multiworker.py``), and the one-shot run, four scorers fused into the
-top-5 submission (``ensemble/``, ``cli/submission.py``, ``cli/main.py``).
+``data/multiworker.py``), the one-shot run, four scorers fused into the
+top-5 submission (``ensemble/``, ``cli/submission.py``, ``cli/main.py``),
+the import of the reference's TF1 and torch checkpoints (``checkpoint/``,
+``cli/convert_checkpoint.py``) and distillation into shallower students
+(``train/distill.py``, ``cli/distill.py``, ``cli/score_fidelity.py``).
 ROADMAP.md lists what is still to come.
 """
 

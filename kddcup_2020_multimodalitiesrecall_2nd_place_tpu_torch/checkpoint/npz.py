@@ -65,7 +65,9 @@ def load_npz(path) -> dict:
 def _to_torch(tree):
     if isinstance(tree, dict):
         return {k: _to_torch(v) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, dtype=np.float32))
+    # a C-ordered copy: an importer's leaf may be a transposed view (torch's [out, in] weights), whose strides
+    # would otherwise reach the kernels, which take contiguous weights
+    return torch.from_numpy(np.array(tree, dtype=np.float32, order="C"))
 
 
 def params_from_jax(tree: dict) -> Params:

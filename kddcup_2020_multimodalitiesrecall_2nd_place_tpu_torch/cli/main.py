@@ -4,15 +4,20 @@
 
   python -m kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli.main \\
       --tsv testB.tsv --labels multimodal_labels.txt \\
-      --checkpoint-a a.npz --checkpoint-b b.npz --checkpoint-lxmert l.npz \\
-      --workers 8 --workdir prediction_result
+      --checkpoint-a ImageBertKDD.ckpt-85002 \\
+      --checkpoint-b model_attention_kdd_am_word_match_finetune_valid.ckpt-251 \\
+      --checkpoint-lxmert BEST.pth --workers 8 --workdir prediction_result
 
 Each scorer is a ``cli.score`` subprocess: ImageBERT-B, then ImageBERT-C as a
 delta of B's file (``--delta-from``: only the sen2forest rows are scored;
 ``--full-c`` scores them all), ImageBERT-A, and LXMERT (a CSV). C shares B's
 checkpoint. ``cli.submission`` then fuses the four files, and the last line
 of the output is a JSON summary: each scorer's wall and engine seconds, the
-fusion's seconds and the total. A checkpoint left out means random weights
+fusion's seconds and the total. Each ``--checkpoint-*`` goes to its scorer as
+it is, in any format ``cli.score`` reads: an npz tree or flat-variable npz, a
+TF1 bundle prefix (A's ``ImageBertKDD.ckpt-85002``; B's
+``…finetune_valid.ckpt-251``, read through its EMA shadows) or a torch
+``.pth`` (LXMERT's ``BEST.pth``). A checkpoint left out means random weights
 (seed 0), as the scorers do.
 
 The flags are the JAX script's, with one difference: ``--precision`` defaults
@@ -56,9 +61,10 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tsv", required=True, nargs="+")
     ap.add_argument("--labels", required=True)
-    ap.add_argument("--checkpoint-a", default=None)
-    ap.add_argument("--checkpoint-b", default=None)
-    ap.add_argument("--checkpoint-lxmert", default=None)
+    ap.add_argument("--checkpoint-a", default=None, help="ImageBERT-A: npz, or a TF1 bundle prefix")
+    ap.add_argument("--checkpoint-b", default=None,
+                    help="ImageBERT-B and -C: npz, or a TF1 bundle prefix (its EMA shadows are read)")
+    ap.add_argument("--checkpoint-lxmert", default=None, help="LXMERT: npz, or a torch .pth/.pt/.bin")
     ap.add_argument("--workdir", default="prediction_result")
     ap.add_argument("--out", default=None, help="the submission csv (default <workdir>/submission.csv)")
     ap.add_argument("--batch-size", type=int, default=512)

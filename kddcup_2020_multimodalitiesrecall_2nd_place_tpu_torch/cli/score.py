@@ -21,8 +21,16 @@ report line names the one that ran. Example:
       --model imagebert_a --tsv testB.tsv --labels multimodal_labels.txt \\
       --checkpoint a.npz --out testBscore_imagebert.txt
 
-``--checkpoint`` takes an npz of the JAX package's param tree; without one
-the parameters are random (seed 0).
+``--checkpoint`` takes what the JAX script takes (``checkpoint.load_checkpoint``):
+an npz param tree (the JAX package's, or the port's ``step_<N>.npz``,
+``best.npz``, ``student_final.npz``), an npz of flat variables, a torch
+``.pth``/``.pt``/``.bin`` (LXMERT's ``BEST.pth``), or a TF1 bundle prefix
+(ImageBERT-A's ``ImageBertKDD.ckpt-85002``; ImageBERT-B/C's
+``…finetune_valid.ckpt-251``, read through its EMA shadows); an orbax
+directory raises. Without one the parameters are random (seed 0). A
+distilled student's shape comes from the ``student_config.json`` beside the
+checkpoint (in it or in its parent directory); ``--config-overrides`` wins
+over it.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import tempfile
 from pathlib import Path
 
 from .. import VOCAB_PATH
-from ..checkpoint import load_npz, params_from_jax
+from ..checkpoint import load_checkpoint
 from ..data import Featurizer, load_multimodal_labels
 from ..data.tsv import SEN2FOREST_SRC, is_header
 from ..ensemble import load_tsv_scores
@@ -50,19 +58,19 @@ from ..parallel import (
 from ..tokenization import FullTokenizer
 
 
-def load_params(path: str | None, spec):
-    if path is None:
-        print("WARNING: no checkpoint given; using random init (seed 0)", file=sys.stderr)
-        return spec.init_params(0)
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            "only npz param trees are ported; TF/torch checkpoint import is not yet ported, "
-            "see ROADMAP.md"
-        )
-    tree = load_npz(path)
-    if "bert" not in tree:
-        raise NotImplementedError("flat TF-variable npz import is not yet ported, see ROADMAP.md")
-    return spec.from_jax(params_from_jax(tree))
+def load_student_overrides(checkpoint: str | None) -> dict | None:
+    """The model-config overrides a distilled or depth-changed run saved
+    beside its weights (``cli/distill.py`` and ``cli/train.py --layers`` write
+    ``student_config.json`` in the run directory): probed in ``<ckpt>/`` and
+    in ``<ckpt>/..``, so ``<out>/best.npz`` finds ``<out>/student_config.json``."""
+    if not checkpoint:
+        return None
+    for probe in (Path(checkpoint) / "student_config.json", Path(checkpoint).parent / "student_config.json"):
+        if probe.is_file():
+            overrides = json.loads(probe.read_text()).get("overrides")
+            print(f"[student] config overrides from {probe}: {overrides}", file=sys.stderr)
+            return overrides
+    return None
 
 
 def _pair_row(line: str) -> bool:
@@ -103,9 +111,11 @@ def main(argv: list[str] | None = None) -> None:
                     choices=["imagebert_a", "imagebert_b", "imagebert_c", "lxmert"])
     ap.add_argument("--tsv", required=True, nargs="+")
     ap.add_argument("--labels", required=True, help="multimodal_labels.txt")
-    ap.add_argument("--checkpoint", default=None, help="npz of a JAX-package param tree")
+    ap.add_argument("--checkpoint", default=None,
+                    help="npz param tree or flat-variable npz, torch .pth/.pt/.bin, or a TF1 bundle prefix")
     ap.add_argument("--config-overrides", default=None,
-                    help='JSON model-config overrides, e.g. \'{"num_hidden_layers": 4}\'')
+                    help='JSON model-config overrides, e.g. a distilled student\'s shape \'{"num_hidden_layers": 4}\' '
+                         '(read from student_config.json beside --checkpoint when absent)')
     ap.add_argument("--out", required=True)
     ap.add_argument("--batch-size", type=int, default=512)
     ap.add_argument("--precision", choices=["f32", "bf16"], default=None,
@@ -151,12 +161,13 @@ def main(argv: list[str] | None = None) -> None:
             # no query holds the trigger: C's score file IS B's, bit for bit
             result = delta_base
         else:
-            overrides = json.loads(args.config_overrides) if args.config_overrides else None
+            overrides = (json.loads(args.config_overrides) if args.config_overrides
+                         else load_student_overrides(args.checkpoint))
             spec = get_model(args.model, overrides=overrides)
             tok = (FullTokenizer.hf_style(VOCAB_PATH) if args.model == "lxmert"
                    else FullTokenizer.google_style(VOCAB_PATH))
             featurizer = Featurizer(tok, load_multimodal_labels(args.labels), sen2forest=spec.sen2forest)
-            params = load_params(args.checkpoint, spec)
+            params = load_checkpoint(args.model, args.checkpoint, spec)
             prec = None if args.precision is None else (
                 Precision.f32() if args.precision == "f32" else Precision.bf16())
             engine = ScoringEngine(spec, params, device=device, precision=prec)

@@ -41,12 +41,31 @@ versions in f32. Example:
       --model imagebert_b --train-tsv train.tsv --labels multimodal_labels.txt \\
       --query-labels query_labels.txt --steps 1000 --batch-size 256 --out runs/b
 
-``--model two_tower``, ``--distributed``, ``--init-from``, ``--layers``,
-``--distill-from`` and ``--am-loss`` are not ported yet and exit 2 naming the
-ROADMAP item. LXMERT trains through ``train.Trainer`` (as the JAX package
-trains it, on batches in its featurizer's layout), not here: the JAX CLI
-cannot train it either (no sampler yields LXMERT's layout, ROADMAP.md Queue
-3, JAX fault 3), so ``--model lxmert`` exits 2 until that sampler exists.
+``--layers L`` trains an L-layer variant of the model (a distillation student,
+or one stage of a progressive-stacking schedule) and writes its shape to
+``<out>/student_config.json``, where ``cli/score.py`` and ``cli/export.py``
+find it beside ``step_<N>.npz`` and ``best.npz``. ``--init-from <ckpt>``
+starts from a checkpoint of the same family at any depth, in any format
+``cli/score.py`` reads (the port's ``step_<N>.npz`` and ``best.npz`` are the
+counterparts of the JAX script's orbax directories): a deeper one is
+compressed to evenly spaced layers, a shallower one grown by duplicating each
+layer into a contiguous run (``train/distill.py:init_student_from_teacher``);
+the optimizer state, and B/C's EMA, start fresh from those params.
+``--distill-from <ckpt>`` scores every batch with a live teacher of the same
+family (``train/distill.py:LiveTeacher``: on the card the scoring blocks'
+kernels, in bf16, fed label 1) and trains on ``--hard-loss-weight`` times the
+family's loss plus ``--distill-weight`` times the soft cross entropy at
+``--distill-temperature`` (``distill_loss`` in the metrics; a hard-loss weight
+of 0 is pure-soft distillation). ``--resume`` with ``--init-from``,
+``--layers`` with ``--model lxmert`` and ``--distill-from`` with
+``--model two_tower`` exit 2, as in the JAX script.
+
+``--model two_tower``, ``--distributed`` and ``--am-loss`` are not ported
+yet and exit 2 naming the ROADMAP item. LXMERT trains through
+``train.Trainer`` (as the JAX package trains it, on batches in its
+featurizer's layout) or ``cli/distill.py``, not here: the JAX CLI cannot
+train it either (no sampler yields LXMERT's layout, ROADMAP.md Queue 3, JAX
+fault 3), so ``--model lxmert`` exits 2 until that sampler exists.
 """
 
 from __future__ import annotations
@@ -62,22 +81,20 @@ from pathlib import Path
 import torch
 
 from .. import VOCAB_PATH
-from ..checkpoint import params_to_jax, save_npz
+from ..checkpoint import load_checkpoint, params_from_jax, params_to_jax, save_npz
 from ..data import Featurizer, HardNegativeSampler, PackedDataset, QueryLabelIndex, SamplerConfig
 from ..data import load_multimodal_labels, pad_batch, stack_examples
 from ..eval import evaluate_scores, load_answers
 from ..models import get_model
 from ..parallel import ScoringEngine, resolve_device
 from ..tokenization import FullTokenizer
-from ..train import Trainer, TrainState, recipe_for
+from ..train import LiveTeacher, Trainer, TrainState, init_student_from_teacher, recipe_for
+from .score import load_student_overrides
 
 LOG_EVERY = 20
 # flags of scripts/train.py that are not ported: flag -> the ROADMAP item that ports it
 NOT_PORTED = {
     "--distributed": "Queue 1 item 12 (multi-device)",
-    "--init-from": "Queue 1 item 10 (depth-mapped init)",
-    "--layers": "Queue 1 item 10 (depth-reduced students)",
-    "--distill-from": "Queue 1 item 10 (distillation)",
     "--am-loss": "Queue 3, JAX fault 3 (LXMERT's training CLI)",
 }
 
@@ -113,6 +130,19 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
     ap.add_argument("--grad-summaries", action="store_true",
                     help="log each parameter group's gradient norm before and after the clip")
     ap.add_argument("--resume", default=None, help="a state_<N>.npz of an earlier run to continue")
+    ap.add_argument("--init-from", default=None,
+                    help="params checkpoint of the same family at ANY depth to start from (any format cli/score.py "
+                         "reads): deeper ones compress to evenly spaced layers, shallower ones grow by duplicating "
+                         "each layer into a contiguous run; the optimizer state starts fresh")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the encoder depth (num_hidden_layers), recorded in <out>/student_config.json")
+    ap.add_argument("--distill-from", default=None,
+                    help="a teacher checkpoint of the same family: online distillation, the teacher scores every "
+                         "batch and the soft cross entropy joins the family's loss")
+    ap.add_argument("--distill-weight", type=float, default=1.0, help="soft-loss weight with --distill-from")
+    ap.add_argument("--distill-temperature", type=float, default=2.0)
+    ap.add_argument("--hard-loss-weight", type=float, default=0.5,
+                    help="the family's loss weight with --distill-from; 0 = pure-soft distillation")
     ap.add_argument("--valid-tsv", nargs="+", default=None,
                     help="valid TSVs: the training-time nDCG@5 loop and best.npz")
     ap.add_argument("--answers", default=None, help="valid_answer.json of --valid-tsv")
@@ -128,6 +158,18 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             ap.error(f"{flag} is not yet ported, see ROADMAP.md {item}")
+    # the JAX script's checks, in its order
+    if bool(args.valid_tsv) != bool(args.answers):
+        ap.error("--valid-tsv and --answers must be given together")
+    if args.resume and args.init_from:
+        ap.error("--resume and --init-from are mutually exclusive: resume restores the full optimizer state, "
+                 "init-from depth-maps params only")
+    if args.layers is not None and args.model == "lxmert":
+        ap.error("--layers targets single-stream depth; lxmert's three stack depths need cli/distill.py "
+                 "--student-overrides")
+    if args.distill_from and args.model == "two_tower":
+        ap.error("--distill-from targets the cross-encoder scorers (the two_tower embedders have no teacher "
+                 "probability to match)")
     if args.model == "lxmert":
         ap.error("--model lxmert: no sampler yields LXMERT's batch layout, in the JAX package either "
                  "(ROADMAP.md Queue 3, JAX fault 3); LXMERT trains through train.Trainer")
@@ -137,11 +179,9 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
         ap.error("exactly one of --train-tsv / --packed-dir is required")
     if args.train_tsv and not args.query_labels:
         ap.error("--query-labels is required for cross-encoder training")
-    if bool(args.valid_tsv) != bool(args.answers):
-        ap.error("--valid-tsv and --answers must be given together")
 
     device = resolve_device(args.device)
-    spec = get_model(args.model)
+    spec = get_model(args.model, overrides={"num_hidden_layers": args.layers} if args.layers else None)
     featurizer = Featurizer(FullTokenizer.google_style(VOCAB_PATH), load_multimodal_labels(args.labels),
                             sen2forest=spec.sen2forest)
     overrides = {"ms_loss_weight": args.ms_weight, "word_match_loss_weight": args.word_match_weight,
@@ -150,12 +190,31 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
                         ("num_train_steps", args.total_steps), ("optimizer", args.optimizer)):
         if value is not None:
             overrides[name] = value
+    if args.distill_from:
+        overrides.update(distill_weight=args.distill_weight, distill_temperature=args.distill_temperature,
+                         hard_loss_weight=args.hard_loss_weight)
     trainer = Trainer(spec, dataclasses.replace(recipe_for(spec.name), **overrides), device=device)
-    state = trainer.init_state(seed=args.seed)
+    if args.init_from:
+        # the depth mapping runs on trees in the JAX package's layout; the optimizer state and the EMA
+        # start from the mapped params
+        loaded = load_checkpoint(args.model, args.init_from,
+                                 get_model(args.model, overrides=load_student_overrides(args.init_from)))
+        mapped = init_student_from_teacher(params_to_jax(spec.init_params(args.seed)), params_to_jax(loaded))
+        state = trainer.init_state(spec.from_jax(params_from_jax(mapped)), seed=args.seed)
+        print(f"initialised from {args.init_from} (depth-mapped)")
+    else:
+        state = trainer.init_state(seed=args.seed)
     if args.resume:
         trainer.load_state(state, args.resume)
         print(f"resumed from {args.resume} at step {state.step}")
     start = state.step
+    live_teacher = None
+    if args.distill_from:
+        teacher_spec = get_model(args.model, overrides=load_student_overrides(args.distill_from))
+        live_teacher = LiveTeacher(teacher_spec, load_checkpoint(args.model, args.distill_from, teacher_spec),
+                                   device=device, precision=trainer.precision)
+        print(f"online distillation from {args.distill_from} (soft {args.distill_weight} / hard "
+              f"{args.hard_loss_weight}, T={args.distill_temperature})")
 
     sampler = None
     if args.packed_dir:
@@ -174,6 +233,10 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.layers is not None:
+        # the sidecar cli/distill.py writes: cli/score.py and cli/export.py rebuild the spec from it
+        (out_dir / "student_config.json").write_text(
+            json.dumps({"model": args.model, "overrides": {"num_hidden_layers": args.layers}}))
     answers = load_answers(args.answers) if args.answers else None
     engine, best, valid_seconds, valid_passes = None, None, 0.0, []
     if args.resume and answers is not None and (out_dir / "best_metadata.json").exists():
@@ -196,6 +259,8 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
 
         for i, batch in enumerate(itertools.islice(batches, args.steps)):
             step = state.step
+            if live_teacher is not None:
+                batch = live_teacher.attach(batch)
             metrics = trainer.train_step(state, batch, step_seed(args.seed, step))
             pairs += len(batch["labels"])
             if step % LOG_EVERY == 0:

@@ -18,7 +18,10 @@ Per-model recipes mirror the reference training scripts (``recipe_for``):
 ``adam_staircase``). A step is the JAX package's two phases: ``grads``
 (forward and backward of the loss) and ``apply`` (clip, optimizer, EMA),
 with the same metrics (``loss``, ``accuracy``, ``grad_norm``, ``mlm_loss``,
-and with ``grad_summaries`` each group's norm before and after the clip).
+``distill_loss``, and with ``grad_summaries`` each group's norm before and
+after the clip). ``distill_weight`` adds the soft loss against a teacher's
+probabilities (``train/distill.py``) to, or with ``hard_loss_weight`` 0 in
+place of, the family's loss.
 ``save_state`` / ``load_state`` write and read a resumable state
 (``state_<N>.npz``: params, moments, EMA shadows, step, the config).
 
@@ -47,6 +50,7 @@ from ..checkpoint.npz import unflatten_tree
 from ..models import ModelSpec, Precision, heads
 from ..models.core import TRAIN_KERNEL_BLOCKS, Params, TrainBlocks
 from ..parallel.engine import default_precision, resolve_device
+from .distill import TEACHER_KEYS, distill_soft_ce, match_logodds
 from .ema import Ema
 from .losses import ms_loss
 from .optim import (
@@ -88,6 +92,12 @@ class TrainConfig:
     mlm_loss_weight: float = 0.0
     # per-group gradient norms before and after the clip (run_pretraining_predict_score.py:234-258); off
     grad_summaries: bool = False
+    # teacher -> student distillation (train/distill.py): with distill_weight > 0 and teacher_prob in the
+    # batch, the loss is hard_loss_weight * the family's loss + distill_weight * the T^2-softened soft CE;
+    # hard_loss_weight = 0 skips the family's loss (pure-soft distillation on unlabeled pairs)
+    distill_weight: float = 0.0
+    distill_temperature: float = 1.0
+    hard_loss_weight: float = 1.0
 
 
 def recipe_for(model_name: str) -> TrainConfig:
@@ -141,7 +151,13 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
     ``am_loss`` on the AM-margin logits of the clipped ``logit_W`` cosines;
     for A and LXMERT, plus ``mlm_loss_weight`` times the MLM loss when the
     batch carries its masked positions (the JAX package's
-    ``train/trainer.py`` :174-213)."""
+    ``train/trainer.py`` :174-213). With ``distill_weight`` and a batch that
+    carries ``teacher_prob``: ``hard_loss_weight`` times that loss plus
+    ``distill_weight`` times ``distill_soft_ce`` of the student's match
+    log-odds (``distill_loss`` in the metrics); ``hard_loss_weight`` 0 builds
+    no family loss at all (the JAX package's :126-145, :216-227)."""
+    if tc.distill_weight and model.name == "two_tower":
+        raise ValueError("distillation targets the cross-encoder scorers")
     if model.name not in TRAINED:
         raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 11")
     am = model.name == "lxmert" and tc.am_loss
@@ -159,12 +175,16 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
         return heads.mlm_loss(logits, batch["masked_lm_ids"], batch["masked_lm_weights"])
 
     mlm = tc.mlm_loss_weight and model.name in MLM_SEQUENCE
+    # pure-soft distillation never builds the family's loss
+    compute_hard = not (tc.distill_weight and tc.hard_loss_weight == 0.0)
 
     def loss_fn(params: Params, batch: dict, gen: torch.Generator):
         out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen, **head)
         labels = batch["labels"]
         metrics = {}
-        if model.name == "lxmert":
+        if not compute_hard:
+            loss = torch.zeros((), device=labels.device)
+        elif model.name == "lxmert":
             logits = heads.am_margin_logits(out["logit"].float().clamp(-1.0, 1.0), labels) if am else out["logit"]
             loss = heads.cross_entropy(logits, labels)
         elif model.name == "imagebert_a":
@@ -178,10 +198,15 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
                                            batch["word_match_weights"], precision)
                 metrics["word_match_loss"] = wm.detach()
                 loss = loss + tc.word_match_loss_weight * wm
-        if mlm and "masked_lm_positions" in batch:
+        if compute_hard and mlm and "masked_lm_positions" in batch:
             term = mlm_term(params, out, batch)
             metrics["mlm_loss"] = term.detach()
             loss = loss + tc.mlm_loss_weight * term
+        if tc.distill_weight and "teacher_prob" in batch:
+            d = distill_soft_ce(match_logodds(model.name, params, out, batch), batch["teacher_prob"],
+                                tc.distill_temperature, batch.get("teacher_weight"))
+            metrics["distill_loss"] = d.detach()
+            loss = tc.hard_loss_weight * loss + tc.distill_weight * d
         accuracy = (out["probs"].argmax(dim=-1) == labels.long()).float().mean()
         return loss, {**metrics, "loss": loss.detach(), "accuracy": accuracy}
 
@@ -293,16 +318,24 @@ class Trainer:
             out["ema"] = state.ema.shadow
         return out
 
-    def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    def to_device(self, batch: dict) -> dict[str, torch.Tensor]:
         """The entries the loss reads: the model's inputs, the labels and,
         with the word-match or MLM loss on, their entries where the batch
-        has them."""
+        has them; with distillation on, the teacher's probabilities and
+        weights (a live teacher's are already on the device)."""
         keys = [*self.model.input_keys, "labels"]
         if self.tc.word_match_loss_weight:
             keys += [k for k in WORD_MATCH_KEYS if k in batch]
         if self.tc.mlm_loss_weight:
             keys += [k for k in MLM_KEYS if k in batch]
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in keys}
+        if self.tc.distill_weight:
+            keys += [k for k in TEACHER_KEYS if k in batch]
+
+        def on_device(v) -> torch.Tensor:
+            t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+            return t.to(self.device)
+
+        return {k: on_device(batch[k]) for k in keys}
 
     def grads(self, state: TrainState, batch: dict, seed: int) -> tuple[list[torch.Tensor], dict]:
         """Phase 1: the loss and its gradient w.r.t. every leaf (zeros where unused)."""

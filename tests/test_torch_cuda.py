@@ -1247,3 +1247,129 @@ def test_cuda_train_step_gradients_repeat_bit_equal(cuda, model):
         again, _ = trainer.grads(state, dev_batch, seed=70)
         differ = [n for n, x, y in zip(state.optimizer.names, first, again, strict=True) if not torch.equal(x, y)]
         assert not differ, differ
+
+
+def _scoring_batch(model: str, spec, b: int, seed: int) -> dict:
+    """A seeded batch of ``model``'s serving layout (LXMERT's masks ragged), labels 0/1 and a valid mask."""
+    import numpy as np
+
+    from torch_parity import imagebert_a_batch, imagebert_b_batch
+
+    r = np.random.default_rng(seed)
+    if model == "lxmert":
+        vocab = spec.config.bert.vocab_size
+        n_query, n_boxes = r.integers(3, 24, b), r.integers(1, 11, b)
+        batch = {"input_ids": r.integers(0, vocab, (b, 23)).astype(np.int32),
+                 "input_mask": (np.arange(23)[None] < n_query[:, None]).astype(np.int32),
+                 "label_ids": r.integers(0, vocab, (b, 10, 8)).astype(np.int32),
+                 "boxes": r.random((b, 10, 4)).astype(np.float32),
+                 "features": r.standard_normal((b, 10, 2048)).astype(np.float32),
+                 "feats_mask": (np.arange(10)[None] < n_boxes[:, None]).astype(np.float32)}
+    elif model == "imagebert_a":
+        batch = imagebert_a_batch(b, spec.config.vocab_size, seed + 1)
+    else:
+        batch = imagebert_b_batch(b, spec.config.vocab_size, seed + 1)
+    batch["labels"] = r.integers(0, 2, b).astype(np.int32)
+    batch["valid"] = np.ones(b, dtype=bool)
+    return batch
+
+
+def test_cuda_live_teacher_equals_the_engine(cuda):
+    """The live teacher (a 2-layer ImageBERT-B at full width, B=64) scores through the scoring blocks'
+    kernels, whatever attention backend the process holds, at the fed label 1: its probabilities on the
+    card equal ``ScoringEngine.score_batch`` on the same params and batch with labels 1, bit for bit."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention_block import attention_block as block
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.train import LiveTeacher
+
+    spec = get_model("imagebert_b", overrides={"num_hidden_layers": 2})
+    params = spec.init_params(71)
+    batch = _scoring_batch("imagebert_b", spec, 64, 72)
+    teacher = LiveTeacher(spec, params, device=cuda)
+    block.launches = 0
+    got = teacher.attach(batch)
+    torch.cuda.synchronize()
+    assert block.launches == 2 and teacher.engine.attention_backend == "pallas_packed"
+    want = ScoringEngine(spec, params, device=cuda).score_batch({**batch, "labels": np.ones(64, np.int32)})
+    prob = got["teacher_prob"]
+    assert prob.device.type == "cuda" and prob.dtype == torch.float32 and not prob.is_inference()
+    assert torch.equal(prob, want.float())
+
+
+def test_cuda_distillation_step_gradients_within_the_training_band(cuda):
+    """One pure-soft distillation step of a 2-layer ImageBERT-B student at full width (B=256, B's recipe,
+    T=2, dropout 0.1) on the kernel route, the plain route in bf16 and the f32 truth: every gradient of the
+    kernel route within 5e-2 relative L2 of the truth, or within 1.25 x the bf16 plain route's own error
+    (chip_smoke.py's rule for a step), the distillation loss within 1e-2."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import Precision, get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models.core import (
+        TRAIN_KERNEL_BLOCKS,
+        TRAIN_PLAIN_BLOCKS,
+    )
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.train import Trainer, recipe_for
+
+    spec = get_model("imagebert_b", overrides={"num_hidden_layers": 2})
+    params = spec.init_params(73)
+    batch = _scoring_batch("imagebert_b", spec, 256, 74)
+    r = np.random.default_rng(75)
+    batch["teacher_prob"] = torch.from_numpy(r.random(256).astype(np.float32)).to(cuda)
+    batch["teacher_weight"] = np.ones(256, np.float32)
+    tc = dataclasses.replace(recipe_for("imagebert_b"), distill_weight=1.0, distill_temperature=2.0,
+                             hard_loss_weight=0.0)
+    out = []
+    for prec, blocks in ((Precision.bf16(), TRAIN_KERNEL_BLOCKS), (Precision.bf16(), TRAIN_PLAIN_BLOCKS),
+                         (Precision.f32(), TRAIN_PLAIN_BLOCKS)):
+        trainer = Trainer(spec, tc, precision=prec, device=cuda, blocks=blocks)
+        state = trainer.init_state(params)
+        grads, metrics = trainer.grads(state, trainer.to_device(batch), seed=76)
+        out.append((metrics["distill_loss"].item(), grads, state.optimizer.names))
+    (lk, gk, names), (_, gp, _), (lt, gt, _) = out
+    assert abs(lk - lt) <= 1e-2
+    failed = [n for n, a, p, t in zip(names, gk, gp, gt) if rel_l2(a, t) > max(5e-2, 1.25 * rel_l2(p, t))]
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("model", ["imagebert_a", "imagebert_b", "lxmert"])
+def test_cuda_imported_checkpoint_scores_equal_the_npz_route(cuda, tmp_path, model):
+    """The reference's forms (``tests/torch_tf_bundle_writer.py``: A's TF1 bundle, B's with EMA shadows
+    and snappy index blocks, LXMERT's ``BEST.pth`` with its transposed torch weights) and the npz tree of
+    the same weights, each through ``load_checkpoint`` and ``ScoringEngine`` on the card (2-layer models,
+    LXMERT 1/1/1, at full width, B=64): the scores bit-equal."""
+    import numpy as np
+
+    import torch_tf_bundle_writer as writer
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import (
+        load_checkpoint,
+        params_to_jax,
+        save_npz,
+    )
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine
+
+    overrides = {"l_layers": 1, "x_layers": 1, "r_layers": 1} if model == "lxmert" else {"num_hidden_layers": 2}
+    spec = get_model(model, overrides=overrides)
+    tree = params_to_jax(spec.init_params(77))
+    if model == "imagebert_a":
+        ref = tmp_path / "ImageBertKDD.ckpt-1"
+        writer.write_tf_bundle(ref, writer.imagebert_a_tf_names(tree), tensor_crcs=False)
+    elif model == "imagebert_b":
+        ref = tmp_path / "b.ckpt-251"
+        raw = params_to_jax(spec.init_params(78))
+        writer.write_tf_bundle(ref, writer.with_ema_shadows(writer.imagebert_b_tf_names(raw),
+                                                            writer.imagebert_b_tf_names(tree)),
+                               snappy=True, tensor_crcs=False)
+    else:
+        ref = tmp_path / "BEST.pth"
+        tree["cls"]["seq_relationship"] = {"kernel": np.full((768, 2), 0.01, np.float32),
+                                           "bias": np.zeros(2, np.float32)}
+        torch.save({k: torch.from_numpy(v) for k, v in writer.lxmert_torch_names(tree).items()}, ref)
+    save_npz(tmp_path / "tree.npz", tree)
+    batch = _scoring_batch(model, spec, 64, 79)
+    scores = [ScoringEngine(spec, load_checkpoint(model, path, spec), device=cuda).score_batch(batch)
+              for path in (ref, tmp_path / "tree.npz")]
+    assert torch.isfinite(scores[0]).all() and torch.equal(scores[0], scores[1])

@@ -89,8 +89,7 @@ def test_train_cli_device_cuda_raises_without_a_gpu(data_dir):
         train_cli.run(_argv(data_dir)[:-2] + ["--device", "cuda"])
 
 
-@pytest.mark.parametrize("extra", [["--distributed"], ["--init-from", "x"], ["--layers", "2"], ["--distill-from", "x"],
-                                   ["--am-loss"]])
+@pytest.mark.parametrize("extra", [["--distributed"], ["--am-loss"]])
 def test_unported_flags_exit_2(data_dir, extra, capsys):
     with pytest.raises(SystemExit) as e:
         train_cli.run(_argv(data_dir, *extra))
