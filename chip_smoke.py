@@ -181,6 +181,32 @@
    A_DISTIL_STEPS steps on phase 5's packed shards; ``cli/distill.py`` of an
    LX_STUDENT LXMERT student from ``BEST.pth``; step 1 of the B and A students
    against the f32 truth under phase 5's rule.
+9. Two-tower recall (``models/two_tower.py``) at full width: 4 + 4 layers of
+   768, 12 heads, tanh GELU, embed_dim 128, temperature 0.05, weights from the
+   seed. The towers at B=512 over a testB-like TSV of ONE_SHOT_ROWS rows
+   (~5,000 products, ~140 queries) through ``TowerEngine``, on the default
+   route and with ``KMR_FUSED_LAYER=1`` (launches exact for each tower and
+   batch): the query tower at S=20 and the product tower at S=10 under their
+   key masks (products with no box among them), the label conv and both
+   projections (N=128) on ``gemm_bf16``; the embeddings and the pairs' cosines
+   held to the f32 truth within SCORE_BAND or B_KERNEL_OVER_PLAIN times the
+   plain bf16 route's error, whichever is larger (phase 3's ImageBERT-B rule);
+   device and end-to-end rows/s. Training at TRAIN_B on the TSV's positive
+   rows (query groups from the query ids; the train blocks at dropout 0): step
+   1 against the f32 truth under phase 5's rule, TRAIN_STEPS timed steps with
+   exact launches, and TOWER_CLI_STEPS steps through ``cli/train.py --model
+   two_tower`` with a valid pass. Its ``step_<N>.npz`` feeds ``cli/recall.py
+   build --packed --store-features`` over the TSV and VALID_ROWS planted
+   valid rows, then ``query`` and ``curve`` against the valid answers, then
+   ``cli/cascade.py`` over the packed catalog (ImageBERT-B reranking the
+   CASCADE_K recalled products of each valid query; recall@K and nDCG@5), its
+   scores and rows equal to one ``ScoringEngine`` pass over the recalled
+   candidates. ``cli/bench_recall_3m.py`` at 3M products x 128 as a
+   subprocess (build and recall seconds, peak RSS, the recall curve, 64
+   queries' top-500 held to a float64 oracle on the same bf16 values) beside
+   the derived bound (the float16 catalog once over PCIe, the products at the
+   bf16 peak). Both towers exported (``serving.export_tower``, "xla"),
+   reloaded and equal to the live embedder bit for bit.
 
 The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
 launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
@@ -210,6 +236,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -283,6 +310,14 @@ TRAIN_GRAD_REL_L2 = 2e-2
 # one full-width step vs the f32 truth: each parameter's gradient within 5e-2 relative L2, or within 1.25 x
 # the bf16 plain route's own error, whichever is larger (the ImageBERT-B rule of the scoring phase)
 TRAIN_STEP_REL_L2, TRAIN_OVER_PLAIN = 5e-2, 1.25
+# phase 9: the two-tower's layers per tower and embedding width (models/two_tower.py:TwoTowerConfig), its query
+# and product lengths, the steps of cli/train.py --model two_tower, the cascade's k-recall, the 3M-product
+# catalog of cli/bench_recall_3m.py and that subprocess's time limit, and the host link that catalog crosses
+# (PCIe 5.0 x16, one direction, the H100 SXM's host interface)
+TOWER_LAYERS, TOWER_D, TOWER_Q, TOWER_P = 4, 128, 20, 10
+TOWER_CLI_STEPS, CASCADE_K = 5, 50
+RECALL_3M, RECALL_3M_TIMEOUT_S = 3_000_000, 600
+PCIE_BYTES_PER_S = 64e9
 
 
 def log(msg: str) -> None:
@@ -2451,12 +2486,16 @@ class Smoke:
             f"kernels' sum over the CUDA-event step time)")
         return runs, rates
 
-    def step1_against_truth(self, spec, tc, params, batch, tag: str, must_hold: tuple[str, ...] = ()) -> dict:
+    def step1_against_truth(self, spec, tc, params, batch, tag: str, must_hold: tuple[str, ...] = (),
+                            loss_over_plain: bool = False) -> dict:
         """Step 1 from one params/batch/seed on three routes: the kernels, plain in bf16 and plain in f32 (the
         truth, TF32 off). Fails unless each parameter's gradient on the kernel route is within TRAIN_STEP_REL_L2
         of the truth in relative L2, or within TRAIN_OVER_PLAIN times the bf16 plain route's own error, whichever
-        is larger, the losses are finite and within 1e-2, and every parameter of ``must_hold`` got a non-zero
-        gradient among those held -> the losses (and the MLM loss where it is on) and the worst 5 parameters."""
+        is larger, the losses are finite and within 1e-2 (with ``loss_over_plain``, within 1e-2 or
+        TRAIN_OVER_PLAIN times the plain route's own loss error, whichever is larger: the two-tower's logits
+        are cosines over a temperature of 0.05, twenty times the cosines' bf16 errors), and every parameter of
+        ``must_hold`` got a non-zero gradient among those held -> the losses (and the MLM loss where it is on)
+        and the worst 5 parameters."""
         from importlib import import_module
 
         import numpy as np
@@ -2490,7 +2529,8 @@ class Smoke:
             f"vs the truth, relative L2 (kernel, plain bf16, name), worst 5: "
             f"{[(f'{a:.3g}', f'{b_:.3g}', n) for a, b_, n in worst[:5]]}; band max({TRAIN_STEP_REL_L2:g}, "
             f"{TRAIN_OVER_PLAIN:g} x plain); TF32 after the f32 route: {tf32}")
-        if failed or not all(np.isfinite([loss_k, loss_p, loss_t])) or abs(loss_k - loss_t) > 1e-2:
+        loss_band = max(1e-2, TRAIN_OVER_PLAIN * abs(loss_p - loss_t)) if loss_over_plain else 1e-2
+        if failed or not all(np.isfinite([loss_k, loss_p, loss_t])) or abs(loss_k - loss_t) > loss_band:
             raise RuntimeError(f"{tag}: step-1 gradients of the kernel route disagree with the f32 truth: {failed}")
         by_name = dict(zip(names, gk))
         unheld = [n for n in must_hold if n not in by_name or not by_name[n].abs().max().item() > 0]
@@ -3294,6 +3334,443 @@ class Smoke:
         log(f"phase 8: {rates['phase_seconds']:.1f} s")
         return runs, rates
 
+    # ---- phase 9: two-tower recall ---------------------------------------------------
+
+    def tower_batches(self, fz, exs) -> list[dict]:
+        """The examples in ImageBERT-B's layout, in batches of MAIN_B (the tail padded)."""
+        from importlib import import_module
+
+        data = import_module(f"{PKG}.data")
+        b = MAIN_B
+        return [data.pad_batch(data.stack_examples([fz.imagebert_b(ex) for ex in exs[i:i + b]]), b)
+                for i in range(0, len(exs), b)]
+
+    def tower_embeddings(self, spec, params, fz, exs: dict) -> tuple[dict, dict]:
+        """Part 1 of phase 9: both towers at B=MAIN_B over the products and the queries of ``exs`` (side ->
+        examples), through ``TowerEngine`` on the default route and with KMR_FUSED_LAYER=1 (counted, exact),
+        then on the kernel route, the plain bf16 route and the f32 truth (plain blocks in f32) on the same staged
+        batches: the embeddings and the cosines of the TSV's pairs, the kernels within SCORE_BAND or
+        B_KERNEL_OVER_PLAIN x the plain route's error of the truth, whichever is larger -> (the counted runs'
+        launches, the numbers)."""
+        from importlib import import_module
+
+        torch = self.torch
+        models = import_module(f"{PKG}.models")
+        two_tower = import_module(f"{PKG}.models.two_tower")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+
+        bf16 = models.Precision.bf16()
+        engine = engine_mod.TowerEngine(spec, params, device=self.dev, precision=bf16)
+        runs, out = {}, {}
+        t0 = time.perf_counter()
+        batches = {side: self.tower_batches(fz, exs[side]) for side in ("product", "query")}
+        out["featurize_s"] = time.perf_counter() - t0
+        n = {side: len(exs[side]) for side in batches}
+        for fused in (False, True):  # warm-up of both routes
+            with route(KMR_FUSED_LAYER=fused):
+                for side, bts in batches.items():
+                    engine.embed(side, bts[0])
+        emb, e2e = {}, {}
+        for suffix, fused in (("", False), ("_fused_layer", True)):
+            with route(KMR_FUSED_LAYER=fused):
+                for side, bts in batches.items():
+                    per = tower_fused_launches(side) if fused else tower_launches(side)
+                    t0 = time.perf_counter()
+                    emb[side + suffix] = counted_run(
+                        torch, runs, f"two_tower_{side}{suffix}", expected_launches(len(bts), per),
+                        lambda bts=bts, side=side: torch.cat([engine.embed(side, b) for b in bts]).cpu())[:n[side]]
+                    e2e[side + suffix] = n[side] / (time.perf_counter() - t0)
+        staged = {side: [engine.side_to_device(side, b) for b in bts] for side, bts in batches.items()}
+        params32 = checkpoint.tree_to(params, self.dev)
+        f32 = models.Precision.f32()
+        routes = {"kernel": (engine.params, bf16, models.KERNEL_BLOCKS),
+                  "plain_bf16": (engine.params, bf16, models.PLAIN_BLOCKS),
+                  "f32_truth": (params32, f32, models.PLAIN_BLOCKS)}
+        res, dev_ms = {}, {}
+        with torch.inference_mode(), packed_route():
+            for side in batches:
+                def run(p, prec, blocks, side=side):
+                    return torch.cat([two_tower.SIDES[side][0](p, f, spec.config, prec, blocks) for f in staged[side]])
+
+                for name, args in routes.items():
+                    res[(side, name)] = run(*args).cpu()[:n[side]]
+                dev_ms[side] = cuda_ms(torch, lambda run=run: run(*routes["kernel"]), iters=3, warmup=1)
+                dev_ms[side + "_plain_bf16"] = cuda_ms(torch, lambda run=run: run(*routes["plain_bf16"]), iters=1,
+                                                       warmup=1)
+        del params32, staged
+        for side in batches:
+            if not torch.equal(res[(side, "kernel")], emb[side]):
+                raise RuntimeError(f"the {side} tower through TowerEngine differs from its staged kernel route")
+        # the cosines of the TSV's (query, product) pairs
+        rows = {side: {key: i for i, key in enumerate(keys)} for side, keys in exs["keys"].items()}
+        qi = torch.tensor([rows["query"][q] for q, _ in exs["pairs"]])
+        pi = torch.tensor([rows["product"][p] for _, p in exs["pairs"]])
+
+        def cos(q, p):
+            return (q[qi] * p[pi]).sum(dim=-1)
+
+        errs = {}
+        truth_cos = cos(res[("query", "f32_truth")], res[("product", "f32_truth")])
+        for name in ("kernel", "plain_bf16", "fused_layer"):
+            get = (lambda side: emb[side + "_fused_layer"]) if name == "fused_layer" else (
+                lambda side, name=name: res[(side, name)])
+            for side in batches:
+                errs[f"{side}_emb_{name}"] = (get(side) - res[(side, "f32_truth")]).abs().max().item()
+            errs[f"cos_{name}"] = (cos(get("query"), get("product")) - truth_cos).abs().max().item()
+        for key in ("product_emb", "query_emb", "cos"):
+            for name in ("kernel", "fused_layer"):
+                band = max(SCORE_BAND, B_KERNEL_OVER_PLAIN * errs[f"{key}_plain_bf16"])
+                if not errs[f"{key}_{name}"] <= band:
+                    raise RuntimeError(f"two_tower {key} on the {name} route: max |d| {errs[f'{key}_{name}']:.6g} "
+                                       f"vs the f32 truth, band {band:.6g}")
+        fused_equal = {side: bool(torch.equal(emb[side], emb[side + "_fused_layer"])) for side in batches}
+        for side in batches:
+            if not (bool(torch.isfinite(emb[side]).all()) and emb[side].shape == (n[side], spec.config.embed_dim)):
+                raise RuntimeError(f"the {side} embeddings are not finite or of the wrong shape")
+        out.update({"products": n["product"], "queries": n["query"], "pairs": len(exs["pairs"]),
+                    "max_abs_err_vs_f32_truth": errs, "fused_layer_bit_equal": fused_equal,
+                    "device_ms": dev_ms, "end_to_end_per_second": e2e,
+                    "device_per_second": {side: len(batches[side]) * MAIN_B / dev_ms[side] * 1e3 for side in batches}})
+        log(f"two_tower at B={MAIN_B}: {n['product']} products, {n['query']} queries, {len(exs['pairs'])} pairs; max "
+            f"|d| vs the f32 truth (kernels, plain bf16, fused layer): " + ", ".join(
+                f"{key} {errs[key + '_kernel']:.4g} / {errs[key + '_plain_bf16']:.4g} / {errs[key + '_fused_layer']:.4g}"
+                for key in ("product_emb", "query_emb", "cos"))
+            + f" (band max({SCORE_BAND:g}, {B_KERNEL_OVER_PLAIN:g} x plain)); the fused layer bit-equal to the two "
+            f"blocks: {fused_equal}; device {json.dumps(out['device_per_second'])} rows/s (B={MAIN_B}, padded), end "
+            f"to end {json.dumps(e2e)} rows/s")
+        return runs, out
+
+    def tower_block_rows(self) -> dict[str, dict]:
+        """The towers' launches timed alone at B=MAIN_B, each held against its plain version once more: the
+        attention and FFN blocks (tanh GELU) and the fused layer at S=20 and S=10 under the towers' key masks
+        (lengths 1..S, every fourth pair's keys all masked), with the device's time alone, and the label conv's
+        and a projection's gemm ("f32")."""
+        from importlib import import_module
+
+        k = import_module(f"{PKG}.ops.kernels")
+        ab = import_module(f"{PKG}.ops.attention_block")
+        fb = import_module(f"{PKG}.ops.ffn_block")
+        el = import_module(f"{PKG}.ops.encoder_layer")
+        att = import_module(f"{PKG}.ops.attention")
+        torch = self.torch
+        b, rows = MAIN_B, {}
+        lw = self.layer_args(self.layer_weights())
+        aw, fw = lw[:6], lw[6:]
+        for s in (TOWER_Q, TOWER_P):
+            m = b * s
+            x = self.randn(b, s, H, dtype=torch.bfloat16)
+            lengths = torch.randint(1, s + 1, (b,), generator=self.gen)
+            lengths[::4] = 0
+            bias = att.mask_to_bias((torch.arange(s)[None] < lengths[:, None]).float()).to(self.dev)
+            attn_flops = 2.0 * m * H * 3 * H + 4.0 * b * N * s * s * 64 + 2.0 * m * H * H
+            self.time_row(rows, f"attention_block S={s} tower", "attention_block",
+                          lambda x=x, bias=bias: ab.attention_block(x, *aw, N, bias),
+                          lambda x=x, bias=bias: ab.attention_block_plain(x, *aw, N, bias), None,
+                          2 * m * H * 2 + nbytes_of((bias, *aw)), attn_flops, PEAK_BF16_FLOPS, device=True)
+            self.time_row(rows, f"ffn_block S={s} tower", "ffn_block", lambda x=x: fb.ffn_block(x, *fw),
+                          lambda x=x: fb.ffn_block_plain(x, *fw), None, 2 * m * H * 2 + nbytes_of(fw),
+                          4.0 * m * H * I, PEAK_BF16_FLOPS, device=True)
+            self.time_row(rows, f"encoder_layer S={s} tower", "encoder_layer",
+                          lambda x=x, bias=bias: el.encoder_layer(x, *lw, N, bias),
+                          lambda x=x, bias=bias: el.encoder_layer_plain(x, *lw, N, bias), None,
+                          2 * m * H * 2 + nbytes_of((bias, *lw)), attn_flops + 4.0 * m * H * I, PEAK_BF16_FLOPS,
+                          device=True)
+        band, cbias = self.label_band()
+        a = self.randn(b * 10, 8 * H, dtype=torch.bfloat16)
+        self.time_row(rows, "gemm_bf16 label conv [f32] tower", "gemm_bf16", lambda: k.gemm(a, band, cbias, "f32"),
+                      lambda: k.gemm_plain(a, band, cbias, "f32"), lambda: torch.matmul(a, band),
+                      nbytes_of((a, band, cbias)) + b * 10 * 8 * H * 4, 2.0 * b * 10 * H * H * CONV_BLOCKS,
+                      PEAK_BF16_FLOPS, F32_OUT_BAND, 0.0)
+        pa = self.randn(b, H, dtype=torch.bfloat16)
+        pw, pb = self.randn(H, TOWER_D, scale=H ** -0.5, dtype=torch.bfloat16), self.randn(TOWER_D, scale=0.02)
+        self.time_row(rows, "gemm_bf16 projection [f32] tower", "gemm_bf16", lambda: k.gemm(pa, pw, pb, "f32"),
+                      lambda: k.gemm_plain(pa, pw, pb, "f32"), lambda: torch.matmul(pa, pw),
+                      nbytes_of((pa, pw, pb)) + b * TOWER_D * 4, 2.0 * b * H * TOWER_D, PEAK_BF16_FLOPS,
+                      F32_OUT_BAND, 0.0, device=True)
+        if self.failures:
+            raise RuntimeError(f"the towers' launches disagree with their plain versions: {self.failures}")
+        return rows
+
+    def two_tower(self) -> tuple[dict[str, dict], dict]:
+        """Phase 9: two-tower recall at full width (4 + 4 layers of 768, embed_dim 128) from the seed's weights:
+        the towers at B=MAIN_B over a testB-like TSV (``tower_embeddings``); training at TRAIN_B (step 1 against
+        the f32 truth, TRAIN_STEPS timed steps, TOWER_CLI_STEPS steps and a valid pass through ``cli/train.py``);
+        ``cli/recall.py build --packed --store-features`` of the TSV and the planted valid set with the trained
+        ``step_<N>.npz``, ``query``, ``curve`` and ``cli/cascade.py`` over the packed catalog (ImageBERT-B
+        reranking), its rows held to a ``ScoringEngine`` pass over the recalled candidates; the 3M-product recall
+        (``cli/bench_recall_3m.py``, its float64 oracle); both towers exported, reloaded and held to the live
+        embedder -> (each counted run's launches, the phase's numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        models = import_module(f"{PKG}.models")
+        data = import_module(f"{PKG}.data")
+        pipeline = import_module(f"{PKG}.data.pipeline")
+        synthetic = import_module(f"{PKG}.data.synthetic")
+        tok = import_module(f"{PKG}.tokenization")
+        train = import_module(f"{PKG}.train")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        serving = import_module(f"{PKG}.serving")
+        train_cli = import_module(f"{PKG}.cli.train")
+        recall_cli = import_module(f"{PKG}.cli.recall")
+        cascade_cli = import_module(f"{PKG}.cli.cascade")
+
+        t_phase = time.perf_counter()
+        work = pkg.BUILD_DIR / "smoke" / "tower"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        tsv, labels = work / "testB.tsv", work / "labels.txt"
+        testb = synthetic.make_testb_tsv(ONE_SHOT_ROWS, seed=self.seed)
+        tsv.write_text("\n".join(testb) + "\n")
+        labels.write_text("".join(f"{key}\t{val}\n" for key, val in synthetic.SYNTHETIC_LABELS.items()))
+        valid_tsv, answers = self.valid_data(work)
+        catalog_tsv = work / "catalog.tsv"  # the testB rows and the valid rows: the answers' products are in it
+        catalog_tsv.write_text("\n".join(testb + valid_tsv.read_text().splitlines()[1:]) + "\n")
+        # the training rows: testB's, shuffled from the seed (in file order a 256-row batch holds ~5 queries, whose
+        # groups would mask most of its in-batch negatives)
+        train_tsv = work / "train.tsv"
+        order = np.random.default_rng(self.seed).permutation(len(testb) - 1) + 1
+        train_tsv.write_text("\n".join([testb[0]] + [testb[i] for i in order]) + "\n")
+        spec = models.get_model("two_tower")
+        tcfg = spec.config
+        if (tcfg.bert.hidden_size, tcfg.bert.num_hidden_layers, tcfg.bert.num_attention_heads, tcfg.embed_dim,
+                tcfg.temperature) != (H, TOWER_LAYERS, N, TOWER_D, 0.05):
+            raise RuntimeError(f"not the full-width two-tower config: {tcfg} (is KMR_TOWER_CONFIG_OVERRIDES set?)")
+        params = spec.init_params(self.seed)
+        fz = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels))
+        with open(tsv, "r", encoding="utf-8") as f:
+            examples = list(pipeline.iter_examples(f))
+        products, queries = {}, {}
+        for ex in examples:
+            products.setdefault(ex.product_id, ex)
+            queries.setdefault(ex.query_id, ex)
+        exs = {"product": list(products.values()), "query": list(queries.values()),
+               "pairs": [(ex.query_id, ex.product_id) for ex in examples]}
+        exs["keys"] = {"product": [ex.product_id for ex in exs["product"]], "query": [ex.query_id for ex in exs["query"]]}
+        log(f"phase 9 setup: {len(examples)}-row testB-like TSV, {len(exs['product'])} products, {len(exs['query'])} "
+            f"queries; two_tower {TOWER_LAYERS}+{TOWER_LAYERS} x {H} layers, embed_dim {TOWER_D}, params in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        runs, rates = {}, {"card": nvidia_smi()}
+
+        def counted(path, expected, fn):
+            return counted_run(torch, runs, path, {k: expected.get(k, 0) for k in expected_launches(0, {})}, fn)
+
+        # 1: the towers, and their launches timed alone
+        tower_runs, rates["towers"] = self.tower_embeddings(spec, params, fz, exs)
+        runs.update(tower_runs)
+        blocks = self.tower_block_rows()
+        rates["towers"]["block_rows"] = blocks
+        rates["towers"]["device_ms_per_batch"] = tower_breakdown(blocks, rates["towers"])
+        log(json.dumps({"two_tower_device_ms_per_batch": rates["towers"]["device_ms_per_batch"]}))
+
+        # 4 (before 2: its checkpoint feeds the recall build): training at TRAIN_B on the TSV's positive rows,
+        # shuffled
+        train_batches = list(itertools.islice(train_cli.positive_batches(fz, [str(train_tsv)], TRAIN_B), TRAIN_STEPS))
+        tc = train.recipe_for("two_tower")
+        step1 = self.step1_against_truth(spec, tc, params, train_batches[0], "two_tower", loss_over_plain=True,
+                                         must_hold=("query_proj/kernel", "product_proj/kernel", "kdd_conv1/weights",
+                                                    "kdd_conv2/kernel", "bert/embeddings/word_embeddings",
+                                                    "bert/embeddings/position_embeddings"))
+        trainer = train.Trainer(spec, tc, precision=models.Precision.bf16(), device=self.dev)
+        state = trainer.init_state(params)
+        runs["two_tower_train"], steps = self.timed_train_steps(trainer, state, train_batches, TOWER_TRAIN, "two_tower")
+        del trainer, state
+        run_dir = work / "train"
+        n_valid = -(-VALID_ROWS // TRAIN_B)
+        expected = sum_launches((TOWER_CLI_STEPS, TOWER_TRAIN), (n_valid, tower_pair_launches()))
+        report = counted("two_tower_train_cli", expected, lambda: train_cli.main([
+            "--model", "two_tower", "--train-tsv", str(train_tsv), "--labels", str(labels), "--steps",
+            str(TOWER_CLI_STEPS),
+            "--batch-size", str(TRAIN_B), "--out", str(run_dir), "--valid-tsv", str(valid_tsv), "--answers",
+            str(answers), "--valid-every", str(TOWER_CLI_STEPS), "--checkpoint-every", str(TOWER_CLI_STEPS),
+            "--seed", str(self.seed)]))
+        first = json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[0])
+        ckpt = run_dir / f"step_{TOWER_CLI_STEPS}.npz"
+        if not np.isfinite([first["loss"], first["in_batch_accuracy"]]).all() or not ckpt.exists() \
+                or report["pairs"] != TOWER_CLI_STEPS * TRAIN_B or not report["valid"]:
+            raise RuntimeError(f"cli/train.py --model two_tower: first metrics {first}, report {report}")
+        rates["train"] = {"step1": step1, "steps": steps, "cli": report, "first_metrics": first}
+        log(f"two_tower training at B={TRAIN_B}: {steps['device_pairs_per_second']:.1f} pairs/s on the device; "
+            f"cli/train.py {report['pairs']} pairs in {report['seconds']:.3f} s = {report['pairs_per_second']:.1f} "
+            f"pairs/s end to end; step 0 loss {first['loss']:.5f}, in-batch accuracy {first['in_batch_accuracy']:.4f}; "
+            f"valid {json.dumps(report['valid'])}")
+
+        # 2: the recall CLIs over a packed catalog built with the trained towers, and the cascade
+        cat = work / "catalog"
+        n_catalog = ONE_SHOT_ROWS + VALID_ROWS
+        common = ["--labels", str(labels), "--checkpoint", str(ckpt)]
+        t0 = time.perf_counter()
+        counted("two_tower_recall_build", expected_launches(-(-n_catalog // MAIN_B), tower_launches("product")),
+                lambda: recall_cli.main(["build", "--tsv", str(catalog_tsv), *common, "--out", str(cat), "--packed",
+                                         "--store-features"]))
+        build_s = time.perf_counter() - t0
+        ds = data.CatalogDataset(cat)
+        if len(ds) != n_catalog or "features" not in ds.fields:
+            raise RuntimeError(f"the packed catalog holds {len(ds)} products and {ds.fields}, expected {n_catalog}")
+        n_q = -(-VALID_ROWS // MAIN_B)
+        recall_tsv = work / "recall.tsv"
+        counted("two_tower_recall_query", expected_launches(n_q, tower_launches("query")),
+                lambda: recall_cli.main(["query", "--tsv", str(valid_tsv), *common, "--catalog", str(cat), "--out",
+                                         str(recall_tsv)]))
+        lines = recall_tsv.read_text().splitlines()
+        pids = {int(p) for p in ds.product_ids()}
+        if len(lines) != VALID_ROWS or not all(int(p) in pids for ln in lines for p in ln.split("\t")[1].split(",")):
+            raise RuntimeError(f"recall.tsv: {len(lines)} rows, or products outside the catalog")
+        curve = counted("two_tower_recall_curve", expected_launches(n_q, tower_launches("query")),
+                        lambda: recall_cli.main(["curve", "--tsv", str(valid_tsv), *common, "--catalog", str(cat),
+                                                 "--answers", str(answers), "--ks", "5,10,50,100"]))
+        csv = work / "cascade.csv"
+        n_queries = len(json.loads(answers.read_text()))
+        n_rerank = -(-n_queries * CASCADE_K // MAIN_B)
+        t0 = time.perf_counter()
+        casc = counted("two_tower_cascade", sum_launches((1, tower_launches("query")),
+                                                         (n_rerank, PER_BATCH["imagebert_b"])),
+                       lambda: cascade_cli.main(["--queries", str(valid_tsv), "--catalog", str(cat), "--labels",
+                                                 str(labels), "--tower-checkpoint", str(ckpt), "--cross-model",
+                                                 "imagebert_b", "--k-recall", str(CASCADE_K), "--answers", str(answers),
+                                                 "--batch-size", str(MAIN_B), "--out", str(csv)]))
+        cascade_s = time.perf_counter() - t0
+        agree = self.cascade_agreement(ds, valid_tsv, labels, ckpt, casc, csv)
+        rates["recall"] = {"catalog_rows": n_catalog, "build_s": build_s, "curve": curve,
+                           "catalog_bytes": sum(p.stat().st_size for p in cat.iterdir()),
+                           "cascade": {k: casc[k] for k in ("recall_at_k", "k", "cascade_ndcg5", "queries", "pairs")},
+                           "cascade_s": cascade_s, "cascade_agreement": agree}
+        log(f"two_tower recall: the packed catalog of {n_catalog} rows built in {build_s:.2f} s "
+            f"({rates['recall']['catalog_bytes'] / 1e6:.1f} MB); curve {json.dumps(curve)}; cascade over it "
+            f"(ImageBERT-B, k-recall {CASCADE_K}) in {cascade_s:.2f} s: recall@{casc['k']} {casc['recall_at_k']}, "
+            f"nDCG@5 {casc['cascade_ndcg5']} over {casc['queries']} queries and {casc['pairs']} pairs; its rows equal "
+            f"a ScoringEngine pass over the recalled candidates")
+
+        # 3: the 3M-product recall, a subprocess (its own peak RSS)
+        rates["recall_3m"] = self.recall_3m(work / "recall3m")
+
+        # 5: both towers exported, reloaded and held to the live embedder on the "xla" backend
+        rates["export"] = self.export_towers(spec, params, fz, exs, work, runs)
+        shutil.rmtree(work)
+        rates["phase_seconds"] = time.perf_counter() - t_phase
+        log(f"phase 9: {rates['phase_seconds']:.1f} s")
+        return runs, rates
+
+    def cascade_agreement(self, ds, valid_tsv, labels, ckpt, casc: dict, csv) -> dict:
+        """The cascade's rerank scores and rows against one ScoringEngine pass over the recalled candidates:
+        the queries embedded from ``ckpt`` (in the cascade's batch), recalled over ``ds``, the candidates' rows
+        gathered and reranked by ImageBERT-B (the seed-0 init the cascade takes) in batches of MAIN_B ->
+        the numbers; raises unless the scores are bit-equal and every row is their top 5."""
+        from importlib import import_module
+
+        import numpy as np
+
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        pipeline = import_module(f"{PKG}.data.pipeline")
+        tok = import_module(f"{PKG}.tokenization")
+        models = import_module(f"{PKG}.models")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        recall_cli = import_module(f"{PKG}.cli.recall")
+
+        fz = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels))
+        by_id = {}
+        with open(valid_tsv, "r", encoding="utf-8") as f:
+            for ex in pipeline.iter_examples(f):
+                by_id.setdefault(ex.query_id, ex)
+        queries = list(by_id.values())
+        towers = recall_cli.tower_engine(ckpt, self.dev)
+        q = towers.embed("query", self.tower_batches(fz, queries)[0]).cpu().numpy()[:len(queries)]
+        _, top = data.recall_chunked(q, ds, k=min(CASCADE_K, len(ds)), device=self.dev)
+        spec = models.get_model("imagebert_b")
+        engine = engine_mod.ScoringEngine(spec, spec.init_params(0), device=self.dev)
+        qrows, cols = np.nonzero(top >= 0)
+        idx = top[qrows, cols]
+        scores: dict[str, dict[str, float]] = {}
+        for i in range(0, len(idx), MAIN_B):
+            rows = ds.rows(idx[i:i + MAIN_B])
+            qr = qrows[i:i + MAIN_B]
+            batch = data.pad_batch(data.rerank_batch("imagebert_b", [fz.query_token_ids(queries[r]) for r in qr],
+                                                     np.array([queries[r].query_id for r in qr]), rows), MAIN_B)
+            s = engine.score_batch(batch).float().cpu().numpy()[:len(qr)]
+            for j, sc in enumerate(s):
+                scores.setdefault(str(queries[qr[j]].query_id), {})[str(int(rows["product_id"][j]))] = float(sc)
+        if scores != casc["scores"]:
+            raise RuntimeError("the cascade's rerank scores differ from a ScoringEngine pass over its candidates")
+        want = [f"{qid}," + ",".join(p for p, _ in sorted(scores[qid].items(), key=lambda kv: -kv[1])[:5])
+                for qid in (str(ex.query_id) for ex in queries)]
+        got = csv.read_text().splitlines()[1:]
+        if got != want:
+            raise RuntimeError("the cascade's rows are not the top 5 of the engine's scores")
+        return {"queries": len(queries), "pairs": int(len(idx)), "scores_bit_equal": True, "rows_equal": True}
+
+    def recall_3m(self, out_dir) -> dict:
+        """``cli/bench_recall_3m.py --products 3000000 --queries 512 --dim 128 --check-queries 64`` as a
+        subprocess on the card: its last line (build and recall seconds, peak RSS, the recall curve, the float64
+        oracle's check), beside the derived bound of the recall (the float16 catalog once over PCIe, the
+        products at the bf16 peak); the ~0.8 GB of shards deleted after."""
+        # started through a small launcher process: Linux carries a process's peak RSS (ru_maxrss) across
+        # fork and exec, so a child of this ~12 GB process would report this process's peak as its own
+        launcher = "import subprocess, sys; sys.exit(subprocess.call(sys.argv[1:]))"
+        cmd = [sys.executable, "-c", launcher, sys.executable, "-m", f"{PKG}.cli.bench_recall_3m", "--products",
+               str(RECALL_3M), "--queries", str(MAIN_B), "--dim", str(TOWER_D), "--out-dir", str(out_dir),
+               "--check-queries", "64"]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=REPO, timeout=RECALL_3M_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if r.returncode != 0:
+            log(r.stderr[-4000:])
+            raise RuntimeError(f"cli/bench_recall_3m.py exited {r.returncode}: {r.stdout[-2000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        catalog_bytes = RECALL_3M * TOWER_D * 2
+        flops = 2.0 * MAIN_B * RECALL_3M * TOWER_D
+        pcie_ms, mm_ms = catalog_bytes / PCIE_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        line.update(wall_s=wall, bound={"catalog_bytes": catalog_bytes, "pcie_ms": pcie_ms, "flops": flops,
+                                        "products_ms": mm_ms, "bound_ms": max(pcie_ms, mm_ms),
+                                        "bound_by": "bytes over PCIe" if pcie_ms >= mm_ms else "operations"})
+        log(f"recall 3M: {json.dumps(line)}")
+        if not line["check"]["ok"] or line["products"] != RECALL_3M:
+            raise RuntimeError(f"the 3M-product recall disagrees with its float64 oracle: {line['check']}")
+        return line
+
+    def export_towers(self, spec, params, fz, exs, work, runs: dict) -> dict:
+        """Both towers exported at B=MAIN_B in bf16 (``serving.export_tower``, the "xla" backend), reloaded, and
+        one batch embedded by the artifact and by the live ``TowerEngine`` on the same backend: bit-equal, with
+        the same launches (the label conv's and the projection's gemm; counted) -> the numbers."""
+        from importlib import import_module
+
+        torch = self.torch
+        models = import_module(f"{PKG}.models")
+        serving = import_module(f"{PKG}.serving")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        bf16 = models.Precision.bf16()
+        live = engine_mod.TowerEngine(spec, params, device=self.dev, precision=bf16, attention_backend="xla")
+        out = {}
+        for side in ("query", "product"):
+            batch = self.tower_batches(fz, exs[side][:MAIN_B])[0]
+            t0 = time.perf_counter()
+            art_dir = work / f"export_{side}"
+            meta = serving.save_scorer(art_dir, serving.export_tower(spec, params, side, MAIN_B, bf16, self.dev),
+                                       f"two_tower_{side}", MAIN_B, "xla")
+            scorer = serving.load_scorer(art_dir)
+            seconds = time.perf_counter() - t0
+            feats = {k: batch[k] for k in scorer.feature_keys}
+            want = live.embed(side, batch).cpu()
+            scorer(feats)  # warm-up
+            per = {"gemm": 1 + (side == "product")}
+            got = torch.from_numpy(counted_run(torch, runs, f"two_tower_export_{side}", expected_launches(1, per),
+                                               lambda: scorer(feats)))
+            equal = bool(torch.equal(got, want))
+            size = sum(f.stat().st_size for f in art_dir.iterdir())
+            out[side] = {"export_save_load_seconds": seconds, "bytes": size, "custom_ops": meta["custom_ops"],
+                         "bit_equal_to_live": equal, "max_abs_err": (got - want).abs().max().item()}
+            log(f"export two_tower {side}: traced, saved ({size / 1e6:.1f} MB) and reloaded in {seconds:.1f} s; "
+                f"custom ops {meta['custom_ops']}; one batch bit-equal to the live embedder: {equal}")
+            if not equal:
+                raise RuntimeError(f"the exported {side} tower differs from the live embedder: {out[side]}")
+        return out
+
 
 PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
 PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
@@ -3363,9 +3840,10 @@ def gemm_sites() -> list[tuple]:
     """Every gemm_bf16 launch shape of the driven paths, one row per distinct
     (M, N, K, epilogue, trans_b) of a path: (path, site, M, N, K, epilogue,
     trans_b, launches per 512-pair batch or per training step). Scoring: the
-    default route at B=512; training at B=256, where a backward recomputes its
-    block's forward products and the last x-layer's visn stream runs no
-    backward (PER_STEP_LXMERT)."""
+    default route at B=512 (the two-tower: a batch of 512 queries and one of
+    512 products); training at B=256, where a backward recomputes its block's
+    forward products and the last x-layer's visn stream runs no backward
+    (PER_STEP_LXMERT)."""
     l_, r_, x_ = LX_DEPTHS
     rows = []
 
@@ -3399,6 +3877,13 @@ def gemm_sites() -> list[tuple]:
                                                            "f32", False, 1)]
     rows += layers("lxmert", lf, l_ + x_, "gelu_erf") + layers("lxmert", lt, r_ + x_, "gelu_erf")
     rows += cross("lxmert", lf, lt, x_) + cross("lxmert", lt, lf, x_)
+    # the two-tower: both towers' layers at B=512 (queries and products), the product tower's label conv, and
+    # the two projections to TOWER_D columns ("f32", M = 512)
+    rows += layers("two_tower", MAIN_B * TOWER_Q, TOWER_LAYERS, "gelu_tanh")
+    rows += layers("two_tower", MAIN_B * TOWER_P, TOWER_LAYERS, "gelu_tanh") + [
+        ("two_tower", "label conv", MAIN_B * 10, 8 * H, 8 * H, "f32", False, 1),
+        ("two_tower", "query_proj", MAIN_B, TOWER_D, H, "f32", False, 1),
+        ("two_tower", "product_proj", MAIN_B, TOWER_D, H, "f32", False, 1)]
     ta, tb, tf, tt = TRAIN_B * S, TRAIN_B * B_S, TRAIN_B * LX_F, TRAIN_B * LX_T
     rows += layers("imagebert_a_train", ta, 12, "gelu_tanh", bwd=12)
     rows += layers("imagebert_b_train", tb, 12, "gelu_tanh", bwd=12) + [
@@ -3407,6 +3892,12 @@ def gemm_sites() -> list[tuple]:
     rows += layers("lxmert_train", tf, l_ + x_, "gelu_erf", bwd=l_ + x_)
     rows += layers("lxmert_train", tt, r_ + x_, "gelu_erf", bwd=r_ + x_ - 1)
     rows += cross("lxmert_train", tf, tt, x_, bwd=x_) + cross("lxmert_train", tt, tf, x_, bwd=x_ - 1)
+    # its training step at B=256: both towers' layers forward and backward (the projections are plain products)
+    # and the label conv's Function
+    rows += layers("two_tower_train", TRAIN_B * TOWER_Q, TOWER_LAYERS, "gelu_tanh", bwd=TOWER_LAYERS)
+    rows += layers("two_tower_train", TRAIN_B * TOWER_P, TOWER_LAYERS, "gelu_tanh", bwd=TOWER_LAYERS) + [
+        ("two_tower_train", "label conv", TRAIN_B * 10, 8 * H, 8 * H, "f32", False, 1),
+        ("two_tower_train", "label conv dx = d band^T", TRAIN_B * 10, 8 * H, 8 * H, "bias", True, 1)]
     merged: dict[tuple, list] = {}
     for path, site, m, n, k, epi, trans, launches in rows:
         key = (path, m, n, k, epi, trans)
@@ -3641,6 +4132,44 @@ def train_launches(model: str, depth) -> dict:
     return per
 
 
+def tower_launches(side: str) -> dict:
+    """Launches per batch of one two-tower embedder on the default route: its TOWER_LAYERS layers, its
+    projection's gemm ("f32") and, for the product tower, the label conv's."""
+    per = scoring_launches("imagebert_a", TOWER_LAYERS)
+    per["gemm"] += 1 + (side == "product")
+    return per
+
+
+def tower_fused_launches(side: str) -> dict:
+    """The same with KMR_FUSED_LAYER=1: each layer one fused encoder layer (QKV gemm, attn_core, layer_tail)."""
+    return {"encoder_layer": TOWER_LAYERS, "gemm": TOWER_LAYERS + 1 + (side == "product"), "attn_core": TOWER_LAYERS,
+            "layer_tail": TOWER_LAYERS}
+
+
+def tower_breakdown(blocks: dict, towers: dict) -> dict:
+    """One 512-row batch of each tower on the device (default route): its layers from their launches timed
+    alone, the label conv's and the projection's gemm, and the rest of the measured time (the embeddings and
+    their LayerNorm, the mean pooling, the L2 norms, the host's enqueue between launches)."""
+    out = {}
+    for side, s, conv, count in (("query", TOWER_Q, False, "queries"), ("product", TOWER_P, True, "products")):
+        r = {"attention_blocks": TOWER_LAYERS * blocks[f"attention_block S={s} tower"]["ms"],
+             "ffn_blocks": TOWER_LAYERS * blocks[f"ffn_block S={s} tower"]["ms"],
+             "projection": blocks["gemm_bf16 projection [f32] tower"]["ms"]}
+        if conv:
+            r["label_conv"] = blocks["gemm_bf16 label conv [f32] tower"]["ms"]
+        batches = -(-towers[count] // MAIN_B)
+        model = towers["device_ms"][side] / batches
+        r["rest"] = model - sum(r.values())
+        r["model"] = model
+        out[side] = r
+    return out
+
+
+def tower_pair_launches() -> dict:
+    """Launches per batch of (query, product) pairs, scored as their cosines (both towers)."""
+    return sum_launches((1, tower_launches("query")), (1, tower_launches("product")))
+
+
 def sum_launches(*parts: tuple[int, dict]) -> dict:
     """(n, launches per batch or step) pairs -> the launches of them all."""
     out: dict[str, int] = {}
@@ -3648,6 +4177,11 @@ def sum_launches(*parts: tuple[int, dict]) -> dict:
         for name, v in per.items():
             out[name] = out.get(name, 0) + n * v
     return out
+
+
+# launches per two-tower training step: both towers' layers as ImageBERT-A's train blocks at dropout 0, and the
+# label conv's Function (forward and dx); the projections and the contrastive logits are plain products
+TOWER_TRAIN = sum_launches((2, train_launches("imagebert_a", TOWER_LAYERS)), (1, {"gemm": 2}))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3715,7 +4249,8 @@ def main(argv: list[str] | None = None) -> int:
             raise RuntimeError("the launch counts at any depth disagree with the full-depth tables")
         per_path = {"imagebert_a": PER_BATCH["imagebert_a"]["gemm"], "imagebert_b": PER_BATCH["imagebert_b"]["gemm"],
                     "lxmert": PER_BATCH["lxmert"]["gemm"], "imagebert_a_train": PER_STEP["gemm"],
-                    "imagebert_b_train": PER_STEP_B["gemm"], "lxmert_train": PER_STEP_LXMERT["gemm"]}
+                    "imagebert_b_train": PER_STEP_B["gemm"], "lxmert_train": PER_STEP_LXMERT["gemm"],
+                    "two_tower": tower_pair_launches()["gemm"], "two_tower_train": TOWER_TRAIN["gemm"]}
         if gemm_site_launches() != per_path:
             raise RuntimeError(f"gemm sites launch {gemm_site_launches()} a batch or step, the paths {per_path}")
         smoke.time_gemm_sites()
@@ -3789,15 +4324,17 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"one_shot": ot_rates}))
         di_launches, di_rates = smoke.import_and_distil()
         log(json.dumps({"import_and_distil": di_rates}))
+        tt_launches, tt_rates = smoke.two_tower()
+        log(json.dumps({"two_tower": tt_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
                         "mha_packed_entry": packed, **train_runs, **b_train_launches,
-                        "lxmert_train": lx_train_launches, **ot_launches, **di_launches}
+                        "lxmert_train": lx_train_launches, **ot_launches, **di_launches, **tt_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:
             raise RuntimeError(f"kernels never launched on a driven path: {unlaunched}")
         log(json.dumps(line))
-        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-8, the build included")
+        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-9, the build included")
         log(f"nvidia-smi: {nvidia_smi()}")
     except Exception:  # any phase failing fails the run, with its traceback
         traceback.print_exc()

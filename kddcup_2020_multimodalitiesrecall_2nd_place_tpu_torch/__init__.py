@@ -15,9 +15,11 @@ and the multi-process loader (``data/native/``, ``data/fast_pipeline.py``,
 ``data/multiworker.py``), the one-shot run, four scorers fused into the
 top-5 submission (``ensemble/``, ``cli/submission.py``, ``cli/main.py``),
 the import of the reference's TF1 and torch checkpoints (``checkpoint/``,
-``cli/convert_checkpoint.py``) and distillation into shallower students
-(``train/distill.py``, ``cli/distill.py``, ``cli/score_fidelity.py``).
-ROADMAP.md lists what is still to come.
+``cli/convert_checkpoint.py``), distillation into shallower students
+(``train/distill.py``, ``cli/distill.py``, ``cli/score_fidelity.py``) and
+two-tower recall in front of the cross-encoders (``models/two_tower.py``,
+``data/catalog.py``, ``cli/recall.py``, ``cli/cascade.py``,
+``cli/bench_recall_3m.py``). ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

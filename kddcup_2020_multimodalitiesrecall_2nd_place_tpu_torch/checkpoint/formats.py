@@ -10,6 +10,8 @@ takes, the port of the JAX package's ``scripts/score.py`` :43-82
 * anything else: a TF1 bundle prefix (``<prefix>.index`` beside it), the
   ImageBERT-A importer, or for B/C the importer of the EMA shadows.
 
+The two-tower model has no reference checkpoint: it reads npz param trees only.
+
 A directory is an orbax tree of the JAX package: reading one needs orbax and
 tensorstore, which the port does not depend on, so it raises (ROADMAP.md
 Queue 1 item 8).
@@ -55,9 +57,12 @@ def read_checkpoint(model_name: str, path, spec) -> dict:
             flat = {k: data[k] for k in data.files}
         if _is_param_tree(flat):
             return unflatten_tree(flat)
-    elif p.suffix in TORCH_SUFFIXES:
+    if model_name == "two_tower":
+        raise ValueError(f"{path}: a two_tower checkpoint is an npz param tree (the JAX package's save_npz, "
+                         "the port's step_<N>.npz); the reference has no tower checkpoint to import")
+    if p.suffix in TORCH_SUFFIXES:
         return lxmert_from_torch(read_torch_state_dict(p), spec.config)
-    else:
+    if p.suffix != ".npz":
         flat = read_tf_checkpoint(p)
     if model_name == "imagebert_a":
         return imagebert_a_from_tf(flat, spec.config)

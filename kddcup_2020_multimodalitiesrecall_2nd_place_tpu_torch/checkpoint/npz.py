@@ -3,16 +3,17 @@
 * ``flatten_tree`` / ``unflatten_tree`` / ``load_npz``: the port's own copy
   of the flat ``a/b/c``-keyed npz interchange of the JAX package
   (``checkpoint/orbax_io.py`` :37-64).
-* ``params_from_jax``: an ImageBERT-A, ImageBERT-B/C or LXMERT tree of
-  numpy arrays in the JAX layout -> float32 torch tensors, with each
+* ``params_from_jax``: an ImageBERT-A, ImageBERT-B/C, LXMERT or two-tower
+  tree of numpy arrays in the JAX layout -> float32 torch tensors, with each
   attention's query/key/value fused ONCE (``models/core.py:attention_forms``;
   the JAX package concatenates them on every call, ``models/core.py``
   :293-299, :315-316, :400-401). Leaves a model stores in another form
   are left to its spec's ``from_jax`` (ImageBERT-B's label-conv band).
-* ``params_to_jax``: the inverse for an ImageBERT-A, ImageBERT-B/C or
-  LXMERT tree: each fused ``qkv`` split back into query/key/value (LXMERT's
+* ``params_to_jax``: the inverse for an ImageBERT-A, ImageBERT-B/C, LXMERT or
+  two-tower tree: each fused ``qkv`` split back into query/key/value (LXMERT's
   ``visual_attention`` from its ``query`` and ``kv``, which training updates,
-  never from ``qkv``), ImageBERT-B's banded ``kdd_conv1`` back into its taps,
+  never from ``qkv``), a banded ``kdd_conv1`` (ImageBERT-B's, the product
+  tower's) back into its taps,
   numpy leaves, so ``save_npz`` writes a checkpoint that the port's
   ``cli/score.py`` and the JAX package's ``scripts/score.py`` both load.
 * ``scoring_params``: a tree without the MLM head, which no scorer reads.
@@ -70,11 +71,16 @@ def _to_torch(tree):
     return torch.from_numpy(np.array(tree, dtype=np.float32, order="C"))
 
 
+# the two-tower tree's encoders: scan-stacked encoders of their own, beside ``bert/embeddings``
+TOWER_ENCODERS = ("query_encoder", "product_encoder")
+
+
 def params_from_jax(tree: dict) -> Params:
-    """JAX ImageBERT-A, ImageBERT-B/C or LXMERT param tree (numpy leaves) ->
-    the port's float32 params; an LXMERT tree is told by its ``x_layers``.
-    ImageBERT-B's ``kdd_conv1`` taps stay as in the JAX tree: its spec's
-    ``from_jax`` bands them (the AM head's ``am_kernel`` stays f32).
+    """JAX ImageBERT-A, ImageBERT-B/C, LXMERT or two-tower param tree (numpy
+    leaves) -> the port's float32 params; an LXMERT tree is told by its
+    ``x_layers``, a two-tower tree by its ``query_encoder``. ``kdd_conv1``'s
+    taps stay as in the JAX tree: the spec's ``from_jax`` bands them (the AM
+    head's ``am_kernel`` stays f32).
 
     The MLM head ``cls/predictions`` is kept (the MLM loss of A and LXMERT
     trains it; ``scoring_params`` leaves it out; ImageBERT-B's ``from_jax``
@@ -83,6 +89,10 @@ def params_from_jax(tree: dict) -> Params:
     train them). LXMERT's NSP head ``cls/seq_relationship``, which no loss or
     scorer of the port reads, is dropped."""
     params = _to_torch(tree)
+    if TOWER_ENCODERS[0] in params:
+        for name in TOWER_ENCODERS:
+            params[name]["attention"] = attention_forms(params[name]["attention"])
+        return params
     enc = params["bert"]["encoder"]
     if "x_layers" in enc:
         for stack in ("layer", "r_layers"):
@@ -126,8 +136,8 @@ def _split_attention(att: dict) -> dict:
 
 
 def params_to_jax(params: Params) -> dict:
-    """The port's ImageBERT-A, ImageBERT-B/C or LXMERT params (with or without
-    LXMERT's ``visual_attention/qkv``; B's ``kdd_conv1`` banded or as taps) ->
+    """The port's ImageBERT-A, ImageBERT-B/C, LXMERT or two-tower params (with or
+    without LXMERT's ``visual_attention/qkv``; ``kdd_conv1`` banded or as taps) ->
     the JAX package's tree layout, numpy float32 leaves: the inverse of
     ``params_from_jax``. ``kdd_query_match`` and the AM head's f32
     ``am_kernel`` pass as they are."""
@@ -139,6 +149,10 @@ def params_to_jax(params: Params) -> dict:
     if "kernel" in params.get("kdd_conv1", {}):
         params = {**params, "kdd_conv1": label_conv_taps(params["kdd_conv1"])}
     tree = to_numpy(params)
+    if TOWER_ENCODERS[0] in tree:
+        for name in TOWER_ENCODERS:
+            tree[name]["attention"] = _split_attention(tree[name]["attention"])
+        return tree
     enc = tree["bert"]["encoder"]
     if "x_layers" in enc:
         for stack in ("layer", "r_layers"):

@@ -19,6 +19,14 @@ prepares them (matmul kernels cast to the compute dtype), so an artifact
 scores as the engine does. ``--backend pallas_packed`` traces the fused
 blocks' CUDA kernels as custom ops (``ops/library.py``), which the loading
 process registers; ``xla`` (the default) traces plain operators only.
+
+``--model two_tower --side query|product`` exports one embedder of the
+recall towers (``serving.export_tower``: [B, D] unit embeddings; the
+checkpoint a two-tower npz tree), as the JAX script does: ``--side`` is
+required, ``--quantize`` is refused, and the backend is ``xla``, which the
+JAX package pins for the towers. On the card that backend's encoder blocks
+are plain PyTorch operators; in bf16 the label conv and the projection run
+``gemm_bf16`` (the ``kmr::gemm`` custom op, listed in ``meta.json``).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch
 from ..models import Precision, get_model
 from ..parallel import resolve_device
 from ..parallel.engine import default_precision
-from ..serving import export_scorer, save_scorer
+from ..serving import export_scorer, export_tower, save_scorer
 from ..checkpoint import load_checkpoint
 from .score import load_student_overrides
 
@@ -40,6 +48,8 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", required=True,
                     choices=["imagebert_a", "imagebert_b", "imagebert_c", "lxmert", "two_tower"])
+    ap.add_argument("--side", choices=["query", "product"], default=None,
+                    help="two_tower only: which embedder to export")
     ap.add_argument("--checkpoint", default=None,
                     help="npz / TF1 bundle prefix / torch state dict (random init if absent)")
     ap.add_argument("--batch-size", type=int, default=8192,
@@ -57,7 +67,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     if args.model == "two_tower":
-        ap.error("two_tower export waits on models/two_tower.py (ROADMAP.md Queue 1 item 11)")
+        if args.side is None:
+            ap.error("--side query|product is required for two_tower")
+        if args.quantize:
+            ap.error("--quantize is not supported for two_tower embedders")
+        if args.backend != "xla":
+            ap.error("two_tower embedders export with the xla backend only")
     if args.quantize:
         ap.error("--quantize waits on ops/quant.py, the int8 dense (ROADMAP.md Queue 1 item 12)")
 
@@ -69,11 +84,15 @@ def main(argv: list[str] | None = None) -> None:
     prec = {"f32": Precision.f32, "bf16": Precision.bf16}[args.precision]() if args.precision \
         else default_precision(device)
     bsz = None if args.batch_size == 0 else args.batch_size
-    exported = export_scorer(spec, params, bsz, precision=prec, backend=args.backend, device=device)
     extra = {"precision": "f32" if prec.compute_dtype == torch.float32 else "bf16"}
     if overrides:
         extra["config_overrides"] = overrides
-    meta = save_scorer(args.out, exported, spec, bsz, args.backend, extra=extra)
+    if args.model == "two_tower":
+        exported = export_tower(spec, params, args.side, bsz, precision=prec, device=device)
+        meta = save_scorer(args.out, exported, f"two_tower_{args.side}", bsz, "xla", extra=extra)
+    else:
+        exported = export_scorer(spec, params, bsz, precision=prec, backend=args.backend, device=device)
+        meta = save_scorer(args.out, exported, spec, bsz, args.backend, extra=extra)
     print(json.dumps({**meta, "out": args.out}))
 
 

@@ -1,5 +1,6 @@
-"""Train ImageBERT-A, -B or -C with hard-negative sampling (the port of the
-JAX package's ``scripts/train.py``, with the flags its cross-encoder paths use).
+"""Train ImageBERT-A, -B or -C with hard-negative sampling, or the two-tower
+recall model on positive rows (the port of the JAX package's
+``scripts/train.py``).
 
 Each step takes a batch of (positive, mined negative) pairs, either sampled
 from the TSV files as the run goes (``--train-tsv``: ``data/sampling.py``,
@@ -60,8 +61,20 @@ of 0 is pure-soft distillation). ``--resume`` with ``--init-from``,
 ``--layers`` with ``--model lxmert`` and ``--distill-from`` with
 ``--model two_tower`` exit 2, as in the JAX script.
 
-``--model two_tower``, ``--distributed`` and ``--am-loss`` are not ported
-yet and exit 2 naming the ROADMAP item. LXMERT trains through
+``--model two_tower`` trains the recall towers with in-batch negatives: the
+rows of ``--train-tsv`` in ImageBERT-B's layout, as they come (each a
+positive pair; no sampler, so no ``--query-labels``), in batches of
+``--batch-size`` with the ragged tail of each pass dropped, and the rows'
+``query_id`` as the ``query_group`` that keeps one query's products out of
+each other's negatives; the two-tower recipe (BERT-Adam at 1e-4, 1000 warmup
+steps, global-norm clip, the contrastive loss; ``loss`` and
+``in_batch_accuracy`` in the metrics). Its ``step_<N>.npz`` is what
+``cli/recall.py`` and ``cli/cascade.py`` load; ``--valid-tsv`` scores the
+pairs' cosines. ``--packed-dir`` and ``--distill-from`` exit 2 for it, as in
+the JAX script.
+
+``--distributed`` and ``--am-loss`` are not ported yet and exit 2 naming the
+ROADMAP item. LXMERT trains through
 ``train.Trainer`` (as the JAX package trains it, on batches in its
 featurizer's layout) or ``cli/distill.py``, not here: the JAX CLI cannot
 train it either (no sampler yields LXMERT's layout, ROADMAP.md Queue 3, JAX
@@ -78,12 +91,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import VOCAB_PATH
 from ..checkpoint import load_checkpoint, params_from_jax, params_to_jax, save_npz
 from ..data import Featurizer, HardNegativeSampler, PackedDataset, QueryLabelIndex, SamplerConfig
-from ..data import load_multimodal_labels, pad_batch, stack_examples
+from ..data import iter_batches, load_multimodal_labels, pad_batch, stack_examples
 from ..eval import evaluate_scores, load_answers
 from ..models import get_model
 from ..parallel import ScoringEngine, resolve_device
@@ -173,11 +187,12 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
     if args.model == "lxmert":
         ap.error("--model lxmert: no sampler yields LXMERT's batch layout, in the JAX package either "
                  "(ROADMAP.md Queue 3, JAX fault 3); LXMERT trains through train.Trainer")
-    if args.model == "two_tower":
-        ap.error("training two_tower is not yet ported, see ROADMAP.md Queue 1 item 11")
     if bool(args.train_tsv) == bool(args.packed_dir):
         ap.error("exactly one of --train-tsv / --packed-dir is required")
-    if args.train_tsv and not args.query_labels:
+    if args.model == "two_tower" and args.packed_dir:
+        ap.error("--packed-dir shards are pos/neg cross-encoder instances; the label-blind in-batch InfoNCE would "
+                 "train hard negatives as positives -- two_tower trains on positive rows from --train-tsv")
+    if args.train_tsv and not args.query_labels and args.model != "two_tower":
         ap.error("--query-labels is required for cross-encoder training")
 
     device = resolve_device(args.device)
@@ -217,7 +232,9 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
               f"{args.hard_loss_weight}, T={args.distill_temperature})")
 
     sampler = None
-    if args.packed_dir:
+    if spec.name == "two_tower":
+        batches = itertools.islice(positive_batches(featurizer, args.train_tsv, args.batch_size), start, None)
+    elif args.packed_dir:
         dataset = PackedDataset(args.packed_dir)
         missing = [k for k in (*spec.input_keys, "labels") if k not in dataset.fields]
         if missing:
@@ -293,27 +310,45 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
     report = {"steps": state.step - start, "step": state.step, "pairs": pairs, "seconds": seconds,
               "checkpoint_seconds": save_seconds, "valid_seconds": valid_seconds, "valid": valid_passes,
               "best": best, "pairs_per_second": pairs / seconds if seconds > 0 else 0.0, "device": str(device),
-              "data": "packed" if args.packed_dir else "sampler",
+              "data": "packed" if args.packed_dir else "sampler" if sampler is not None else "positive rows",
               "sampler": dataclasses.asdict(sampler.stats) if sampler is not None else None, "out": str(out_dir)}
     print(json.dumps(report))
     return trainer, state, report
 
 
+def tsv_lines(paths: list[str]):
+    """The lines of ``paths``, one file after another."""
+    for path in paths:
+        with open(path, "r", encoding="utf-8") as f:
+            yield from f
+
+
 def sampled_batches(sampler: HardNegativeSampler, paths: list[str], batch_size: int):
     """Batches of ``batch_size`` sampled examples, epoch after epoch over ``paths``."""
-    def lines():
-        for path in paths:
-            with open(path, "r", encoding="utf-8") as f:
-                yield from f
-
     while True:  # epochs
         n_yielded, buf = 0, []
-        for example in sampler.examples(lines()):
+        for example in sampler.examples(tsv_lines(paths)):
             buf.append(example)
             if len(buf) == batch_size:
                 n_yielded += 1
                 yield pad_batch(stack_examples(buf), batch_size)
                 buf = []
+        if n_yielded == 0:
+            raise SystemExit(f"no full {batch_size}-row batch from one pass over {paths}: "
+                             "fewer usable rows than --batch-size")
+
+
+def positive_batches(featurizer: Featurizer, paths: list[str], batch_size: int):
+    """The two-tower's batches: the TSV rows in ImageBERT-B's layout, epoch
+    after epoch, each full batch with ``query_group`` (the rows' query ids);
+    the ragged tail of a pass is dropped (in-batch negatives need full batches)."""
+    while True:  # epochs
+        n_yielded = 0
+        for b in iter_batches(tsv_lines(paths), featurizer.imagebert_b, batch_size):
+            if b["valid"].all():
+                n_yielded += 1
+                b["query_group"] = b["query_id"].astype(np.int32)
+                yield b
         if n_yielded == 0:
             raise SystemExit(f"no full {batch_size}-row batch from one pass over {paths}: "
                              "fewer usable rows than --batch-size")

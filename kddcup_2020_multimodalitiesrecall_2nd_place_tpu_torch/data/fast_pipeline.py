@@ -97,7 +97,7 @@ def featurize_raw(raw: dict, featurizer: Featurizer, layout: str) -> dict[str, n
             full["label_lens"] = label_lens_lut[clipped] * box_valid
         return full
     if layout != "lxmert":
-        raise NotImplementedError(f"featurizer layout {layout!r} is not yet ported, see ROADMAP.md")
+        raise ValueError(f"unknown featurizer layout {layout!r}")
     return {
         "input_ids": q_ids,
         "input_mask": (np.arange(max_len)[None, :] < np.minimum(q_lens, max_len)[:, None]).astype(np.int32),

@@ -49,6 +49,11 @@ class Featurizer:
     def _query_text(self, ex: RawExample) -> str:
         return rewrite_sen2forest(ex.query) if self.sen2forest else ex.query
 
+    def query_token_ids(self, ex: RawExample) -> list[int]:
+        """Untruncated [CLS] + pieces + [SEP] ids of the (rewritten, for C)
+        query: the query half of every layout (``data/catalog.py:rerank_batch``)."""
+        return self.tokenizer.encode_query(self._query_text(ex))
+
     def label_token_ids(self, class_label: int) -> list[int]:
         """WordPiece ids of a box label's text (no [CLS]/[SEP])."""
         ids = self._label_ids_cache.get(class_label)
@@ -73,7 +78,7 @@ class Featurizer:
         return ids, mask, lens
 
     def imagebert_a(self, ex: RawExample, label: int = 0) -> dict[str, np.ndarray]:
-        q_ids = self.tokenizer.encode_query(self._query_text(ex))
+        q_ids = self.query_token_ids(ex)
         return {
             "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_AB).astype(np.int32),
             "segment_ids": np.zeros((MAX_QUERY_LEN_AB,), dtype=np.int32),
@@ -88,7 +93,7 @@ class Featurizer:
     def imagebert_b(self, ex: RawExample, label: int = 1) -> dict[str, np.ndarray]:
         """The fed label is 1, as the reference scores testB
         (``evaluate_normal.py:240-243``); the AM head's margin reads it."""
-        q_ids = self.tokenizer.encode_query(self._query_text(ex))
+        q_ids = self.query_token_ids(ex)
         label_ids, _, label_lens = self._label_id_grid(ex)
         return {
             "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_AB).astype(np.int32),
@@ -105,7 +110,7 @@ class Featurizer:
         }
 
     def lxmert(self, ex: RawExample, label: int = 1) -> dict[str, np.ndarray]:
-        q_ids = self.tokenizer.encode_query(self._query_text(ex))
+        q_ids = self.query_token_ids(ex)
         label_ids, label_mask, _ = self._label_id_grid(ex)
         return {
             "input_ids": pad_1d(q_ids, MAX_QUERY_LEN_L).astype(np.int32),
@@ -125,9 +130,7 @@ class Featurizer:
         layouts = {"imagebert_a": self.imagebert_a, "imagebert_b": self.imagebert_b,
                    "imagebert_c": self.imagebert_b, "lxmert": self.lxmert}
         if name not in layouts:
-            raise NotImplementedError(
-                f"featurizer layout {name!r} is not yet ported, see ROADMAP.md"
-            )
+            raise ValueError(f"unknown featurizer layout {name!r}, expected one of {sorted(layouts)}")
         return layouts[name]
 
 

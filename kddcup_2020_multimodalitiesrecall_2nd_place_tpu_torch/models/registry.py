@@ -1,7 +1,7 @@
 """Model registry: the four scorers of the ensemble (``code/main.py:59``:
-0.3 A + 0.2 B + 0.2 C + 0.3 LXMERT) are ported; ImageBERT-C is ImageBERT-B
-with the sen2forest query rewrite (``sen2forest``). The two-tower recall
-model raises until its slice lands."""
+0.3 A + 0.2 B + 0.2 C + 0.3 LXMERT); ImageBERT-C is ImageBERT-B with the
+sen2forest query rewrite (``sen2forest``). And the two-tower recall model,
+which scores (a pair's cosine) on ImageBERT-B's batch layout."""
 
 from __future__ import annotations
 
@@ -13,11 +13,10 @@ from typing import Any, Callable
 import torch
 
 from .. import BERT_CONFIG_PATH
-from . import imagebert_a, imagebert_b, lxmert
+from . import imagebert_a, imagebert_b, lxmert, two_tower
 from .core import BertConfig, Params
 
-PORTED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert")
-NOT_YET_PORTED = ("two_tower",)
+PORTED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert", "two_tower")
 LXMERT_DEPTHS = ("l_layers", "x_layers", "r_layers")
 
 
@@ -59,11 +58,25 @@ def _bert_config() -> BertConfig:
 def get_model(name: str, overrides: dict | None = None) -> ModelSpec:
     """``overrides``: BertConfig fields to change for this one spec; for
     LXMERT, ``l_layers`` / ``x_layers`` / ``r_layers`` set the stack depths
-    (the JAX package's ``models/registry.py`` :68-74)."""
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported, see ROADMAP.md")
+    (the JAX package's ``models/registry.py`` :68-74). ``two_tower``'s config
+    is ``two_tower_config``'s (``KMR_TOWER_CONFIG_OVERRIDES``, not
+    ``KMR_CONFIG_OVERRIDES``), with ``overrides`` on its BertConfig."""
     if name not in PORTED:
         raise ValueError(f"unknown model {name!r}")
+    if name == "two_tower":
+        tcfg = two_tower.two_tower_config(overrides)
+        return ModelSpec(
+            name,
+            tcfg,
+            init=lambda gen: two_tower.init_params(tcfg, gen),
+            apply=two_tower.apply,
+            featurizer_layout="imagebert_b",
+            input_keys=two_tower.INPUT_KEYS,
+            matmul_kernels=two_tower.MATMUL_KERNELS,
+            from_jax=two_tower.from_jax,
+            train_params=imagebert_b.train_params,
+            eval_params=imagebert_b.eval_params,
+        )
     overrides = dict(overrides or {})
     depths = {k: overrides.pop(k) for k in LXMERT_DEPTHS if k in overrides}
     cfg = _bert_config()

@@ -34,7 +34,7 @@ from ..data import Featurizer, PipelineStats, PrefetchIterator, batches_from_fil
 from ..data.fast_pipeline import native_batches_from_files
 from ..data.multiworker import MultiWorkerLoader
 from ..data.native import get_lib
-from ..models import ModelSpec, Precision
+from ..models import ModelSpec, Precision, two_tower
 from ..ops import attention
 
 
@@ -163,6 +163,24 @@ class ScoringEngine:
                 result.setdefault(str(q), {})[str(p)] = float(s)
         stats.seconds = time.perf_counter() - t0
         return result
+
+
+class TowerEngine(ScoringEngine):
+    """The two embedders of a two-tower spec on one device (its weights
+    prepared, and its attention backend scoped around every batch, as
+    ``ScoringEngine`` does; ``score_batch`` scores a pair's cosine)."""
+
+    def side_to_device(self, side: str, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The entries of a host batch that the ``side`` tower reads, on the device."""
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in two_tower.SIDES[side][1]}
+
+    @torch.inference_mode()
+    def embed(self, side: str, batch: dict[str, np.ndarray]) -> torch.Tensor:
+        """``side`` "query" or "product" over a host batch -> f32 unit embeddings [B, D] on the device (not yet
+        synchronised)."""
+        feats = self.side_to_device(side, batch)
+        with attention.attention_backend(self.attention_backend):
+            return two_tower.SIDES[side][0](self.params, feats, self.model.config, self.precision)
 
 
 def write_scores_tsv(result: dict[str, dict[str, float]], path) -> None:

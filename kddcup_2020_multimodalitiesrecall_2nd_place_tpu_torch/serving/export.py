@@ -21,6 +21,13 @@ without any model Python: weights baked in, like a frozen graph.
   compiler. ``meta.json`` lists the custom ops an artifact calls.
 * **Fixed batch size**: serving pads the tail batch, as the engine does;
   ``batch_size=None`` traces a symbolic batch instead (any size, no padding).
+* **The two-tower embedders** (``export_tower``): the query or the product
+  tower alone, the recall stage that the cross-encoder artifacts rerank
+  after, on the "xla" backend as the JAX package pins it. On the card that
+  backend's encoder blocks are plain PyTorch operators (cuBLAS products,
+  ``ops/attention.py:mha_xla``); in bf16 the label conv and the projection
+  are still ``gemm_bf16`` through the ``kmr::gemm`` custom op, as under every
+  backend, which ``meta.json`` lists.
 """
 
 from __future__ import annotations
@@ -41,12 +48,13 @@ CUSTOM_OP_NAMESPACE = "kmr"
 
 
 class _Scorer(torch.nn.Module):
-    """``spec.apply(params, feats)["score"]`` with the param tree held as
-    buffers (named by their tree path, ``__``-joined)."""
+    """``spec.apply(params, feats)["score"]``, or with ``side`` a two-tower
+    spec's query or product embedding, with the param tree held as buffers
+    (named by their tree path, ``__``-joined)."""
 
-    def __init__(self, spec, params, precision):
+    def __init__(self, spec, params, precision, side: str | None = None):
         super().__init__()
-        self.spec, self.precision = spec, precision
+        self.spec, self.precision, self.side = spec, precision, side
         self.paths = []
         stack = [((), params)]
         while stack:
@@ -64,7 +72,28 @@ class _Scorer(torch.nn.Module):
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = getattr(self, "__".join(path))
+        if self.side is not None:
+            from ..models import two_tower
+
+            return two_tower.SIDES[self.side][0](tree, feats, self.spec.config, self.precision)
         return self.spec.apply(tree, feats, self.spec.config, self.precision)["score"]
+
+
+def _export(module, example: dict, batch_size: int | None, backend: str):
+    dynamic = None
+    if batch_size is None:
+        batch = torch.export.Dim("batch")
+        dynamic = ({k: {0: batch} for k in example},)
+    from ..ops.attention import attention_backend
+
+    with attention_backend(backend), torch.no_grad():
+        return torch.export.export(module, (example,), dynamic_shapes=dynamic)
+
+
+def _prepared(spec, params, precision, device):
+    from ..checkpoint.npz import cast_matmul_weights, scoring_params, tree_to
+
+    return tree_to(cast_matmul_weights(scoring_params(params), precision.compute_dtype, spec.matmul_kernels), device)
 
 
 def export_scorer(spec, params, batch_size: int | None, precision=None, backend: str = "xla", device=None):
@@ -76,9 +105,8 @@ def export_scorer(spec, params, batch_size: int | None, precision=None, backend:
     ``backend``: the attention backend traced into the artifact ("xla", the
     portable default, or "pallas_packed", the kernels as custom ops).
     ``device``: default CUDA, as every entry point of the port."""
-    from ..checkpoint.npz import cast_matmul_weights, scoring_params, tree_to
     from ..data.batchspec import batch_spec
-    from ..ops.attention import BACKENDS, attention_backend
+    from ..ops.attention import BACKENDS
     from ..parallel.engine import default_precision, resolve_device
 
     if backend not in BACKENDS:
@@ -87,18 +115,44 @@ def export_scorer(spec, params, batch_size: int | None, precision=None, backend:
     precision = precision if precision is not None else default_precision(device)
     if backend != "xla":
         from ..ops import library  # noqa: F401  (the kernels as custom ops)
-    prepared = tree_to(cast_matmul_weights(scoring_params(params), precision.compute_dtype, spec.matmul_kernels),
-                       device)
-    module = _Scorer(spec, prepared, precision).eval()
+    module = _Scorer(spec, _prepared(spec, params, precision, device), precision).eval()
     specs = batch_spec(spec.name, spec.config, TRACE_BATCH if batch_size is None else batch_size)
     example = {k: torch.zeros(shape, dtype=torch.from_numpy(np.zeros(0, dt)).dtype, device=device)
                for k, (shape, dt) in specs.items()}
-    dynamic = None
-    if batch_size is None:
-        batch = torch.export.Dim("batch")
-        dynamic = ({k: {0: batch} for k in example},)
-    with attention_backend(backend), torch.no_grad():
-        return torch.export.export(module, (example,), dynamic_shapes=dynamic)
+    return _export(module, example, batch_size, backend)
+
+
+# each tower embedder's parameters (the product tower's label conv reads the word embeddings), and its features:
+# trailing shape and dtype (the JAX package's export_tower)
+TOWER_PARAMS = {"query": ("bert", "query_encoder", "query_proj"),
+                "product": ("bert", "kdd_conv1", "kdd_dense1", "kdd_conv2", "product_encoder", "product_proj")}
+TOWER_FEATURES = {
+    "query": {"input_ids": ((20,), torch.int32), "len_query": ((), torch.int32)},
+    "product": {"boxes": ((10, 5), torch.float32), "features": ((10, 2048), torch.float32),
+                "label_ids": ((10, 8), torch.int32), "num_boxes": ((), torch.int32)},
+}
+
+
+def export_tower(spec, params, side: str, batch_size: int | None, precision=None, device=None):
+    """Export one embedder of a two-tower ``spec`` (the cascade's recall stage)
+    with ``params`` baked in -> ``torch.export.ExportedProgram``: ``side``
+    "query" embeds input_ids [B, 20] and len_query [B], "product" embeds
+    boxes, features, label_ids and num_boxes (what ``cli/recall.py build``
+    streams through the product tower), each to [B, D] unit embeddings. Traced
+    on the "xla" backend whatever the global one is, as the JAX package's
+    ``export_tower`` pins it. ``batch_size`` None: batch-polymorphic. Only
+    the side's own parameters are baked in."""
+    from ..parallel.engine import default_precision, resolve_device
+
+    if side not in TOWER_FEATURES:
+        raise ValueError(f"side must be 'query' or 'product', got {side!r}")
+    device = resolve_device(device)
+    precision = precision if precision is not None else default_precision(device)
+    prepared = _prepared(spec, params, precision, device)
+    module = _Scorer(spec, {k: prepared[k] for k in TOWER_PARAMS[side]}, precision, side=side).eval()
+    b = TRACE_BATCH if batch_size is None else batch_size
+    example = {k: torch.zeros((b, *shape), dtype=dt, device=device) for k, (shape, dt) in TOWER_FEATURES[side].items()}
+    return _export(module, example, batch_size, "xla")
 
 
 def custom_ops_of(exported) -> list[str]:
@@ -109,20 +163,25 @@ def custom_ops_of(exported) -> list[str]:
 
 def save_scorer(out_dir, exported, spec, batch_size: int | None, backend: str, extra: dict | None = None) -> dict:
     """Write the ``.pt2`` artifact and its ``meta.json``; returns the meta.
-    ``extra``: more meta fields (e.g. config overrides)."""
+    ``spec``: a ModelSpec, or a tower embedder's name (``two_tower_query``,
+    ``two_tower_product``). ``extra``: more meta fields (e.g. config overrides)."""
     from ..data.batchspec import batch_spec
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     torch.export.save(exported, out / BLOB)
     buffers = list(exported.state_dict.values())
+    if isinstance(spec, str):
+        name, keys = spec, TOWER_FEATURES[spec.removeprefix("two_tower_")]
+    else:
+        name, keys = spec.name, batch_spec(spec.name, spec.config, 1)
     meta = {
-        "model": spec.name,
+        "model": name,
         "batch_size": batch_size,
         "attention_backend": backend,
         "torch_version": torch.__version__,
         "device": str(buffers[0].device) if buffers else "cpu",
-        "feature_keys": sorted(batch_spec(spec.name, spec.config, 1)),
+        "feature_keys": sorted(keys),
         "custom_ops": custom_ops_of(exported),
         **(extra or {}),
     }
@@ -132,7 +191,8 @@ def save_scorer(out_dir, exported, spec, batch_size: int | None, backend: str, e
 
 @dataclass
 class ServingScorer:
-    """A reloaded artifact: ``scores = scorer(feats)``, with tail padding."""
+    """A reloaded artifact: ``scores = scorer(feats)`` (a tower embedder's:
+    embeddings [B, D]), with tail padding."""
 
     exported: object
     meta: dict

@@ -13,6 +13,11 @@ Per-model recipes mirror the reference training scripts (``recipe_for``):
   per-value clip +-1, AM-softmax loss (+ ``word_match_loss_weight`` times the
   word-match loss, off by default as the reference trained), EMA 0.997; the
   label conv trains as its 8 taps (``models/imagebert_b.py``).
+* two-tower: BERT-Adam at 1e-4 with 1000 warmup steps, global-norm clip 1.0,
+  the symmetric in-batch InfoNCE (``models/two_tower.py:contrastive_loss``),
+  a batch's ``query_group`` masking the pairs of one query; its metrics are
+  ``loss`` and ``in_batch_accuracy``. Its towers train through the train
+  blocks at dropout 0, and it takes no distillation.
 
 ``TrainConfig.optimizer`` overrides a recipe's optimizer (``bert_adamw`` or
 ``adam_staircase``). A step is the JAX package's two phases: ``grads``
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.npz import unflatten_tree
-from ..models import ModelSpec, Precision, heads
+from ..models import ModelSpec, Precision, heads, two_tower
 from ..models.core import TRAIN_KERNEL_BLOCKS, Params, TrainBlocks
 from ..parallel.engine import default_precision, resolve_device
 from .distill import TEACHER_KEYS, distill_soft_ce, match_logodds
@@ -65,7 +70,7 @@ from .optim import (
     polynomial_warmup_schedule,
 )
 
-TRAINED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert")
+TRAINED = ("imagebert_a", "imagebert_b", "imagebert_c", "lxmert", "two_tower")
 # the word-match loss's batch entries (data/sampling.py, ImageBERT-B's recipe)
 WORD_MATCH_KEYS = ("word_match_labels", "word_match_weights")
 # the MLM loss's batch entries (data/sampling.py, ImageBERT-A's recipe)
@@ -155,11 +160,21 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
     carries ``teacher_prob``: ``hard_loss_weight`` times that loss plus
     ``distill_weight`` times ``distill_soft_ce`` of the student's match
     log-odds (``distill_loss`` in the metrics); ``hard_loss_weight`` 0 builds
-    no family loss at all (the JAX package's :126-145, :216-227)."""
+    no family loss at all (the JAX package's :126-145, :216-227). The
+    two-tower's loss is the contrastive loss, with the batch's
+    ``query_group`` where it has one (the JAX package's :158-170)."""
     if tc.distill_weight and model.name == "two_tower":
         raise ValueError("distillation targets the cross-encoder scorers")
     if model.name not in TRAINED:
-        raise NotImplementedError(f"training {model.name!r} is not yet ported, see ROADMAP.md Queue 1 item 11")
+        raise ValueError(f"no training recipe for model {model.name!r}")
+    if model.name == "two_tower":
+        def tower_loss_fn(params: Params, batch: dict, gen: torch.Generator):
+            out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen)
+            loss, metrics = two_tower.contrastive_loss(out["q_emb"], out["p_emb"], model.config.temperature,
+                                                       group_ids=batch.get("query_group"))
+            return loss, {**metrics, "loss": loss.detach()}
+
+        return tower_loss_fn
     am = model.name == "lxmert" and tc.am_loss
     head = {"use_am_head": True} if am else {}
 
@@ -322,7 +337,8 @@ class Trainer:
         """The entries the loss reads: the model's inputs, the labels and,
         with the word-match or MLM loss on, their entries where the batch
         has them; with distillation on, the teacher's probabilities and
-        weights (a live teacher's are already on the device)."""
+        weights (a live teacher's are already on the device); the
+        two-tower's ``query_group`` where the batch has one."""
         keys = [*self.model.input_keys, "labels"]
         if self.tc.word_match_loss_weight:
             keys += [k for k in WORD_MATCH_KEYS if k in batch]
@@ -330,6 +346,8 @@ class Trainer:
             keys += [k for k in MLM_KEYS if k in batch]
         if self.tc.distill_weight:
             keys += [k for k in TEACHER_KEYS if k in batch]
+        if self.model.name == "two_tower" and "query_group" in batch:
+            keys.append("query_group")
 
         def on_device(v) -> torch.Tensor:
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))

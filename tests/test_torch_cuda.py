@@ -1373,3 +1373,116 @@ def test_cuda_imported_checkpoint_scores_equal_the_npz_route(cuda, tmp_path, mod
     scores = [ScoringEngine(spec, load_checkpoint(model, path, spec), device=cuda).score_batch(batch)
               for path in (ref, tmp_path / "tree.npz")]
     assert torch.isfinite(scores[0]).all() and torch.equal(scores[0], scores[1])
+
+
+# ---- the two-tower: its towers at S=20 (query) and S=10 (product) under key masks, the exact top-k ----
+
+
+def _tower_bias(device, b, s, seed):
+    """A tower's [b, s] key-mask bias: lengths 1..s, pair 0 with every key masked (a product with no box),
+    pair 1 with none, pair 2 with one key (a one-token query)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    lengths[0], lengths[1], lengths[2] = 0, s, 1
+    return mask_to_bias((torch.arange(s)[None] < lengths[:, None]).float()).to(device)
+
+
+@pytest.mark.parametrize("s", [20, 10], ids=["query-S20", "product-S10"])
+def test_cuda_tower_blocks_match_plain(cuda, s):
+    """The attention and FFN blocks and the fused layer (KMR_FUSED_LAYER=1's) at the towers' lengths, tanh
+    GELU, with an all-masked pair: the kernels within the ulp band of their plain versions (16-row tiles pad
+    S=20 to 32)."""
+    x, ws, _ = _layer_case(cuda, 90 + s, s, "mask")
+    bias = _tower_bias(cuda, 8, s, 91 + s)
+    assert bool((bias[0] == -10000.0).all())
+    att, ffn = ws[:6], ws[6:]
+    assert within_band(attention_block(x, *att, 12, bias), attention_block_plain(x, *att, 12, bias))
+    assert within_band(ffn_block(x, *ffn, approximate_gelu=True), ffn_block_plain(x, *ffn, approximate_gelu=True))
+    assert within_band(encoder_layer(x, *ws, 12, bias, approximate_gelu=True),
+                       encoder_layer_plain(x, *ws, 12, bias, approximate_gelu=True))
+
+
+@pytest.mark.parametrize("s", [20, 10], ids=["query-S20", "product-S10"])
+def test_cuda_tower_train_blocks_match_the_oracle(cuda, s):
+    """The attention and FFN train blocks at the towers' lengths and dropout 0 (the towers train without
+    dropout), the attention block under a key mask with an all-masked pair: y in the ulp band and every
+    gradient within TRAIN_GRAD_REL_L2 of the plain oracle's autograd; attn_train and attn_train_bwd alone
+    in the ulp band."""
+    bias = _tower_bias(cuda, 8, s, 92 + s)
+    for kind in ("attn", "ffn"):
+        x, ws, dy = _train_block_case(cuda, kind, 93 + s, s=s)
+        if kind == "ffn":
+            fns = [lambda x, *w, f=f: f(x, *w, 0, dropout_rate=0.0)
+                   for f in (train_blocks.ffn_block_train, train_blocks.ffn_block_train_plain)]
+        else:
+            fns = [lambda x, *w, f=f: f(x, *w, 12, 0, bias=bias, attn_dropout_rate=0.0, hidden_dropout_rate=0.0)
+                   for f in (train_blocks.attention_block_train, train_blocks.attention_block_train_plain)]
+        (y, grads), (wy, wgrads) = (_block_grads(f, x, ws, dy) for f in fns)
+        assert within_band(y, wy), kind
+        errs = [rel_l2(g, w) for g, w in zip(grads, wgrads)]
+        assert max(errs) <= TRAIN_GRAD_REL_L2, (kind, errs)
+    qkv, _, _, dctx = _attn_train_edge_case(cuda, 94 + s, 8, s, s, 12, "no-mask")
+    args = (8, s, 12, 0, 0.0, 8)
+    assert within_band(kernels.attn_train(qkv, bias, *args), kernels.attn_train_plain(qkv, bias, *args))
+    assert within_band(kernels.attn_train_bwd(qkv, dctx, bias, *args),
+                       kernels.attn_train_bwd_plain(qkv, dctx, bias, *args))
+
+
+def test_cuda_top_k_products_matches_its_cpu_run(cuda, tmp_path):
+    """The exact top-k on the card (bf16 operands, f32 sums out of ``torch.mm``) equal to its CPU run on the
+    same bf16 catalog, ties included: values on a 1/8 grid make every score exact on both, and 5000 rows
+    drawn from 300 tie many of them; through ``top_k_products`` (chunks of 1024, ``num_valid`` 4900) and
+    ``recall_chunked`` over a packed catalog (float16 slabs cast on the device)."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import (
+        CatalogDataset,
+        build_catalog,
+        recall_chunked,
+    )
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models.two_tower import top_k_products
+
+    g = torch.Generator(device="cpu").manual_seed(95)
+    base = torch.randint(-16, 17, (300, 128), generator=g) / 8.0
+    cat = base[torch.randint(0, 300, (5000,), generator=g)].to(torch.bfloat16)
+    q = torch.randint(-16, 17, (64, 128), generator=g) / 8.0
+    want = top_k_products(q, cat, k=50, chunk=1024, num_valid=4900)
+    got = top_k_products(q.to(cuda), cat.to(cuda), k=50, chunk=1024, num_valid=4900)
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+    assert (got[1] < 4900).all() and len(set(want[0][0].tolist())) < 50  # ties among the top 50
+    build_catalog(({"product_id": np.int64(i), "embedding": row} for i, row in enumerate(cat.float().numpy())),
+                  tmp_path / "cat", shard_size=1500)
+    ds = CatalogDataset(tmp_path / "cat")
+    s_cpu, i_cpu = recall_chunked(q.numpy(), ds, k=50, chunk_rows=1024, device="cpu")
+    s_gpu, i_gpu = recall_chunked(q.numpy(), ds, k=50, chunk_rows=1024, device=cuda)
+    assert np.array_equal(i_cpu, i_gpu) and np.array_equal(s_cpu, s_gpu)
+
+
+def test_cuda_tower_embeddings_match_plain(cuda):
+    """Both towers at full width (4 + 4 layers, embed_dim 128) through ``TowerEngine`` on the card (the fused
+    blocks, the label conv's and the projections' gemm, N=128) against the plain bf16 route on the same
+    weights and batch (B=64, products with no box among them): unit embeddings within 2e-2 elementwise."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import PLAIN_BLOCKS, get_model, two_tower
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.attention import attention_backend
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import TowerEngine
+
+    spec = get_model("two_tower")
+    assert (spec.config.bert.hidden_size, spec.config.bert.num_hidden_layers, spec.config.embed_dim) == (768, 4, 128)
+    engine = TowerEngine(spec, spec.init_params(96), device=cuda)
+    r = np.random.default_rng(97)
+    batch = {"input_ids": r.integers(0, 21128, (64, 20)).astype(np.int32),
+             "len_query": r.integers(1, 21, (64,)).astype(np.int32),
+             "boxes": r.standard_normal((64, 10, 5)).astype(np.float32),
+             "features": r.standard_normal((64, 10, 2048)).astype(np.float32),
+             "label_ids": r.integers(0, 21128, (64, 10, 8)).astype(np.int32),
+             "num_boxes": r.integers(0, 11, (64,)).astype(np.int32)}
+    batch["num_boxes"][:4] = 0
+    before = kernels.gemm.launches
+    for side, fn in (("query", two_tower.embed_query), ("product", two_tower.embed_product)):
+        got = engine.embed(side, batch)
+        with torch.inference_mode(), attention_backend("pallas_packed"):
+            want = fn(engine.params, engine.side_to_device(side, batch), spec.config, engine.precision, PLAIN_BLOCKS)
+        assert got.shape == (64, 128) and within_band(got, want, atol=2e-2, rtol=0.0), side
+    assert kernels.gemm.launches - before == 2 * 16 + 1 + 2  # 4 + 4 layers' products, the label conv, 2 projections

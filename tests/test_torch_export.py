@@ -101,7 +101,7 @@ def _cli(args, tmp_path):
 
 def test_export_cli(tmp_path):
     """An npz of the JAX tree in, an artifact out that scores as the engine
-    does on the same params; two_tower and --quantize name what they wait on."""
+    does on the same params; two_tower without --side and --quantize exit 2, naming what they need."""
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import get_model as jax_get_model
 
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import params_from_jax
@@ -119,7 +119,7 @@ def test_export_cli(tmp_path):
     batch = example_batch("imagebert_b", spec.config, 4, np.random.default_rng(4))
     want = _live(spec, spec.from_jax(params_from_jax(tree)), batch, "pallas_packed")
     np.testing.assert_allclose(load_scorer(out)(batch), want, atol=1e-6, rtol=0)
-    for args, item in ((["--model", "two_tower"], "Queue 1 item 11"),
+    for args, item in ((["--model", "two_tower"], "--side query|product is required"),
                        (["--model", "imagebert_a", "--quantize", "int8"], "Queue 1 item 12")):
         r = _cli([*args, "--device", "cpu", "--out", str(tmp_path / "never")], tmp_path)
         assert r.returncode == 2 and item in r.stderr and not (tmp_path / "never").exists()
@@ -147,6 +147,44 @@ def test_f32_artifact_matches_jax_export(tmp_path):
     got = load_scorer(tmp_path / "port")(batch)
     assert got.shape == want.shape == (4,)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("side", ["query", "product"])
+def test_tower_export_cli_matches_jax_export_tower(side, tmp_path, monkeypatch, capsys):
+    """``cli/export.py --model two_tower --side ...`` (f32, on the CPU) and the
+    JAX package's ``export_tower`` of the same tower npz embed one batch within
+    1e-4; the artifact reloads with its side's feature keys and pads a tail."""
+    import jax
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import Precision as JaxPrecision
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import two_tower as jax_two_tower
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.serving import export_tower as jax_export_tower
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli import export as export_cli
+    from torch_parity import numpy_like
+
+    monkeypatch.setenv("KMR_TOWER_CONFIG_OVERRIDES", json.dumps({"bert": TINY, "embed_dim": 16}))
+    tcfg = jax_two_tower.two_tower_config()
+    tree = numpy_like(jax.eval_shape(lambda: jax_two_tower.init_params(jax.random.key(0), tcfg)), 8)
+    save_npz(tmp_path / "tower.npz", tree)
+    export_cli.main(["--model", "two_tower", "--side", side, "--checkpoint", str(tmp_path / "tower.npz"),
+                     "--batch-size", "4", "--precision", "f32", "--device", "cpu", "--out", str(tmp_path / "art")])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["model"] == f"two_tower_{side}" and line["attention_backend"] == "xla" and line["custom_ops"] == []
+    rng = np.random.default_rng(9)
+    batch = {"input_ids": rng.integers(0, 21128, (4, 20)).astype(np.int32),
+             "len_query": np.array([1, 5, 20, 9], np.int32)} if side == "query" else {
+        "boxes": rng.standard_normal((4, 10, 5)).astype(np.float32),
+        "features": rng.standard_normal((4, 10, 2048)).astype(np.float32),
+        "label_ids": rng.integers(0, 21128, (4, 10, 8)).astype(np.int32),
+        "num_boxes": np.array([0, 3, 10, 1], np.int32)}
+    want = np.asarray(jax_export_tower(tree, tcfg, side, 4, precision=JaxPrecision.f32()).call(batch))
+    scorer = load_scorer(tmp_path / "art")
+    assert scorer.feature_keys == set(batch)
+    got = scorer(batch)
+    assert got.shape == want.shape == (4, 16)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(scorer({k: v[:3] for k, v in batch.items()}), got[:3], atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas_packed"])

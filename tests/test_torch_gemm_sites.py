@@ -7,11 +7,23 @@ import re
 
 import pytest
 
-from chip_smoke import PER_BATCH, PER_STEP, PER_STEP_B, PER_STEP_LXMERT, PKG, REPO, gemm_site_launches, gemm_sites
+from chip_smoke import (
+    PER_BATCH,
+    PER_STEP,
+    PER_STEP_B,
+    PER_STEP_LXMERT,
+    PKG,
+    REPO,
+    TOWER_TRAIN,
+    gemm_site_launches,
+    gemm_sites,
+    tower_pair_launches,
+)
 
 PATH_GEMMS = {"imagebert_a": PER_BATCH["imagebert_a"]["gemm"], "imagebert_b": PER_BATCH["imagebert_b"]["gemm"],
               "lxmert": PER_BATCH["lxmert"]["gemm"], "imagebert_a_train": PER_STEP["gemm"],
-              "imagebert_b_train": PER_STEP_B["gemm"], "lxmert_train": PER_STEP_LXMERT["gemm"]}
+              "imagebert_b_train": PER_STEP_B["gemm"], "lxmert_train": PER_STEP_LXMERT["gemm"],
+              "two_tower": tower_pair_launches()["gemm"], "two_tower_train": TOWER_TRAIN["gemm"]}
 
 
 @pytest.mark.parametrize("path", sorted(PATH_GEMMS))

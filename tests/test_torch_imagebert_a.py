@@ -79,13 +79,17 @@ def test_apply_bf16_cpu_path_tracks_jax_bf16():
 
 def test_registry(monkeypatch):
     monkeypatch.setenv("KMR_CONFIG_OVERRIDES", '{"hidden_size": 32, "num_hidden_layers": 2}')
+    monkeypatch.delenv("KMR_TOWER_CONFIG_OVERRIDES", raising=False)
     spec = get_model("imagebert_a")
     assert (spec.config.hidden_size, spec.config.num_hidden_layers) == (32, 2)
     assert get_model("imagebert_a", overrides={"num_hidden_layers": 1}).config.num_hidden_layers == 1
     assert [get_model(name).sen2forest for name in ("imagebert_a", "imagebert_b", "imagebert_c")] == [
         False, False, True]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("two_tower")
+    tower = get_model("two_tower")  # the recall towers score pairs on ImageBERT-B's layout
+    assert (tower.featurizer_layout, tower.config.bert.num_hidden_layers, tower.config.embed_dim) == (
+        "imagebert_b", 4, 128)
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("no_such_model")
 
 
 def test_random_init_is_seeded_and_scores():

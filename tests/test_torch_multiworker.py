@@ -101,8 +101,9 @@ def test_shm_blocks_carry_the_port_prefix():
 
 
 def test_worker_failure_propagates(tsv_files, featurizer):
-    loader = MultiWorkerLoader(tsv_files[:1], featurizer, "two_tower", BATCH, num_workers=1)
-    with pytest.raises(RuntimeError, match="(?s)loader worker failed.*NotImplementedError.*two_tower"):
+    loader = MultiWorkerLoader(tsv_files[:1], featurizer, "no_such_layout", BATCH, num_workers=1)
+    with pytest.raises(RuntimeError, match="(?s)loader worker failed.*ValueError.*unknown featurizer layout "
+                                           "'no_such_layout'"):
         list(loader)
     assert _kmr_blocks(loader.worker_pids) == set()
 

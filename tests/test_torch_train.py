@@ -241,12 +241,17 @@ def test_params_to_jax_inverts_params_from_jax():
 
 
 def test_unported_recipes_raise():
-    """two_tower's training is not ported (its model neither); an optimizer
-    outside the recipes raises, as the JAX package's make_optimizer does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("two_tower")
+    """Every model of the registry has a recipe (two_tower's is JAX's: BERT-Adam
+    at 1e-4, 1000 warmup steps, global-norm clip); a model or an optimizer
+    outside the recipes raises, as the JAX package's recipe_for and
+    make_optimizer do."""
+    tc = recipe_for("two_tower")
+    assert (tc.optimizer, tc.learning_rate, tc.num_warmup_steps, tc.clip) == ("bert_adamw", 1e-4, 1000, "global_norm")
+    assert callable(make_loss_fn(get_model("two_tower"), tc, Precision.f32()))
     spec = get_model("imagebert_a", overrides=TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        make_loss_fn(dataclasses.replace(spec, name="two_tower"), recipe_for("two_tower"), Precision.f32())
+    with pytest.raises(ValueError, match="no_such_model"):
+        recipe_for("no_such_model")
+    with pytest.raises(ValueError, match="no_such_model"):
+        make_loss_fn(dataclasses.replace(spec, name="no_such_model"), recipe_for("imagebert_a"), Precision.f32())
     with pytest.raises(ValueError, match="sgd"):
         Trainer(spec, TrainConfig(optimizer="sgd"), device="cpu").init_state(seed=0)

@@ -3,7 +3,7 @@ two steps write ``metrics.jsonl`` and ``step_2.npz`` in the JAX package's
 param tree (B's label conv as its taps, the EMA shadows); that checkpoint
 scores through the port's ``cli/score.py`` exactly as the trained params in
 memory do, and through the JAX package's ``apply`` within 1e-4; the device
-policy and the models and flags that are not ported (exit 2)."""
+policy, the flags that are not ported and the refusals (exit 2)."""
 
 import json
 
@@ -98,11 +98,19 @@ def test_unported_flags_exit_2(data_dir, extra, capsys):
 
 @pytest.mark.parametrize("model", ["two_tower", "lxmert"])
 def test_other_models_exit_2(data_dir, model, capsys):
+    """LXMERT has no sampler of its layout (ROADMAP); two_tower refuses, as the
+    JAX script does, packed shards (pos/neg instances) and a distillation teacher."""
     argv = _argv(data_dir)
     argv[1] = model
-    with pytest.raises(SystemExit) as e:
-        train_cli.run(argv)
-    assert e.value.code == 2 and "ROADMAP" in capsys.readouterr().err
+    cases = [(argv, "ROADMAP")]
+    if model == "two_tower":
+        i = argv.index("--train-tsv")
+        cases = [(argv[:i] + ["--packed-dir", str(data_dir)] + argv[i + 2:], "--packed-dir shards"),
+                 (argv + ["--distill-from", str(data_dir / "teacher.npz")], "cross-encoder scorers")]
+    for case, message in cases:
+        with pytest.raises(SystemExit) as e:
+            train_cli.run(case)
+        assert e.value.code == 2 and message in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("model", ["imagebert_b", "imagebert_c"])
