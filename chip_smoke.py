@@ -206,7 +206,29 @@
    queries' top-500 held to a float64 oracle on the same bf16 values) beside
    the derived bound (the float16 catalog once over PCIe, the products at the
    bf16 peak). Both towers exported (``serving.export_tower``, "xla"),
-   reloaded and equal to the live embedder bit for bit.
+   reloaded and equal to the live embedder bit for bit. The towers' blocks
+   timed alone beside their library yardsticks (``block_libraries``).
+10. The int8 serving path, data parallelism and the last utilities.
+   ImageBERT-A at full width over phase 3's TSV in its ``int8-ffn`` and
+   ``int8`` trees (``ops/quant.py``, residual leaves bf16) on the engine's
+   default route beside the bf16 kernels: exact launches (int8-ffn: 12
+   attention blocks' kernels a batch and no FFN kernel; int8: none), device
+   and end-to-end pairs/s; ``dense_q8`` on the card equal to the CPU's at
+   both FFN shapes (1e-6 relative), ``torch._int_mm`` alone beside its int8
+   bound, ``gemm_bf16`` and ``torch.matmul``, the quant and dequant passes;
+   ``tests/test_quant.py``'s rank fidelity at its MID config on the card
+   and the CPU; both modes through ``cli/export.py --quantize``, reloaded
+   bit-equal to the engine. ``cli/train.py --distributed`` under ``torchrun``
+   (NCCL, world 1), DP_STEPS steps on phase 5's packed shards, bit-equal to
+   the run without it; two gloo ranks on the card (this script with
+   ``--dp-rank``): DP_TRAIN_STEPS steps of A at TRAIN_B, dropout TRAIN_RATE,
+   each loss within DP_LOSS_BAND of one rank's and step 1's gradients within
+   phase 5's TRAIN_STEP_REL_L2, and ``recall_sharded`` over RECALL_ROWS x 128
+   with ties equal to one rank's recall; the train kernels' dropout on a
+   rank's rows equal to the global batch's rows; ``cli/dryrun_multichip.py 2
+   --device cuda`` with its full-config stage; ``best_mha``'s pick at A's and
+   B's shapes; ``cli/bench_all.py`` and ``cli/perf_lab.py model_q8`` and
+   ``int8``.
 
 The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
 launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
@@ -254,6 +276,7 @@ TPU_PKG_DIR = "kddcup_2020_multimodalitiesrecall_2nd_place_tpu"  # the reference
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 CHECK_B, MAIN_B, S, H, N, I = 256, 512, 40, 768, 12, 3072
@@ -318,6 +341,14 @@ TOWER_LAYERS, TOWER_D, TOWER_Q, TOWER_P = 4, 128, 20, 10
 TOWER_CLI_STEPS, CASCADE_K = 5, 50
 RECALL_3M, RECALL_3M_TIMEOUT_S = 3_000_000, 600
 PCIE_BYTES_PER_S = 64e9
+# phase 10: the rank-fidelity config of tests/test_quant.py (MID, 20 queries x 30 products); the steps of the
+# torchrun world-1 run and of the two gloo ranks, the band that holds the ranks' losses to one rank's (relative;
+# their gradients are held by TRAIN_STEP_REL_L2), a subprocess's time limit, and the sharded recall's catalog rows
+# (not a multiple of 2)
+MID = {"hidden_size": 128, "num_hidden_layers": 4, "num_attention_heads": 4, "intermediate_size": 512}
+MID_Q, MID_P = 20, 30
+DP_STEPS, DP_TRAIN_STEPS, DP_LOSS_BAND, DP_TIMEOUT_S = 5, 2, 1e-4, 600
+RECALL_ROWS = 262_141
 
 
 def log(msg: str) -> None:
@@ -3444,8 +3475,8 @@ class Smoke:
     def tower_block_rows(self) -> dict[str, dict]:
         """The towers' launches timed alone at B=MAIN_B, each held against its plain version once more: the
         attention and FFN blocks (tanh GELU) and the fused layer at S=20 and S=10 under the towers' key masks
-        (lengths 1..S, every fourth pair's keys all masked), with the device's time alone, and the label conv's
-        and a projection's gemm ("f32")."""
+        (lengths 1..S, every fourth pair's keys all masked), with the device's time alone, each beside its library
+        yardstick (``block_libraries``), and the label conv's and a projection's gemm ("f32")."""
         from importlib import import_module
 
         k = import_module(f"{PKG}.ops.kernels")
@@ -3464,16 +3495,17 @@ class Smoke:
             lengths[::4] = 0
             bias = att.mask_to_bias((torch.arange(s)[None] < lengths[:, None]).float()).to(self.dev)
             attn_flops = 2.0 * m * H * 3 * H + 4.0 * b * N * s * s * 64 + 2.0 * m * H * H
+            attn_lib, ffn_lib, layer_lib = self.block_libraries(x, aw, fw, bias)
             self.time_row(rows, f"attention_block S={s} tower", "attention_block",
                           lambda x=x, bias=bias: ab.attention_block(x, *aw, N, bias),
-                          lambda x=x, bias=bias: ab.attention_block_plain(x, *aw, N, bias), None,
+                          lambda x=x, bias=bias: ab.attention_block_plain(x, *aw, N, bias), attn_lib,
                           2 * m * H * 2 + nbytes_of((bias, *aw)), attn_flops, PEAK_BF16_FLOPS, device=True)
             self.time_row(rows, f"ffn_block S={s} tower", "ffn_block", lambda x=x: fb.ffn_block(x, *fw),
-                          lambda x=x: fb.ffn_block_plain(x, *fw), None, 2 * m * H * 2 + nbytes_of(fw),
+                          lambda x=x: fb.ffn_block_plain(x, *fw), ffn_lib, 2 * m * H * 2 + nbytes_of(fw),
                           4.0 * m * H * I, PEAK_BF16_FLOPS, device=True)
             self.time_row(rows, f"encoder_layer S={s} tower", "encoder_layer",
                           lambda x=x, bias=bias: el.encoder_layer(x, *lw, N, bias),
-                          lambda x=x, bias=bias: el.encoder_layer_plain(x, *lw, N, bias), None,
+                          lambda x=x, bias=bias: el.encoder_layer_plain(x, *lw, N, bias), layer_lib,
                           2 * m * H * 2 + nbytes_of((bias, *lw)), attn_flops + 4.0 * m * H * I, PEAK_BF16_FLOPS,
                           device=True)
         band, cbias = self.label_band()
@@ -3491,6 +3523,34 @@ class Smoke:
         if self.failures:
             raise RuntimeError(f"the towers' launches disagree with their plain versions: {self.failures}")
         return rows
+
+    def block_libraries(self, x, aw, fw, bias):
+        """The library yardsticks of the attention block, the FFN block and the layer (their sum) on x [B, S, H]
+        bf16 under the key mask ``bias`` [B, S]: the QKV and out-proj products (``torch.matmul`` of the bf16
+        operands), SDPA on its fastest fused backend with the same additive key mask, ``F.layer_norm``; the up
+        product, ``F.gelu(approximate="tanh")``, the down product, ``F.layer_norm``."""
+        torch = self.torch
+        F = torch.nn.functional
+        wqkv, bqkv, wo, bo, g1, b1 = aw
+        w1, c1, w2, c2, g2, b2 = fw
+        b, s, _ = x.shape
+        x2d = x.reshape(b * s, H)
+        mask = bias.to(torch.bfloat16)[:, None, None, :]
+        heads = (torch.matmul(x2d, wqkv) + bqkv).to(torch.bfloat16).reshape(b, s, 3, N, 64).permute(2, 0, 3, 1, 4)
+        sdpa = sdpa_library(torch, heads[0], heads[1], heads[2], mask)
+
+        def attn(x2d=x2d):
+            qkv = (torch.matmul(x2d, wqkv) + bqkv).to(torch.bfloat16).reshape(b, s, 3, N, 64).permute(2, 0, 3, 1, 4)
+            ctx = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=mask)
+            y = torch.matmul(ctx.transpose(1, 2).reshape(b * s, H), wo) + bo + x2d
+            return F.layer_norm(y.float(), (H,), g1, b1, 1e-12).to(torch.bfloat16)
+
+        def ffn(x2d=x2d):
+            hmid = F.gelu(torch.matmul(x2d, w1) + c1, approximate="tanh").to(torch.bfloat16)
+            y = torch.matmul(hmid, w2) + c2 + x2d
+            return F.layer_norm(y.float(), (H,), g2, b2, 1e-12).to(torch.bfloat16)
+
+        return with_backends(attn, sdpa), ffn, with_backends(lambda: ffn(attn()), sdpa)
 
     def two_tower(self) -> tuple[dict[str, dict], dict]:
         """Phase 9: two-tower recall at full width (4 + 4 layers of 768, embed_dim 128) from the seed's weights:
@@ -3770,6 +3830,411 @@ class Smoke:
             if not equal:
                 raise RuntimeError(f"the exported {side} tower differs from the live embedder: {out[side]}")
         return out
+
+    # ---- phase 10: the int8 serving path, data parallelism, the last utilities ------------------------------
+
+    def int8_serving(self) -> tuple[dict[str, dict], dict]:
+        """Phase 10, part 1: ImageBERT-A at full width (12 x 768, the seed's weights) over phase 3's TSV in
+        MAIN_B batches, its int8-ffn and int8 trees (``ops/quant.py:quantize_for_serving``, the residual leaves
+        bf16) through ``ScoringEngine`` on its default route beside the bf16 kernels: end-to-end and device
+        pairs/s, exact launches (int8-ffn: the attention blocks' kernels and no FFN kernel; int8: none); the
+        int8 dense at the FFN shapes (``int8_rows``); the rank fidelity of ``tests/test_quant.py`` at its MID
+        config (``int8_rank_fidelity``); both modes exported through ``cli/export.py --quantize``, reloaded and
+        bit-equal to the engine on one batch -> (each counted run's launches, the part's numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        data = import_module(f"{PKG}.data")
+        models = import_module(f"{PKG}.models")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        attention = import_module(f"{PKG}.ops.attention")
+        quant = import_module(f"{PKG}.ops.quant")
+        tok = import_module(f"{PKG}.tokenization")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+        export_cli = import_module(f"{PKG}.cli.export")
+        serving = import_module(f"{PKG}.serving")
+
+        t_part = time.perf_counter()
+        work = pkg.BUILD_DIR / "smoke"
+        tsv, labels = work / "pairs.tsv", work / "labels.txt"  # phase 3's
+        spec = models.get_model("imagebert_a")
+        cfg, bf16 = spec.config, models.Precision.bf16()
+        params = spec.init_params(self.seed)
+        featurizer = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH), data.load_multimodal_labels(labels))
+        batches = list(data.batches_from_files([tsv], featurizer.imagebert_a, MAIN_B))
+        valid = torch.from_numpy(np.concatenate([bt["valid"] for bt in batches]))
+        runs, rates = {}, {"card": nvidia_smi()}
+
+        def staged_run(engine):
+            staged = [engine.to_device(bt) for bt in batches]
+
+            def run():
+                with torch.inference_mode(), attention.attention_backend(engine.attention_backend):
+                    return [spec.apply(engine.params, bt, cfg, bf16)["score"] for bt in staged]
+
+            ms = cuda_ms(torch, run, iters=3, warmup=1)
+            return ms, torch.cat(run()).float().cpu()
+
+        base = engine_mod.ScoringEngine(spec, params, device=self.dev, precision=bf16)
+        base_ms, base_scores = staged_run(base)
+        n_pad = len(batches) * MAIN_B
+        rates["bf16"] = {"device_ms_per_batch": base_ms / len(batches), "device_pairs_per_second": n_pad / base_ms * 1e3}
+        engines = {}
+        for mode, path in (("int8-ffn", "imagebert_a_int8_ffn"), ("int8", "imagebert_a_int8")):
+            t0 = time.perf_counter()
+            qparams = quant.quantize_for_serving(spec, params, mode, bf16_residual=True)
+            quantize_s = time.perf_counter() - t0
+            engine = engine_mod.ScoringEngine(spec, qparams, device=self.dev, precision=bf16)
+            if engine.attention_backend != "pallas_packed":
+                raise RuntimeError(f"{mode}: the engine took {engine.attention_backend}, not its default route")
+            engine.score_batch(batches[0])
+            torch.cuda.synchronize()
+            stats = engine_mod.ScoringStats()
+            result = counted_run(torch, runs, path, expected_launches(len(batches), PER_BATCH[path]),
+                                 lambda engine=engine, stats=stats: engine.score_files([tsv], featurizer, MAIN_B,
+                                                                                       stats=stats))
+            ms, scores = staged_run(engine)
+            scores, ref = scores[valid], base_scores[valid]
+            engine_scores = torch.tensor([result[str(q)][str(p)] for bt in batches
+                                          for q, p, ok in zip(bt["query_id"], bt["product_id"], bt["valid"]) if ok])
+            if stats.pairs != N_ROWS or not bool(torch.isfinite(scores).all()) or scores.shape != (N_ROWS,):
+                raise RuntimeError(f"{mode}: {stats.pairs} pairs scored, finite {bool(torch.isfinite(scores).all())}")
+            d_engine = (engine_scores - scores).abs().max().item()
+            if d_engine > 1e-6:
+                raise RuntimeError(f"{mode}: the engine's scores differ from the staged run's by {d_engine}")
+            same_rank, n_q = self.ranking_agreement(batches, scores, ref)
+            rates[mode] = {"quantize_seconds": quantize_s, "pairs": stats.pairs, "seconds": stats.seconds,
+                           "pairs_per_second": stats.pairs_per_second, "device_ms_per_batch": ms / len(batches),
+                           "device_pairs_per_second": n_pad / ms * 1e3,
+                           "max_abs_score_diff_vs_bf16_kernels": (scores - ref).abs().max().item(),
+                           "mean_abs_score_diff_vs_bf16_kernels": (scores - ref).abs().mean().item(),
+                           "identical_rankings_vs_bf16": [same_rank, n_q]}
+            log(f"{mode}: {stats.pairs} pairs end to end {stats.pairs_per_second:.1f} pairs/s, on the device "
+                f"{rates[mode]['device_pairs_per_second']:.1f} pairs/s (bf16 kernels "
+                f"{rates['bf16']['device_pairs_per_second']:.1f}); scores vs the bf16 kernels max |d| "
+                f"{rates[mode]['max_abs_score_diff_vs_bf16_kernels']:.4g}, same ranking in {same_rank}/{n_q} queries")
+            engines[mode] = engine
+        rates["dense"] = self.int8_rows()
+        rates["rank_fidelity"] = self.int8_rank_fidelity()
+
+        # both modes through the user's entry point, cli/export.py --quantize, from a checkpoint of the weights
+        out_root = work / "int8"
+        shutil.rmtree(out_root, ignore_errors=True)
+        out_root.mkdir(parents=True)
+        ckpt = out_root / "a.npz"
+        checkpoint.save_npz(ckpt, checkpoint.params_to_jax(params))
+        host = {k: v for k, v in batches[0].items()}
+        rates["export"] = {}
+        for mode, path in (("int8-ffn", "imagebert_a_export_int8_ffn"), ("int8", "imagebert_a_export_int8")):
+            out = out_root / mode
+            t0 = time.perf_counter()
+            export_cli.main(["--model", "imagebert_a", "--checkpoint", str(ckpt), "--batch-size", str(MAIN_B),
+                             "--backend", "pallas_packed", "--quantize", mode, "--out", str(out)])
+            export_s = time.perf_counter() - t0
+            scorer = serving.load_scorer(out)
+            if scorer.meta["quantize"] != mode:
+                raise RuntimeError(f"{out}/meta.json records quantize {scorer.meta['quantize']!r}")
+            feats = {k: host[k] for k in scorer.feature_keys}
+            got = counted_run(torch, runs, path, expected_launches(1, PER_BATCH[path]), lambda: scorer(feats))
+            want = engines[mode].score_batch(host).float().cpu().numpy()
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"the reloaded {mode} artifact differs from the engine: max |d| "
+                                   f"{np.abs(got - want).max()}")
+            size = sum(f.stat().st_size for f in out.iterdir())
+            rates["export"][mode] = {"export_seconds": export_s, "bytes": size, "bit_equal_to_engine": True}
+            log(f"export {mode}: {export_s:.1f} s, {size / 1e6:.1f} MB, reloaded = the engine bit for bit")
+        shutil.rmtree(out_root)
+        rates["part_seconds"] = time.perf_counter() - t_part
+        return runs, rates
+
+    def int8_rows(self) -> dict:
+        """The int8 dense at the two FFN shapes of a B=MAIN_B batch ([20480, 768] x [768, 3072] and [20480, 3072]
+        x [3072, 768]): ``dense_q8`` on the card against the port's ``dense_q8`` on the CPU (1e-6 relative: the
+        int32 sums are exact); ``torch._int_mm`` alone against its int8 bound (the data sheet's 1979 TOPS dense)
+        and against ``gemm_bf16`` and ``torch.matmul`` of bf16 operands; the row-quant and the dequant passes;
+        the whole ``dense_q8`` against the bf16 dense of ``models/core.py``."""
+        from importlib import import_module
+
+        torch = self.torch
+        quant = import_module(f"{PKG}.ops.quant")
+        k = import_module(f"{PKG}.ops.kernels")
+        core = import_module(f"{PKG}.models.core")
+        out = {}
+        m = MAIN_B * S
+        for k_in, n in ((H, I), (I, H)):
+            name = f"[{m}x{k_in}]x[{k_in}x{n}]"
+            x = self.randn(m, k_in, dtype=torch.bfloat16)
+            w = self.randn(k_in, n, scale=k_in ** -0.5).cpu()
+            p = {**quant.quantize_kernel(w), "bias": self.randn(n, scale=0.02).cpu()}
+            pc = {key: v.to(self.dev) for key, v in p.items()}
+            got, want = quant.dense_q8(pc, x).cpu(), quant.dense_q8(p, x.cpu())
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            if not rel <= 1e-6:
+                raise RuntimeError(f"dense_q8 {name} on the card differs from the CPU's by {rel:.3g} relative")
+            x_q, x_scale = quant.quantize_rows(x)
+            acc = quant.int8_matmul(x_q, pc["kernel_q8"])
+            ops = 2.0 * m * k_in * n
+            int8_bound, int8_by = bound_ms(m * k_in + k_in * n + 4 * m * n, ops, PEAK_INT8_OPS)
+            wb, xb = w.to(self.dev, torch.bfloat16), x
+            r = {"card_vs_cpu_max_rel": rel, "int_mm_ms": cuda_ms(torch, lambda: torch._int_mm(x_q, pc["kernel_q8"])),
+                 "int_mm_bound_ms": int8_bound, "int_mm_bound_by": int8_by,
+                 "gemm_bf16_ms": cuda_ms(torch, lambda: k.gemm(xb, wb, pc["bias"], "bias")),
+                 "matmul_bf16_ms": cuda_ms(torch, lambda: torch.matmul(xb, wb)),
+                 "bf16_bound_ms": bound_ms(2 * m * k_in + 2 * k_in * n + 2 * m * n, ops, PEAK_BF16_FLOPS)[0],
+                 "quant_pass_ms": cuda_ms(torch, lambda: quant.quantize_rows(x)),
+                 "dequant_pass_ms": cuda_ms(torch, lambda: quant.dequantize(acc, x_scale, pc)),
+                 "dense_q8_ms": cuda_ms(torch, lambda: quant.dense_q8(pc, x)),
+                 "dense_bf16_ms": cuda_ms(torch, lambda: core.dense({"kernel": wb, "bias": pc["bias"]}, x,
+                                                                    core.Precision(torch.bfloat16)))}
+            r["int_mm_tops"] = ops / r["int_mm_ms"] / 1e9
+            out[name] = r
+            log(f"int8 {name}: dense_q8 card vs CPU {rel:.3g} relative; _int_mm {r['int_mm_ms']:.4f} ms "
+                f"({r['int_mm_tops']:.0f} TOPS; bound {int8_bound:.4f} ms, {int8_by}), gemm_bf16 {r['gemm_bf16_ms']:.4f}, "
+                f"torch.matmul bf16 {r['matmul_bf16_ms']:.4f} (bound {r['bf16_bound_ms']:.4f}); quant pass "
+                f"{r['quant_pass_ms']:.4f}, dequant pass {r['dequant_pass_ms']:.4f}; dense_q8 {r['dense_q8_ms']:.4f} "
+                f"vs the bf16 dense {r['dense_bf16_ms']:.4f} ms")
+        return out
+
+    def int8_rank_fidelity(self) -> dict:
+        """``tests/test_quant.py:146-210`` through the port on the card: ImageBERT-A and -B at its MID config
+        (128 wide, 4 layers, the seed's weights) over 20 queries x 30 products, f32 (the "xla" route, TF32 off)
+        and each int8 mode, on the card and on the CPU. Each int8 run's scores on the card within SCORE_BAND of
+        the CPU's (an activation whose f32 value lies at an int8 rounding boundary rounds to either side, and
+        ImageBERT-B's AM head amplifies the step up to 7.5x: 2.8e-3 on its full mode on the H100);
+        the FFN-only mode meets the test's thresholds (mean Kendall
+        tau >= 0.98, min >= 0.95, mean top-5 overlap >= 0.95, min >= 0.8, nDCG@5 delta <= 0.01); the full mode's
+        numbers are reported beside whether they meet them (the JAX package's own full mode misses its nDCG@5
+        threshold at two of four init keys, ROADMAP.md Queue 3)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        models = import_module(f"{PKG}.models")
+        quant = import_module(f"{PKG}.ops.quant")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+        engine_mod = import_module(f"{PKG}.parallel.engine")
+        batchspec = import_module(f"{PKG}.data.batchspec")
+        out = {}
+        for name in ("imagebert_a", "imagebert_b"):
+            spec = models.get_model(name, overrides=MID)
+            params = spec.init_params(self.seed)
+            batch = batchspec.example_batch(name, spec.config, MID_Q * MID_P, np.random.default_rng(5))
+
+            def scores(p, device):
+                eng = engine_mod.ScoringEngine(spec, p, device=device, precision=models.Precision.f32())
+                return eng.score_batch(batch).float().cpu().numpy()
+
+            f32 = {d: scores(params, d) for d in (self.dev, "cpu")}
+            for mode, only in (("full", None), ("ffn", ("ffn",))):
+                qp = spec.from_jax(quant.quantize_dense_tree(checkpoint.params_from_jax(checkpoint.params_to_jax(params)),
+                                                             only_paths=only))
+                q8 = {d: scores(qp, d) for d in (self.dev, "cpu")}
+                d_card = float(np.abs(q8[self.dev] - q8["cpu"]).max())
+                card, cpu = rank_fidelity(f32[self.dev], q8[self.dev]), rank_fidelity(f32["cpu"], q8["cpu"])
+                meets = {k: fidelity_met(v) for k, v in (("card", card), ("cpu", cpu))}
+                out[f"{name} {mode}"] = {"card": card, "cpu": cpu, "meets_thresholds": meets,
+                                         "max_abs_card_vs_cpu": d_card}
+                log(f"rank fidelity {name} {mode} (MID): card {json.dumps(card)} meets {meets['card']}; CPU meets "
+                    f"{meets['cpu']}; int8 scores card vs CPU max |d| {d_card:.3g}")
+                if d_card > SCORE_BAND or (mode == "ffn" and not meets["card"]):
+                    raise RuntimeError(f"int8 rank fidelity {name} {mode}: {out[f'{name} {mode}']}")
+        return out
+
+    def data_parallel(self) -> tuple[dict[str, dict], dict]:
+        """Phase 10, part 2: ``torchrun --standalone --nproc_per_node 1 -m <port>.cli.train --distributed`` (NCCL)
+        for DP_STEPS steps of ImageBERT-A at full width on phase 5's packed shards, held bit-equal to the same run
+        without ``--distributed`` (counted); two gloo ranks on the one card (``dp_worker``): DP_TRAIN_STEPS steps
+        of A at full width, TRAIN_B pairs a step (half a rank), dropout TRAIN_RATE, each rank's losses and
+        parameters held to one rank's steps on the global batch (``two_ranks``), and ``recall_sharded`` over a
+        RECALL_ROWS x TOWER_D catalog with planted ties, equal to ``top_k_products`` on one rank; the train
+        kernels' dropout on a rank's rows equal to the global batch's rows bit for bit; ``cli/dryrun_multichip.py
+        2 --device cuda`` with its full-config stage; ``best_mha``'s pick at A's and B's shapes -> (each counted
+        run's launches, the part's numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        train_cli = import_module(f"{PKG}.cli.train")
+        attention = import_module(f"{PKG}.ops.attention")
+        t_part = time.perf_counter()
+        runs, rates = {}, {"card": nvidia_smi()}
+        work = pkg.BUILD_DIR / "smoke" / "dp"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+
+        # world 1 under NCCL through torchrun, against the run without --distributed
+        train_dir = pkg.BUILD_DIR / "smoke" / "train"
+        argv = ["--model", "imagebert_a", "--packed-dir", str(train_dir / "packed_a"), "--labels",
+                str(train_dir / "labels.txt"), "--steps", str(DP_STEPS), "--batch-size", str(TRAIN_B),
+                "--checkpoint-every", str(DP_STEPS), "--warmup-steps", str(TRAIN_STEPS // 2), "--total-steps",
+                str(10 * TRAIN_STEPS), "--seed", str(self.seed)]
+        plain = counted_run(torch, runs, "imagebert_a_train_dp_plain", expected_launches(DP_STEPS, PER_STEP),
+                            lambda: train_cli.main([*argv, "--out", str(work / "plain")]))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                            "-m", f"{PKG}.cli.train", "--distributed", *argv, "--out", str(work / "nccl")],
+                           cwd=REPO, env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        torchrun_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise RuntimeError(f"torchrun cli/train.py --distributed failed:\n{r.stderr[-4000:]}")
+        report = json.loads(r.stdout.strip().splitlines()[-1])
+        with np.load(work / "plain" / f"state_{DP_STEPS}.npz") as a, np.load(work / "nccl" / f"state_{DP_STEPS}.npz") as b:
+            differ = [key for key in a.files if key not in b.files or not np.array_equal(a[key], b[key])]
+            n_arrays = len(a.files)
+        same_log = (work / "plain" / "metrics.jsonl").read_text() == (work / "nccl" / "metrics.jsonl").read_text()
+        if differ or not same_log or report["world_size"] != 1:
+            raise RuntimeError(f"torchrun --distributed (world {report['world_size']}) differs from the plain run: "
+                               f"{differ[:8]}, metrics equal {same_log}")
+        rates["nccl_world_1"] = {"steps": DP_STEPS, "bit_equal_arrays": n_arrays, "metrics_equal": same_log,
+                                 "torchrun_seconds": torchrun_s, "pairs_per_second": report["pairs_per_second"],
+                                 "plain_pairs_per_second": plain["pairs_per_second"]}
+        log(f"cli/train.py --distributed under torchrun (NCCL, world 1): {DP_STEPS} steps bit-equal to the plain run "
+            f"({n_arrays} arrays of state_{DP_STEPS}.npz, metrics.jsonl equal); {report['pairs_per_second']:.1f} "
+            f"pairs/s (plain {plain['pairs_per_second']:.1f}), the command {torchrun_s:.1f} s")
+        shutil.rmtree(work / "plain")
+        shutil.rmtree(work / "nccl")
+
+        # two gloo ranks on the one card, against one rank on the global batch
+        rates["gloo_two_ranks"] = self.two_ranks(work, env)
+        rates["dropout_shards"] = self.dropout_shard_masks()
+
+        # the dry run, its full-config stage on the card
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"{PKG}.cli.dryrun_multichip", "2", "--device", "cuda"], cwd=REPO,
+                           env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+        if r.returncode != 0 or not last.startswith("dryrun_multichip(2): ok") or "full-config" not in last:
+            raise RuntimeError(f"cli/dryrun_multichip.py 2 --device cuda: {last!r}\n{r.stderr[-4000:]}")
+        rates["dryrun"] = {"line": last, "seconds": time.perf_counter() - t0}
+        log(f"{last} ({rates['dryrun']['seconds']:.1f} s)")
+
+        # best_mha's pick at A's and B's attention shapes
+        picks = {}
+        for label, s, has_bias in (("imagebert_a", S, False), ("imagebert_b", B_S, True)):
+            q = self.randn(MAIN_B, N, s, 64, dtype=torch.bfloat16)
+            bias = self.randn(MAIN_B, 1, 1, s) if has_bias else None
+            route = attention.backend_choice(q, bias)
+            choice, t_kernel, t_xla = attention._backend_choice((*q.shape, has_bias, str(q.dtype)))
+            picks[label] = {"shape": list(q.shape), "bias": has_bias, "route": route, "mha_kernel_ms": t_kernel,
+                            "mha_xla_ms": t_xla}
+            log(f"best_mha {label} {list(q.shape)} bias={has_bias}: {route} (mha kernel {t_kernel:.4f} ms, "
+                f"mha_xla {t_xla:.4f} ms)")
+        rates["best_mha"] = picks
+        rates["part_seconds"] = time.perf_counter() - t_part
+        return runs, rates
+
+    def two_ranks(self, work, env) -> dict:
+        """``dp_worker`` on two gloo ranks of the one card, against ``dp_case`` and ``recall_case`` on one rank
+        here: the ranks' losses equal, rank 0's initial params equal to one rank's (broadcast from rank 0);
+        each loss within DP_LOSS_BAND relative of one rank's and step 1's averaged gradients within phase 5's
+        TRAIN_STEP_REL_L2 of one rank's, leaf by leaf (cuBLAS's f32 products pick another algorithm at a rank's
+        rows than at the global batch's, so rows round apart in bf16 training; the band is measured and
+        recorded, with the two steps' update in relative L2); the sharded recall's indices and scores equal to
+        one rank's."""
+        import socket
+
+        torch = self.torch
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--seed", str(self.seed), "--dp-rank",
+                                   str(r), "--dp-port", str(port), "--dp-out", str(work)], cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=DP_TIMEOUT_S)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, err) in enumerate(zip(procs, errs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"gloo rank {r} on the card failed (exit {p.returncode}):\n{err[-4000:]}")
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        ref_losses, ref, ref_ms = dp_case(torch, 0, 1, self.seed, self.dev)
+        got = torch.load(work / "rank0_params.pt")
+
+        def rel_l2(a, b):
+            return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+        init_equal = all(torch.equal(got["init"][n], t) for n, t in ref["init"].items())
+        grad_rel = {n: rel_l2(got["grads"][n], g) for n, g in ref["grads"].items()}
+        update_rel = {n: rel_l2(got["params"][n] - got["init"][n], p - ref["init"][n]) for n, p in ref["params"].items()}
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses)]
+        worst, worst_update = max(grad_rel, key=grad_rel.get), max(update_rel, key=update_rel.get)
+        ref_s, ref_i = recall_case(torch, 0, 1, self.seed, self.dev)
+        rec = torch.load(work / "rank0_recall.pt")
+        recall_equal = torch.equal(rec["indices"], ref_i.cpu()) and torch.equal(rec["scores"], ref_s.cpu())
+        out = {"losses": ranks[0]["losses"], "one_rank_losses": ref_losses, "loss_max_rel": max(loss_rel),
+               "init_params_equal": init_equal, "step1_grad_max_rel_l2": grad_rel[worst], "step1_grad_worst": worst,
+               "update_max_rel_l2": update_rel[worst_update], "update_worst": worst_update,
+               "ranks_losses_equal": ranks[0]["losses"] == ranks[1]["losses"],
+               "step_ms": ranks[0]["step_ms"], "one_rank_step_ms": ref_ms, "recall_equal": recall_equal,
+               "recall_ms": ranks[0]["recall_ms"], "recall_rows": RECALL_ROWS, "spawn_seconds": spawn_s}
+        log(f"two gloo ranks on the card: losses {ranks[0]['losses']} vs one rank {ref_losses} (max rel "
+            f"{out['loss_max_rel']:.3g}); step 1's averaged gradients vs one rank's, max rel L2 {grad_rel[worst]:.3g} "
+            f"({worst}); the two steps' update, max rel L2 {update_rel[worst_update]:.3g} ({worst_update}); the same "
+            f"initial params {init_equal}; steps {ranks[0]['step_ms']} ms "
+            f"vs one rank {ref_ms} ms; recall_sharded over {RECALL_ROWS} x {TOWER_D} on 2 ranks = one rank: "
+            f"{recall_equal} ({ranks[0]['recall_ms']:.2f} ms); {spawn_s:.1f} s")
+        if not (out["ranks_losses_equal"] and init_equal and out["loss_max_rel"] <= DP_LOSS_BAND
+                and grad_rel[worst] <= TRAIN_STEP_REL_L2 and recall_equal):
+            raise RuntimeError(f"two gloo ranks disagree with one rank: {json.dumps(out)}")
+        return out
+
+    def dropout_shard_masks(self) -> dict:
+        """The train kernels' dropout on a rank's rows (``ops/dropout.py:batch_shard``, the seed shifted by the
+        rank's first block) equal to the global batch's rows bit for bit: ``ln_train`` (the hidden draw, FFN
+        blocks of 4 pairs) and ``attn_train`` (each head's probabilities, attention blocks of 8) at rate 0.5,
+        TRAIN_B pairs as two ranks of half."""
+        from importlib import import_module
+
+        torch = self.torch
+        k = import_module(f"{PKG}.ops.kernels")
+        dropout = import_module(f"{PKG}.ops.dropout")
+        b, seed, rate, half = TRAIN_B, 12345, 0.5, TRAIN_B // 2
+        m = b * S
+        h, x, gamma, beta = (self.randn(m, H), self.randn(m, H, dtype=torch.bfloat16), self.randn(H), self.randn(H))
+        qkv = self.randn(m, 3 * H, dtype=torch.bfloat16)
+        ffn_block, _ = dropout.shard_block("ffn", b, None, seed)
+        attn_block, _ = dropout.shard_block("attn", b, None, seed)
+        want_ln = k.ln_train(h, x, gamma, beta, seed, rate, ffn_block * S)
+        want_at = k.attn_train(qkv, None, b, S, N, seed, rate, attn_block)
+        equal = True
+        for r in range(2):
+            rows = slice(r * half * S, (r + 1) * half * S)
+            with dropout.batch_shard(r * half, b):
+                fb, fs = dropout.shard_block("ffn", half, None, seed)
+                ab_, as_ = dropout.shard_block("attn", half, None, seed)
+                got_ln = k.ln_train(h[rows], x[rows], gamma, beta, fs, rate, fb * S)
+                got_at = k.attn_train(qkv[rows].contiguous(), None, half, S, N, as_, rate, ab_)
+            equal = equal and torch.equal(got_ln, want_ln[rows]) and torch.equal(got_at, want_at[rows])
+        log(f"dropout on two ranks' rows = the global batch's rows bit for bit (ln_train, attn_train at rate {rate}): "
+            f"{equal}")
+        if not equal:
+            raise RuntimeError("a rank's dropout masks differ from the global batch's rows")
+        return {"ln_train": True, "attn_train": True, "rate": rate, "pairs": b}
+
+    def utilities(self) -> dict:
+        """Phase 10, part 3: ``cli/bench_all.py`` at B=MAIN_B (one line a scorer), ``cli/perf_lab.py model_q8
+        imagebert_a MAIN_B ffn`` and ``int8``, in this process."""
+        from importlib import import_module
+
+        bench_all = import_module(f"{PKG}.cli.bench_all")
+        perf_lab = import_module(f"{PKG}.cli.perf_lab")
+        t0 = time.perf_counter()
+        lines = bench_all.main(["--batch-size", str(MAIN_B), "--iters", "4"])
+        perf_lab.main(["model_q8", "imagebert_a", str(MAIN_B), "ffn", "--iters", "4"])
+        perf_lab.main(["int8", "--iters", "10"])
+        return {"bench_all": lines, "seconds": time.perf_counter() - t0}
 
 
 PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
@@ -4068,6 +4533,12 @@ PER_BATCH = {
     "imagebert_a_export_xla": {},
     # one call of ops/attention.py:mha_packed, the kernel's only entry point
     "mha_packed_entry": {"mha_packed": 1},
+    # the int8 trees on the default route: int8-ffn's attention blocks (an int8 FFN takes the unfused route);
+    # int8 runs no block kernel; their reloaded artifacts the same kernels without block counters
+    "imagebert_a_int8_ffn": {"attention_block": 12, "gemm": 24, "attn_core": 12, "layernorm": 12},
+    "imagebert_a_int8": {},
+    "imagebert_a_export_int8_ffn": {"gemm": 24, "attn_core": 12, "layernorm": 12},
+    "imagebert_a_export_int8": {},
 }
 PER_BATCH["imagebert_c"] = PER_BATCH["imagebert_b"]
 # launches per ImageBERT-A training step (12 layers): forward, attention block = QKV gemm, attn_train, out-proj
@@ -4184,6 +4655,123 @@ def sum_launches(*parts: tuple[int, dict]) -> dict:
 TOWER_TRAIN = sum_launches((2, train_launches("imagebert_a", TOWER_LAYERS)), (1, {"gemm": 2}))
 
 
+# ---- phase 10: the data-parallel cases, run on each gloo rank (``--dp-rank``) and on one rank -----------------
+
+
+def dp_case(torch, rank: int, world: int, seed: int, dev) -> tuple[list[float], dict, list[float]]:
+    """DP_TRAIN_STEPS steps of ImageBERT-A at full width (dropout TRAIN_RATE, bf16 kernels, phase 5's schedule)
+    on this rank's rows of a TRAIN_B-pair batch from the seed -> (losses, {"init", "grads" (step 1's, averaged
+    over the ranks), "params"}: f32 tensors on the CPU by name, ms a step)."""
+    from importlib import import_module
+
+    import numpy as np
+
+    models = import_module(f"{PKG}.models")
+    train = import_module(f"{PKG}.train")
+    batchspec = import_module(f"{PKG}.data.batchspec")
+    optim = import_module(f"{PKG}.train.optim")
+    spec = models.get_model("imagebert_a")
+    tc = dataclasses.replace(train.recipe_for("imagebert_a"), num_warmup_steps=TRAIN_STEPS // 2,
+                             num_train_steps=10 * TRAIN_STEPS)
+    trainer = train.Trainer(spec, tc, device=dev)
+    state = trainer.init_state(spec.init_params(seed))
+    batch = batchspec.example_batch("imagebert_a", spec.config, TRAIN_B, np.random.default_rng(seed))
+    batch["labels"] = np.random.default_rng(seed + 1).integers(0, 2, TRAIN_B).astype(np.int32)
+    rows = TRAIN_B // world
+    local = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()}
+    names = state.optimizer.names
+    out = {"init": {n: p.detach().float().cpu() for n, p in zip(names, state.leaves())}}
+    losses, step_ms = [], []
+    for step in range(DP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, metrics = trainer.grads(state, trainer.to_device(local), seed=100 + step)
+        trainer.apply(state, grads)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            out["grads"] = {n: g.detach().float().cpu() for n, g in zip(names, grads)}
+    out["params"] = {name: p.detach().float().cpu() for name, p in optim.flatten_paths(state.params).items()}
+    return losses, out, step_ms
+
+
+def recall_case(torch, rank: int, world: int, seed: int, dev):
+    """``recall_sharded`` of 64 queries over a RECALL_ROWS x TOWER_D bf16 catalog from the seed, rows duplicated
+    across the shards (ties), k=10 -> (scores, indices); on one rank ``top_k_products`` over the whole catalog."""
+    from importlib import import_module
+
+    two_tower = import_module(f"{PKG}.models.two_tower")
+    gen = torch.Generator().manual_seed(seed)
+    cat = torch.randn(RECALL_ROWS, TOWER_D, generator=gen)
+    q = torch.randn(64, TOWER_D, generator=gen)
+    cat[RECALL_ROWS - 5:] = cat[:5]  # ties across the shards, in the last shard's tail
+    cat[RECALL_ROWS // 2 + 7] = cat[3]
+    cat, q = cat.to(dev, torch.bfloat16), q.to(dev)
+    if world == 1:
+        return two_tower.top_k_products(q, cat, k=10)
+    return two_tower.recall_sharded(q, cat, k=10)
+
+
+def dp_worker(rank: int, port: int, out_dir: str, seed: int) -> int:
+    """One of two gloo ranks on the one card: ``dp_case``, then ``recall_case`` (timed); writes
+    ``rank<r>.json`` and, on rank 0, the params and the recall."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from importlib import import_module
+
+    distributed = import_module(f"{PKG}.parallel.distributed")
+    distributed.maybe_initialize(f"tcp://localhost:{port}", 2, rank, device="cuda", backend="gloo")
+    dev = torch.device("cuda")
+    losses, params, step_ms = dp_case(torch, rank, 2, seed, dev)
+    recall_case(torch, rank, 2, seed, dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, indices = recall_case(torch, rank, 2, seed, dev)
+    torch.cuda.synchronize()
+    recall_ms = (time.perf_counter() - t0) * 1e3
+    out = Path(out_dir)
+    (out / f"rank{rank}.json").write_text(json.dumps({"losses": losses, "step_ms": step_ms, "recall_ms": recall_ms}))
+    if rank == 0:
+        torch.save(params, out / "rank0_params.pt")  # {"init", "grads", "params"}
+        torch.save({"scores": scores.cpu(), "indices": indices.cpu()}, out / "rank0_recall.pt")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_fidelity(f32, q8, n_queries: int = None, n_products: int = None) -> dict:
+    """``tests/test_quant.py``'s rank-fidelity numbers of int8 scores against f32 ones (MID_Q queries of MID_P
+    products): per-query Kendall tau, top-5 overlap, and the nDCG@5 loss against the f32 top 5 as answers."""
+    from importlib import import_module
+
+    import numpy as np
+
+    evaluate_scores = import_module(f"{PKG}.eval").evaluate_scores
+    n_queries, n_products = n_queries or MID_Q, n_products or MID_P
+    taus, overlaps, f32_table, q8_table, answers = [], [], {}, {}, {}
+    for q in range(n_queries):
+        a, b = f32[q * n_products:(q + 1) * n_products], q8[q * n_products:(q + 1) * n_products]
+        ii, jj = np.triu_indices(n_products, 1)
+        taus.append(float(np.mean(np.sign(a[ii] - a[jj]) * np.sign(b[ii] - b[jj]))))
+        top_a, top_b = np.argsort(-a)[:5], np.argsort(-b)[:5]
+        overlaps.append(len(set(top_a) & set(top_b)) / 5)
+        f32_table[str(q)] = {str(p): float(a[p]) for p in range(n_products)}
+        q8_table[str(q)] = {str(p): float(b[p]) for p in range(n_products)}
+        answers[str(q)] = [str(p) for p in top_a]
+    return {"mean_tau": float(np.mean(taus)), "min_tau": float(np.min(taus)), "mean_top5": float(np.mean(overlaps)),
+            "min_top5": float(np.min(overlaps)),
+            "ndcg_delta": evaluate_scores(f32_table, answers) - evaluate_scores(q8_table, answers)}
+
+
+def fidelity_met(r: dict) -> bool:
+    """``tests/test_quant.py``'s thresholds."""
+    return (r["mean_tau"] >= 0.98 and r["min_tau"] >= 0.95 and r["mean_top5"] >= 0.95 and r["min_top5"] >= 0.8
+            and r["ndcg_delta"] <= 0.01)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -4191,7 +4779,12 @@ def main(argv: list[str] | None = None) -> int:
 
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--seed", type=int, default=SEED, help="seed of the inputs, data and weights")
-    seed = args.parse_args(argv).seed
+    # phase 10 starts two gloo ranks of this script on the card
+    args.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    args.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
+    args.add_argument("--dp-out", default=None, help=argparse.SUPPRESS)
+    parsed = args.parse_args(argv)
+    seed = parsed.seed
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4204,6 +4797,8 @@ def main(argv: list[str] | None = None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})", file=sys.stderr)
         return 2
+    if parsed.dp_rank is not None:
+        return dp_worker(parsed.dp_rank, parsed.dp_port, parsed.dp_out, seed)
     try:
         t_run = time.perf_counter()
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -4326,15 +4921,25 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"import_and_distil": di_rates}))
         tt_launches, tt_rates = smoke.two_tower()
         log(json.dumps({"two_tower": tt_rates}))
+        torch.cuda.empty_cache()  # phase 10's subprocesses share the card
+        t_phase10 = time.perf_counter()
+        q8_launches, q8_rates = smoke.int8_serving()
+        log(json.dumps({"int8_serving": q8_rates}))
+        dp_launches, dp_rates = smoke.data_parallel()
+        log(json.dumps({"data_parallel": dp_rates}))
+        util_rates = smoke.utilities()
+        log(json.dumps({"utilities": util_rates}))
+        log(f"phase 10: {time.perf_counter() - t_phase10:.1f} s")
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
                         "mha_packed_entry": packed, **train_runs, **b_train_launches,
-                        "lxmert_train": lx_train_launches, **ot_launches, **di_launches, **tt_launches}
+                        "lxmert_train": lx_train_launches, **ot_launches, **di_launches, **tt_launches,
+                        **q8_launches, **dp_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:
             raise RuntimeError(f"kernels never launched on a driven path: {unlaunched}")
         log(json.dumps(line))
-        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-9, the build included")
+        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-10, the build included")
         log(f"nvidia-smi: {nvidia_smi()}")
     except Exception:  # any phase failing fails the run, with its traceback
         traceback.print_exc()

@@ -19,7 +19,13 @@
 * ``scoring_params``: a tree without the MLM head, which no scorer reads.
 * ``cast_matmul_weights``: one cast of a model's matmul kernels (the spec's
   list) to the compute dtype (bf16 for the CUDA kernels); biases, LayerNorm,
-  embedding tables and the heads' f32 weights stay float32.
+  embedding tables and the heads' f32 weights stay as they are, and so do the
+  int8 nodes of ``ops/quant.py`` (``kernel_q8`` and its f32 ``kernel_scale``).
+
+An int8 tree (``ops/quant.py:quantize_dense_tree``) passes through
+``params_from_jax`` and ``params_to_jax`` as a float tree does: its
+``kernel_q8`` leaves stay int8 and an attention's q/k/v ``kernel_q8`` and
+``kernel_scale`` are fused and split as its ``kernel`` and ``bias`` are.
 """
 
 from __future__ import annotations
@@ -67,8 +73,9 @@ def _to_torch(tree):
     if isinstance(tree, dict):
         return {k: _to_torch(v) for k, v in tree.items()}
     # a C-ordered copy: an importer's leaf may be a transposed view (torch's [out, in] weights), whose strides
-    # would otherwise reach the kernels, which take contiguous weights
-    return torch.from_numpy(np.array(tree, dtype=np.float32, order="C"))
+    # would otherwise reach the kernels, which take contiguous weights; an int8 tree's kernel_q8 stays int8
+    arr = np.asarray(tree)
+    return torch.from_numpy(np.array(arr, dtype=np.int8 if arr.dtype == np.int8 else np.float32, order="C"))
 
 
 # the two-tower tree's encoders: scan-stacked encoders of their own, beside ``bert/embeddings``
@@ -144,7 +151,8 @@ def params_to_jax(params: Params) -> dict:
     def to_numpy(tree):
         if isinstance(tree, dict):
             return {k: to_numpy(v) for k, v in tree.items()}
-        return tree.detach().float().cpu().numpy()
+        t = tree.detach().cpu()
+        return (t if t.dtype == torch.int8 else t.float()).numpy()
 
     if "kernel" in params.get("kdd_conv1", {}):
         params = {**params, "kdd_conv1": label_conv_taps(params["kdd_conv1"])}
@@ -176,7 +184,8 @@ def cast_matmul_weights(params: Params, dtype: torch.dtype, paths) -> Params:
         node = out
         for key in path:
             node = node[key]
-        node["kernel"] = node["kernel"].to(dtype)
+        if "kernel" in node:  # an int8 node (kernel_q8) keeps its int8 weights and f32 scales
+            node["kernel"] = node["kernel"].to(dtype)
     return out
 
 

@@ -62,6 +62,7 @@ from ..models import get_model
 from ..parallel import ScoringEngine, resolve_device
 from ..tokenization import FullTokenizer
 from ..train import LiveTeacher, TeacherScores, Trainer, init_student_from_teacher, model_batch_of, recipe_for
+from ..utils import log_metrics
 from .train import LOG_EVERY, step_seed
 
 
@@ -209,11 +210,9 @@ def main(argv: list[str] | None = None) -> dict:
 
     with open(out_dir / "metrics.jsonl", "a", encoding="utf-8") as metrics_file:
 
-        def log(line: dict) -> None:
-            text = json.dumps(line)
-            metrics_file.write(text + "\n")
-            metrics_file.flush()
-            print(text)
+        def log(step: int, metrics: dict) -> None:  # one JSON line to the file and to stdout
+            log_metrics(step, metrics, metrics_file)
+            log_metrics(step, metrics)
 
         def run_valid(step: int) -> None:
             nonlocal engine, best
@@ -224,7 +223,7 @@ def main(argv: list[str] | None = None) -> dict:
             else:
                 engine.update_params(params)
             ndcg = evaluate_scores(engine.score_files(args.valid_tsv, featurizer, args.batch_size), answers)
-            log({"step": step, "valid_ndcg5": ndcg})
+            log(step, {"valid_ndcg5": ndcg})
             if best is None or ndcg > best["valid_ndcg5"]:
                 best = {"step": step, "valid_ndcg5": ndcg}
                 save_npz(out_dir / "best.npz", params_to_jax(params))
@@ -237,7 +236,7 @@ def main(argv: list[str] | None = None) -> dict:
             metrics = trainer.train_step(state, batch, step_seed(args.seed, step))
             pairs += int(np.asarray(batch["valid"]).sum())
             if step % LOG_EVERY == 0:
-                log({"step": step, **{k: float(v) for k, v in metrics.items()}})
+                log(step, metrics)
             if (args.checkpoint_every and (step + 1) % args.checkpoint_every == 0) or step + 1 == args.steps:
                 t_save = clock()
                 save_npz(out_dir / f"step_{step + 1}.npz", params_to_jax(trainer.eval_params(state)))
@@ -269,7 +268,7 @@ def main(argv: list[str] | None = None) -> dict:
         mae = float(np.mean(np.abs(s_scores - t_scores)))
         print(f"student-teacher agreement over {len(qids)} pairs: mean per-query Kendall tau {tau:.4f}, "
               f"score MAE {mae:.4f}")
-        log({"step": args.steps, "distill_tau": tau, "distill_mae": mae})
+        log(args.steps, {"distill_tau": tau, "distill_mae": mae})
     save_npz(out_dir / "student_final.npz", params_to_jax(final))
     print(f"student saved to {out_dir / 'student_final.npz'}")
     report = {"steps": args.steps, "pairs": pairs, "seconds": seconds, "checkpoint_seconds": save_seconds,

@@ -20,6 +20,15 @@ scores as the engine does. ``--backend pallas_packed`` traces the fused
 blocks' CUDA kernels as custom ops (``ops/library.py``), which the loading
 process registers; ``xla`` (the default) traces plain operators only.
 
+``--quantize int8|int8-ffn`` exports the int8 serving tree (``ops/quant.py``,
+as the JAX script makes it, ``scripts/export.py`` :126-151): every dense but
+the ``cls`` heads, or with ``int8-ffn`` only the FFN denses, as int8 weights
+with per-channel scales and a dynamic per-row activation quant
+(``torch._int_mm``); under bf16 the remaining leaves are cast to bf16 but
+the scales and ``cls``; ``meta.json`` records the mode. An int8 attention or
+FFN node takes the unfused route, so under ``--backend pallas_packed``
+``int8-ffn`` keeps the attention-block kernels and ``int8`` runs none.
+
 ``--model two_tower --side query|product`` exports one embedder of the
 recall towers (``serving.export_tower``: [B, D] unit embeddings; the
 checkpoint a two-tower npz tree), as the JAX script does: ``--side`` is
@@ -41,6 +50,7 @@ from ..parallel import resolve_device
 from ..parallel.engine import default_precision
 from ..serving import export_scorer, export_tower, save_scorer
 from ..checkpoint import load_checkpoint
+from ..ops.quant import quantize_for_serving
 from .score import load_student_overrides
 
 
@@ -62,7 +72,8 @@ def main(argv: list[str] | None = None) -> None:
                     help='JSON model-config overrides, e.g. \'{"num_hidden_layers": 4}\' (read from '
                          'student_config.json beside --checkpoint when absent)')
     ap.add_argument("--quantize", choices=["int8", "int8-ffn"], default=None,
-                    help="int8 weights: not yet ported")
+                    help="int8 serving weights (ops/quant.py): int8 quantises every dense but the cls heads, "
+                         "int8-ffn only the FFN denses; under bf16 the other leaves are cast to bf16")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
@@ -73,8 +84,6 @@ def main(argv: list[str] | None = None) -> None:
             ap.error("--quantize is not supported for two_tower embedders")
         if args.backend != "xla":
             ap.error("two_tower embedders export with the xla backend only")
-    if args.quantize:
-        ap.error("--quantize waits on ops/quant.py, the int8 dense (ROADMAP.md Queue 1 item 12)")
 
     device = resolve_device(args.device)
     overrides = (json.loads(args.config_overrides) if args.config_overrides
@@ -85,6 +94,9 @@ def main(argv: list[str] | None = None) -> None:
         else default_precision(device)
     bsz = None if args.batch_size == 0 else args.batch_size
     extra = {"precision": "f32" if prec.compute_dtype == torch.float32 else "bf16"}
+    if args.quantize:
+        params = quantize_for_serving(spec, params, args.quantize, bf16_residual=prec.compute_dtype == torch.bfloat16)
+        extra["quantize"] = args.quantize
     if overrides:
         extra["config_overrides"] = overrides
     if args.model == "two_tower":

@@ -73,8 +73,22 @@ steps, global-norm clip, the contrastive loss; ``loss`` and
 pairs' cosines. ``--packed-dir`` and ``--distill-from`` exit 2 for it, as in
 the JAX script.
 
-``--distributed`` and ``--am-loss`` are not ported yet and exit 2 naming the
-ROADMAP item. LXMERT trains through
+``--distributed`` trains data-parallel on ``torch.distributed``
+(``parallel/distributed.py``, the process group from ``torchrun``'s
+environment; NCCL on ``cuda``, gloo on ``cpu``), as the JAX script's
+multi-host mode: ``--batch-size`` stays global, each rank reads its slice of
+``--train-tsv`` (files dealt round-robin, or every file's lines strided when
+there are fewer files than ranks) or its share of ``--packed-dir``'s
+instances, and contributes ``--batch-size / world`` rows a step; the
+``Trainer`` all-reduces the gradients and the metrics, and only rank 0 logs,
+writes checkpoints and runs the valid pass. Example, two ranks on one host:
+
+  torchrun --standalone --nproc_per_node 2 -m \
+      kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli.train --distributed \
+      --model imagebert_a --packed-dir packed_a --labels multimodal_labels.txt --steps 1000 \
+      --batch-size 512 --out runs/a
+
+``--am-loss`` is not ported yet and exits 2 naming the ROADMAP item. LXMERT trains through
 ``train.Trainer`` (as the JAX package trains it, on batches in its
 featurizer's layout) or ``cli/distill.py``, not here: the JAX CLI cannot
 train it either (no sampler yields LXMERT's layout, ROADMAP.md Queue 3, JAX
@@ -84,9 +98,11 @@ fault 3), so ``--model lxmert`` exits 2 until that sampler exists.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -101,6 +117,8 @@ from ..data import iter_batches, load_multimodal_labels, pad_batch, stack_exampl
 from ..eval import evaluate_scores, load_answers
 from ..models import get_model
 from ..parallel import ScoringEngine, resolve_device
+from ..parallel.distributed import local_rows, maybe_initialize, process_count, process_index, process_shard
+from ..parallel.distributed import TORCHRUN_ENV, stride_lines
 from ..tokenization import FullTokenizer
 from ..train import LiveTeacher, Trainer, TrainState, init_student_from_teacher, recipe_for
 from .score import load_student_overrides
@@ -108,7 +126,6 @@ from .score import load_student_overrides
 LOG_EVERY = 20
 # flags of scripts/train.py that are not ported: flag -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "--distributed": "Queue 1 item 12 (multi-device)",
     "--am-loss": "Queue 3, JAX fault 3 (LXMERT's training CLI)",
 }
 
@@ -166,6 +183,9 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
     ap.add_argument("--checkpoint-every", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--distributed", action="store_true",
+                    help="data-parallel over the torch.distributed group of torchrun's environment "
+                         "(--batch-size stays global)")
     for flag in NOT_PORTED:
         ap.add_argument(flag, default=None, nargs="?", const=True)
     args = ap.parse_args(argv)
@@ -195,6 +215,16 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
     if args.train_tsv and not args.query_labels and args.model != "two_tower":
         ap.error("--query-labels is required for cross-encoder training")
 
+    if args.distributed:
+        missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+        if missing:
+            ap.error(f"--distributed reads the process group from torchrun's environment; {missing} are not set")
+        maybe_initialize(force=True, device=args.device)
+    rank, world = process_index(), process_count()
+    lead = rank == 0  # the rank that logs, writes checkpoints and runs the valid pass
+    local_bs = local_rows(args.batch_size)
+    train_files, line_stride = (process_shard(args.train_tsv) if args.train_tsv and world > 1
+                                else (args.train_tsv, False))
     device = resolve_device(args.device)
     spec = get_model(args.model, overrides={"num_hidden_layers": args.layers} if args.layers else None)
     featurizer = Featurizer(FullTokenizer.google_style(VOCAB_PATH), load_multimodal_labels(args.labels),
@@ -216,45 +246,50 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
                                  get_model(args.model, overrides=load_student_overrides(args.init_from)))
         mapped = init_student_from_teacher(params_to_jax(spec.init_params(args.seed)), params_to_jax(loaded))
         state = trainer.init_state(spec.from_jax(params_from_jax(mapped)), seed=args.seed)
-        print(f"initialised from {args.init_from} (depth-mapped)")
+        if lead:
+            print(f"initialised from {args.init_from} (depth-mapped)")
     else:
         state = trainer.init_state(seed=args.seed)
     if args.resume:
         trainer.load_state(state, args.resume)
-        print(f"resumed from {args.resume} at step {state.step}")
+        if lead:
+            print(f"resumed from {args.resume} at step {state.step}")
     start = state.step
     live_teacher = None
     if args.distill_from:
         teacher_spec = get_model(args.model, overrides=load_student_overrides(args.distill_from))
         live_teacher = LiveTeacher(teacher_spec, load_checkpoint(args.model, args.distill_from, teacher_spec),
                                    device=device, precision=trainer.precision)
-        print(f"online distillation from {args.distill_from} (soft {args.distill_weight} / hard "
-              f"{args.hard_loss_weight}, T={args.distill_temperature})")
+        if lead:
+            print(f"online distillation from {args.distill_from} (soft {args.distill_weight} / hard "
+                  f"{args.hard_loss_weight}, T={args.distill_temperature})")
 
     sampler = None
     if spec.name == "two_tower":
-        batches = itertools.islice(positive_batches(featurizer, args.train_tsv, args.batch_size), start, None)
+        batches = itertools.islice(positive_batches(featurizer, train_files, local_bs, line_stride), start, None)
     elif args.packed_dir:
         dataset = PackedDataset(args.packed_dir)
         missing = [k for k in (*spec.input_keys, "labels") if k not in dataset.fields]
         if missing:
             raise ValueError(f"{args.packed_dir} holds no {missing}, which {spec.name} reads: shards of another "
                              "model's sampler")
-        print(f"packed dataset: {len(dataset)} instances")
-        batches = dataset.batches(args.batch_size, epochs=None, seed=args.seed, skip=start)
+        if lead:
+            print(f"packed dataset: {len(dataset)} instances")
+        batches = dataset.batches(local_bs, epochs=None, seed=args.seed, skip=start, process_id=rank,
+                                  process_count=world)
     else:
         sampler_cfg = (SamplerConfig.imagebert_a(args.seed) if spec.name == "imagebert_a"
                        else SamplerConfig.imagebert_b(args.seed))
         sampler = HardNegativeSampler(featurizer, QueryLabelIndex.load(args.query_labels), sampler_cfg)
-        batches = itertools.islice(sampled_batches(sampler, args.train_tsv, args.batch_size), start, None)
+        batches = itertools.islice(sampled_batches(sampler, train_files, local_bs, line_stride), start, None)
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    if args.layers is not None:
+    if args.layers is not None and lead:
         # the sidecar cli/distill.py writes: cli/score.py and cli/export.py rebuild the spec from it
         (out_dir / "student_config.json").write_text(
             json.dumps({"model": args.model, "overrides": {"num_hidden_layers": args.layers}}))
-    answers = load_answers(args.answers) if args.answers else None
+    answers = load_answers(args.answers) if args.answers and lead else None
     engine, best, valid_seconds, valid_passes = None, None, 0.0, []
     if args.resume and answers is not None and (out_dir / "best_metadata.json").exists():
         best = json.loads((out_dir / "best_metadata.json").read_text())  # the resumed run's best so far
@@ -266,9 +301,11 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
 
     t0 = clock()
     pairs, save_seconds = 0, 0.0
-    with open(out_dir / "metrics.jsonl", "a", encoding="utf-8") as metrics_file:
+    with open(out_dir / "metrics.jsonl", "a", encoding="utf-8") if lead else contextlib.nullcontext() as metrics_file:
 
         def log(line: dict) -> None:
+            if not lead:
+                return
             text = json.dumps(line)
             metrics_file.write(text + "\n")
             metrics_file.flush()
@@ -279,11 +316,11 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
             if live_teacher is not None:
                 batch = live_teacher.attach(batch)
             metrics = trainer.train_step(state, batch, step_seed(args.seed, step))
-            pairs += len(batch["labels"])
+            pairs += len(batch["labels"]) * world
             if step % LOG_EVERY == 0:
                 log({"step": step, **{k: float(v) for k, v in metrics.items()}})
             last = i + 1 == args.steps
-            if state.step % args.checkpoint_every == 0 or last:
+            if lead and (state.step % args.checkpoint_every == 0 or last):
                 t_save = clock()
                 save_npz(out_dir / f"step_{state.step}.npz", params_to_jax(trainer.eval_params(state)))
                 trainer.save_state(state, out_dir / f"state_{state.step}.npz")
@@ -311,23 +348,30 @@ def run(argv: list[str] | None = None) -> tuple[Trainer, TrainState, dict]:
               "checkpoint_seconds": save_seconds, "valid_seconds": valid_seconds, "valid": valid_passes,
               "best": best, "pairs_per_second": pairs / seconds if seconds > 0 else 0.0, "device": str(device),
               "data": "packed" if args.packed_dir else "sampler" if sampler is not None else "positive rows",
-              "sampler": dataclasses.asdict(sampler.stats) if sampler is not None else None, "out": str(out_dir)}
-    print(json.dumps(report))
+              "sampler": dataclasses.asdict(sampler.stats) if sampler is not None else None, "out": str(out_dir),
+              "world_size": world}
+    if lead:
+        print(json.dumps(report))
     return trainer, state, report
 
 
-def tsv_lines(paths: list[str]):
-    """The lines of ``paths``, one file after another."""
-    for path in paths:
-        with open(path, "r", encoding="utf-8") as f:
-            yield from f
+def tsv_lines(paths: list[str], stride: bool = False):
+    """The lines of ``paths``, one file after another; with ``stride``, this
+    rank's lines of them (``parallel/distributed.py:stride_lines``)."""
+    def lines():
+        for path in paths:
+            with open(path, "r", encoding="utf-8") as f:
+                yield from f
+
+    return stride_lines(lines()) if stride else lines()
 
 
-def sampled_batches(sampler: HardNegativeSampler, paths: list[str], batch_size: int):
-    """Batches of ``batch_size`` sampled examples, epoch after epoch over ``paths``."""
+def sampled_batches(sampler: HardNegativeSampler, paths: list[str], batch_size: int, stride: bool = False):
+    """Batches of ``batch_size`` sampled examples, epoch after epoch over ``paths``
+    (this rank's lines of them with ``stride``)."""
     while True:  # epochs
         n_yielded, buf = 0, []
-        for example in sampler.examples(tsv_lines(paths)):
+        for example in sampler.examples(tsv_lines(paths, stride)):
             buf.append(example)
             if len(buf) == batch_size:
                 n_yielded += 1
@@ -338,13 +382,14 @@ def sampled_batches(sampler: HardNegativeSampler, paths: list[str], batch_size: 
                              "fewer usable rows than --batch-size")
 
 
-def positive_batches(featurizer: Featurizer, paths: list[str], batch_size: int):
-    """The two-tower's batches: the TSV rows in ImageBERT-B's layout, epoch
-    after epoch, each full batch with ``query_group`` (the rows' query ids);
-    the ragged tail of a pass is dropped (in-batch negatives need full batches)."""
+def positive_batches(featurizer: Featurizer, paths: list[str], batch_size: int, stride: bool = False):
+    """The two-tower's batches: the TSV rows in ImageBERT-B's layout (this
+    rank's lines with ``stride``), epoch after epoch, each full batch with
+    ``query_group`` (the rows' query ids); the ragged tail of a pass is
+    dropped (in-batch negatives need full batches)."""
     while True:  # epochs
         n_yielded = 0
-        for b in iter_batches(tsv_lines(paths), featurizer.imagebert_b, batch_size):
+        for b in iter_batches(tsv_lines(paths, stride), featurizer.imagebert_b, batch_size):
             if b["valid"].all():
                 n_yielded += 1
                 b["query_group"] = b["query_id"].astype(np.int32)

@@ -46,6 +46,7 @@ from ..ops.attention_block import attention_block_plain, is_compact
 from ..ops.band_conv import band_conv_train, band_conv_train_plain
 from ..ops.cross_attention_block import cross_attention_block as cross_attention_block_op
 from ..ops.cross_attention_block import cross_attention_block_plain
+from ..ops.dropout import shard_rows
 from ..ops.dual_cross_attention_block import dual_cross_attention_block as dual_cross_attention_block_op
 from ..ops.dual_cross_attention_block import dual_cross_attention_block_plain
 from ..ops.encoder_layer import encoder_layer as encoder_layer_op
@@ -54,6 +55,7 @@ from ..ops.ffn_block import ffn_block as ffn_block_op
 from ..ops.ffn_block import ffn_block_plain
 from ..ops.kernels import gemm_plain, layernorm_plain
 from ..ops.library import gemm
+from ..ops.quant import QUANT_KERNEL, dense_q8
 from ..ops.train_blocks import (
     attention_block_train,
     attention_block_train_plain,
@@ -185,10 +187,12 @@ def attention_forms(att: Params, cross: bool = False) -> Params:
     [.., H, H] and ``kv`` [.., H, 2H]. Other entries (``output``) are kept."""
     parts = [att[n] for n in ("query", "key", "value")]
     out = {k: v for k, v in att.items() if k not in ("query", "key", "value")}
-    out["qkv"] = {n: torch.cat([p[n] for p in parts], dim=-1) for n in ("kernel", "bias")}
+    # every leaf of the node (kernel and bias; kernel_q8, kernel_scale and bias of an int8 one) fused
+    # along the outputs: an int8 node's scales are per output column, so the fused node is the three nodes'
+    out["qkv"] = {n: torch.cat([p[n] for p in parts], dim=-1) for n in parts[0]}
     if cross:
         out["query"] = parts[0]
-        out["kv"] = {n: torch.cat([p[n] for p in parts[1:]], dim=-1) for n in ("kernel", "bias")}
+        out["kv"] = {n: torch.cat([p[n] for p in parts[1:]], dim=-1) for n in parts[0]}
     return out
 
 
@@ -235,7 +239,11 @@ def token_type_embed(table: torch.Tensor, segment_ids: torch.Tensor) -> torch.Te
 
 def dense(p: Params, x: torch.Tensor, prec: Precision) -> torch.Tensor:
     """f32 (x @ kernel + bias), with x and kernel rounded to the compute
-    dtype first (the JAX dot with preferred_element_type=float32)."""
+    dtype first (the JAX dot with preferred_element_type=float32); an int8
+    node (``kernel_q8``) goes to ``ops/quant.py:dense_q8``, as the JAX
+    package's ``models/core.py`` :126-129 sends it."""
+    if QUANT_KERNEL in p:
+        return dense_q8(p, x)
     dt = prec.compute_dtype
     y = torch.matmul(x.to(dt).float(), p["kernel"].to(dt).float())
     return y + p["bias"].float()
@@ -248,10 +256,18 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-12, out_dtype=None) -
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout with a keep mask drawn from ``gen`` (on x's device), as
-    the JAX package's ``models/core.py`` :153-157 draws it with jax.random."""
+    the JAX package's ``models/core.py`` :153-157 draws it with jax.random.
+    A data-parallel rank (``ops/dropout.py:batch_shard``) draws the global
+    batch's mask and keeps its own rows of it."""
     if rate <= 0.0 or gen is None:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    shard = shard_rows()
+    if shard is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    else:
+        offset, global_rows = shard
+        draw = torch.rand((global_rows, *x.shape[1:]), generator=gen, device=x.device)
+        keep = draw[offset:offset + x.shape[0]] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -266,6 +282,12 @@ def block_seeds(gen: torch.Generator, n_layers: int, per_layer: int) -> list[tup
 # --------------------------------------------------------------------------
 # blocks and encoder
 # --------------------------------------------------------------------------
+
+
+def _vectors(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Biases, gammas and betas as the kernels take them, f32 (exact from the bf16
+    leaves of ``ops/quant.py:cast_residual_bf16``'s tree; f32 ones as they are)."""
+    return tuple(t if t.dtype == torch.float32 else t.float() for t in ts)
 
 
 def _bias4(bias):
@@ -301,30 +323,31 @@ def attention_block(p: Params, x, bias, cfg: BertConfig, prec: Precision, blocks
             out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads, seed, bias=bias,
             attn_dropout_rate=cfg.attention_probs_dropout_prob, hidden_dropout_rate=cfg.hidden_dropout_prob,
         )
-    if not packed_attention_active():
+    if not packed_attention_active() or "kernel" not in p["qkv"]:  # int8 nodes take the unfused route
         return unfused_attention(p, x, None, bias, cfg, prec)
     out = p["output"]
-    return blocks.attention(
-        x, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
-        out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
-    )
+    bqkv, bo, gamma, beta = _vectors(p["qkv"]["bias"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
+                                     out["LayerNorm"]["beta"])
+    return blocks.attention(x, p["qkv"]["kernel"], bqkv, out["dense"]["kernel"], bo, gamma, beta,
+                            cfg.num_attention_heads, bias)
 
 
 def cross_attention_block(p: Params, x, ctx, bias, cfg: BertConfig, prec: Precision,
                           blocks: Blocks = KERNEL_BLOCKS, seed: int | None = None):
     """Post-LN cross-attention block: x attends to ctx, ``bias`` masks ctx's
     keys; with a dropout ``seed`` the train block of ``blocks`` (a ``TrainBlocks``)."""
+    if seed is None and (not packed_attention_active() or "kernel" not in p["query"]):
+        return unfused_attention(p, x, ctx, bias, cfg, prec)  # int8 nodes take the unfused route
     out = p["output"]
-    weights = (p["query"]["kernel"], p["query"]["bias"], p["kv"]["kernel"], p["kv"]["bias"],
-               out["dense"]["kernel"], out["dense"]["bias"], out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"])
+    wq, wkv, wo = p["query"]["kernel"], p["kv"]["kernel"], out["dense"]["kernel"]
+    bq, bkv, bo, gamma, beta = _vectors(p["query"]["bias"], p["kv"]["bias"], out["dense"]["bias"],
+                                        out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"])
     if seed is not None:
         return blocks.cross(
-            x, ctx, *weights, cfg.num_attention_heads, seed, bias=bias,
+            x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, cfg.num_attention_heads, seed, bias=bias,
             attn_dropout_rate=cfg.attention_probs_dropout_prob, hidden_dropout_rate=cfg.hidden_dropout_prob,
         )
-    if not packed_attention_active():
-        return unfused_attention(p, x, ctx, bias, cfg, prec)
-    return blocks.cross(x, ctx, *weights, cfg.num_attention_heads, bias)
+    return blocks.cross(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, cfg.num_attention_heads, bias)
 
 
 def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: BertConfig, prec: Precision,
@@ -341,14 +364,13 @@ def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: Bert
     if seeds is not None:
         return (cross_attention_block(p, l, v, visn_bias, cfg, prec, blocks, seed=seeds[0]),
                 cross_attention_block(p, v, l, lang_bias, cfg, prec, blocks, seed=seeds[1]))
-    if (packed_attention_active() and os.environ.get("KMR_DUAL_CROSS", "0") == "1"
+    if (packed_attention_active() and os.environ.get("KMR_DUAL_CROSS", "0") == "1" and "kernel" in p["qkv"]
             and is_compact(lang_bias) and is_compact(visn_bias) and (lang_bias is None) == (visn_bias is None)):
         out = p["output"]
-        return blocks.dual(
-            l, v, p["qkv"]["kernel"], p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
-            out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], cfg.num_attention_heads,
-            lang_bias, visn_bias,
-        )
+        bqkv, bo, gamma, beta = _vectors(p["qkv"]["bias"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
+                                         out["LayerNorm"]["beta"])
+        return blocks.dual(l, v, p["qkv"]["kernel"], bqkv, out["dense"]["kernel"], bo, gamma, beta,
+                           cfg.num_attention_heads, lang_bias, visn_bias)
     return (cross_attention_block(p, l, v, visn_bias, cfg, prec, blocks),
             cross_attention_block(p, v, l, lang_bias, cfg, prec, blocks))
 
@@ -371,16 +393,15 @@ def ffn_block(p: Params, x, cfg: BertConfig, prec: Precision, blocks: Blocks = K
             out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], seed, dropout_rate=cfg.hidden_dropout_prob,
             approximate_gelu=GELU_APPROXIMATE[act_name],
         )
-    if not packed_attention_active():
+    if not packed_attention_active() or "kernel" not in p["intermediate"]:  # int8 nodes: the unfused route
         dt = prec.compute_dtype
         hmid = GELU[act_name](dense(p["intermediate"], x, prec)).to(dt)
         y = dense(out["dense"], hmid, prec)
         return layer_norm(out["LayerNorm"], y + x.float(), out_dtype=dt)
-    return blocks.ffn(
-        x, p["intermediate"]["kernel"], p["intermediate"]["bias"], out["dense"]["kernel"],
-        out["dense"]["bias"], out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"],
-        approximate_gelu=GELU_APPROXIMATE[act_name],
-    )
+    b1, b2, gamma, beta = _vectors(p["intermediate"]["bias"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
+                                   out["LayerNorm"]["beta"])
+    return blocks.ffn(x, p["intermediate"]["kernel"], b1, out["dense"]["kernel"], b2, gamma, beta,
+                      approximate_gelu=GELU_APPROXIMATE[act_name])
 
 
 def unbind_layers(tree: Params) -> list[Params]:
@@ -395,7 +416,7 @@ def unbind_layers(tree: Params) -> list[Params]:
 
 
 def num_layers(p: Params) -> int:
-    return p["attention"]["qkv"]["kernel"].shape[0]
+    return p["attention"]["qkv"]["bias"].shape[0]
 
 
 def fused_layer_route(bias, act_name: str) -> bool:
@@ -417,15 +438,17 @@ def encoder_layer(att_p: Params, ffn_p: Params, x, bias, cfg: BertConfig, prec: 
     (attention, FFN) dropout seeds) it trains: the two train blocks of
     ``blocks``, a ``TrainBlocks``, whatever ``KMR_FUSED_LAYER`` says."""
     act_name = act or cfg.hidden_act
-    if seeds is None and fuse and fused_layer_route(bias, act_name):
+    if (seeds is None and fuse and "kernel" in att_p["qkv"] and "kernel" in ffn_p["intermediate"]
+            and fused_layer_route(bias, act_name)):
         out = att_p["output"]
         ffn_out = ffn_p["output"]
+        vecs = _vectors(att_p["qkv"]["bias"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
+                        out["LayerNorm"]["beta"], ffn_p["intermediate"]["bias"], ffn_out["dense"]["bias"],
+                        ffn_out["LayerNorm"]["gamma"], ffn_out["LayerNorm"]["beta"])
         return blocks.layer(
-            x, att_p["qkv"]["kernel"], att_p["qkv"]["bias"], out["dense"]["kernel"], out["dense"]["bias"],
-            out["LayerNorm"]["gamma"], out["LayerNorm"]["beta"], ffn_p["intermediate"]["kernel"],
-            ffn_p["intermediate"]["bias"], ffn_out["dense"]["kernel"], ffn_out["dense"]["bias"],
-            ffn_out["LayerNorm"]["gamma"], ffn_out["LayerNorm"]["beta"], cfg.num_attention_heads, bias,
-            approximate_gelu=GELU_APPROXIMATE[act_name],
+            x, att_p["qkv"]["kernel"], vecs[0], out["dense"]["kernel"], vecs[1], vecs[2], vecs[3],
+            ffn_p["intermediate"]["kernel"], vecs[4], ffn_out["dense"]["kernel"], vecs[5], vecs[6], vecs[7],
+            cfg.num_attention_heads, bias, approximate_gelu=GELU_APPROXIMATE[act_name],
         )
     attn_seed, ffn_seed = (None, None) if seeds is None else seeds
     x = attention_block(att_p, x, bias, cfg, prec, blocks, seed=attn_seed)

@@ -178,13 +178,16 @@ def mlm_logits(p: Params, hidden: torch.Tensor, word_embeddings: torch.Tensor, p
     return logits.reshape(*lead, -1) + p["output_bias"].float()
 
 
-def mlm_loss(logits: torch.Tensor, label_ids: torch.Tensor, label_weights: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, label_ids: torch.Tensor, label_weights: torch.Tensor,
+             weight_sum: torch.Tensor | None = None) -> torch.Tensor:
     """The weighted mean cross entropy of the masked positions' logits against
-    their token ids, the weights' sum plus 1e-5 as the denominator."""
+    their token ids, the weights' sum plus 1e-5 as the denominator
+    (``weight_sum`` in place of the weights' sum: a data-parallel rank's
+    global one)."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     picked = log_probs.gather(-1, label_ids.long()[..., None])[..., 0]
     weights = label_weights.float()
-    return (weights * -picked).sum() / (weights.sum() + 1e-5)
+    return (weights * -picked).sum() / ((weights.sum() if weight_sum is None else weight_sum) + 1e-5)
 
 
 def logit_fc_init(cfg: BertConfig, gen: torch.Generator, num_answers: int = 2) -> Params:

@@ -163,7 +163,7 @@ def _label_conv(p: Params, emb: torch.Tensor, prec: Precision,
         out = blocks.band_conv(x2, p["weights"], p["biases"], CONV_LEFT)
     else:
         gemm = blocks.gemm if prec.compute_dtype == torch.bfloat16 else gemm_plain
-        out = gemm(x2, p["kernel"], p["bias"], "f32")
+        out = gemm(x2, p["kernel"], p["bias"].float(), "f32")  # an f32 bias (bf16 in a cast_residual_bf16 tree)
     return torch.relu(out.reshape(b, n, t, -1)).mean(dim=2)
 
 

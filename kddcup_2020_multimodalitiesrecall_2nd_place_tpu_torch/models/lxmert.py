@@ -231,8 +231,8 @@ def apply(p: Params, batch: dict, lcfg: LxmertConfig, prec: Precision | None = N
     cfg = lcfg.bert
     enc, emb = p["bert"]["encoder"], p["bert"]["embeddings"]
     xs = enc["x_layers"]
-    n_l, n_r = (enc[k]["attention"]["qkv"]["kernel"].shape[0] for k in ("layer", "r_layers"))
-    n_x = xs["visual_attention"]["query"]["kernel"].shape[0]
+    n_l, n_r = (enc[k]["attention"]["qkv"]["bias"].shape[0] for k in ("layer", "r_layers"))
+    n_x = xs["visual_attention"]["query"]["bias"].shape[0]
     l_seeds = r_seeds = None
     x_seeds = [None] * n_x
     if train:

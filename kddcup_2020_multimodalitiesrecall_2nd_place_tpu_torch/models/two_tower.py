@@ -12,7 +12,8 @@
 * training: the symmetric in-batch InfoNCE with a temperature, off-diagonal
   pairs of one query group masked out (``contrastive_loss``);
 * retrieval: exact maximum inner product over a catalog, one chunk at a time
-  (``top_k_products``).
+  (``top_k_products``), or with the catalog sharded over the ranks of a
+  ``torch.distributed`` group (``recall_sharded``).
 
 The encoders run the blocks of the attention backend, as every model of the
 port does: the fused blocks' kernels under "pallas_packed" (S=20 and S=10
@@ -242,3 +243,41 @@ def top_k_products(q_emb: torch.Tensor, catalog: torch.Tensor, k: int = 5, chunk
         best_s, pos = top_k_stable(torch.cat([best_s, scores], dim=1), k)
         best_i = merged_i.gather(1, pos)
     return best_s, best_i
+
+
+def recall_sharded(q_emb: torch.Tensor, catalog: torch.Tensor, mesh=None, k: int = 5,
+                   chunk: int = 1 << 18) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact MIPS with the catalog sharded over the ranks of the process group
+    (the JAX package's ``recall_sharded``, its ``data`` axis the group): every
+    rank holds ``q_emb`` and ``catalog`` [N, D] and scores its shard of the
+    catalog padded to a multiple of the world, its valid rows bounded by
+    ``clip(N - rank * shard, 0, shard)`` so that pad rows cannot displace real
+    (possibly negative) candidates; the ranks' k candidates are all-gathered
+    and merged in rank order by ``top_k_stable`` (ties to the lower index, as
+    ``lax.top_k`` over [Q, k * devices]); hits in the padded tail map to
+    (-inf, -1). -> (f32 scores [Q, k], int64 indices [Q, k]) on every rank.
+    With one rank it is ``top_k_products`` over the whole catalog. ``mesh``
+    (``parallel/mesh.py``) is optional: the group is the mesh's data axis."""
+    from ..parallel.distributed import process_count, process_index
+
+    world = mesh.n_data if mesh is not None else process_count()
+    rank = mesh.rank if mesh is not None else process_index()
+    n = catalog.shape[0]
+    shard = -(-n // world)
+    rows = catalog[rank * shard:(rank + 1) * shard]
+    if rows.shape[0] < shard:  # the pad rows, in the last shards
+        rows = torch.cat([rows, rows.new_zeros(shard - rows.shape[0], catalog.shape[1])])
+    valid = min(max(n - rank * shard, 0), shard)
+    s, i = top_k_products(q_emb, rows, k=k, chunk=min(chunk, shard), num_valid=valid)
+    i = i + rank * shard  # the shard's (-inf, -1) slots too, as the JAX shard_map's offset
+    if world > 1:
+        import torch.distributed as dist
+
+        parts_s, parts_i = [torch.empty_like(s) for _ in range(world)], [torch.empty_like(i) for _ in range(world)]
+        dist.all_gather(parts_s, s.contiguous())
+        dist.all_gather(parts_i, i.contiguous())
+        s, i = torch.cat(parts_s, dim=1), torch.cat(parts_i, dim=1)
+    top_s, pos = top_k_stable(s, k)
+    top_i = i.gather(1, pos)
+    ok = top_i < n
+    return torch.where(ok, top_s, -torch.inf), torch.where(ok, top_i, -1)

@@ -8,6 +8,11 @@ the attention backend that the encoder blocks follow (the JAX package's
   kernel (``csrc/mha.cu``), one launch per self-attention;
 * ``"pallas_packed"``: the fused blocks of ``models/core.py:KERNEL_BLOCKS``.
 
+``best_mha`` picks between the ``mha`` kernel and ``mha_xla`` by timing both
+once per shape on the card (the JAX package's ``_backend_choice``/``best_mha``,
+``ops/pallas_attention.py`` :1011-1053); a kernel that fails to build or
+launch raises, it never falls back.
+
 BERT semantics (reference ``pixelmodel.py:640-833``): scores = QK^T / sqrt(Dh)
 + bias, softmax over keys, no padding mask unless a bias is given
 (ImageBERT-A gives none). Softmax runs in float32 whatever the compute
@@ -19,6 +24,7 @@ the PV product, as the JAX package's XLA and Pallas paths both do.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -98,3 +104,49 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """[.., T] 1/0 keep-mask -> additive bias with -10000 at masked slots
     (the reference's ``(1 - mask) * -10000``, ``pixelmodel.py:787-798``)."""
     return ((1.0 - mask.float()) * -10000.0).to(dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _backend_choice(shape_key) -> tuple[str, float, float]:
+    """Time the ``mha`` kernel and ``mha_xla`` once per (B, N, S, Dh, has_bias,
+    dtype) on the current CUDA device, on random inputs of that shape (a
+    [B, 1, 1, S] key-mask bias when ``has_bias``): 10 calls each after one
+    warm-up, between CUDA events. -> (the faster: "pallas" or "xla", kernel ms
+    a call, mha_xla ms a call). A kernel that fails raises."""
+    from .library import mha as mha_kernel
+
+    b, n, s, dh, has_bias, dtype_name = shape_key
+    dtype = getattr(torch, dtype_name.removeprefix("torch."))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, n, s, dh, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    bias = torch.randn(b, 1, 1, s, generator=gen, device="cuda") if has_bias else None
+
+    def time_fn(fn) -> float:
+        fn(q, k, v, bias)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn(q, k, v, bias)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 10
+
+    t_kernel, t_xla = time_fn(mha_kernel), time_fn(mha_xla)
+    return ("pallas" if t_kernel < t_xla else "xla"), t_kernel, t_xla
+
+
+def backend_choice(q, bias=None) -> str:
+    """The route ``best_mha`` takes for ``q``'s shape and dtype: the faster of
+    the two on the card; "xla" for a CPU tensor, where there is no kernel to time."""
+    if not q.is_cuda:
+        return "xla"
+    return _backend_choice((*q.shape, bias is not None, str(q.dtype)))[0]
+
+
+def best_mha(q, k, v, bias=None) -> torch.Tensor:
+    """Attention on the route ``backend_choice`` picks (cached per shape and dtype)."""
+    if backend_choice(q, bias) == "pallas":
+        from .library import mha as mha_kernel
+
+        return mha_kernel(q, k, v, bias)
+    return mha_xla(q, k, v, bias)

@@ -24,10 +24,17 @@ are the JAX package's interpret-mode masks bit for bit, at any rate.
   ``KMR_TRAIN_BLOCK_FFN`` / ``KMR_TRAIN_BLOCK_ATTN``, then
   ``KMR_TRAIN_BLOCK``, then 4 (FFN) or 8 (attention), shrunk to the largest
   divisor of the batch.
+* Data parallelism (``batch_shard``): a rank that holds rows
+  ``offset .. offset + b - 1`` of a global batch of ``global_rows`` resolves
+  the block from the global batch and shifts its seed by its first block's
+  index (``shard_block``), so its masks are those rows of the one-rank run's,
+  bit for bit; the embeddings' dropout (``models/core.py:dropout``) draws the
+  global batch's mask and keeps its rows (``shard_rows``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -131,3 +138,38 @@ def train_block(kind: str, block_b: int | None = None) -> int:
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
             return iv
     return DEFAULT_BLOCK[kind]
+
+
+_shard: tuple[int, int] | None = None  # (row offset, global rows) of this rank's rows, under batch_shard
+
+
+@contextlib.contextmanager
+def batch_shard(offset: int, global_rows: int):
+    """Inside the block, the batches the train blocks and ``models/core.py:dropout`` see are rows
+    ``offset ..`` of a global batch of ``global_rows`` (a data-parallel rank's share)."""
+    global _shard
+    prev, _shard = _shard, (int(offset), int(global_rows))
+    try:
+        yield
+    finally:
+        _shard = prev
+
+
+def shard_rows() -> tuple[int, int] | None:
+    """(row offset, global rows) under ``batch_shard``, else None."""
+    return _shard
+
+
+def shard_block(kind: str, b: int, block_b: int | None, seed: int) -> tuple[int, int]:
+    """(block, seed) of a train block over ``b`` rows: the block resolved from the batch (the global one
+    under ``batch_shard``) and, under ``batch_shard``, the seed shifted by this rank's first block's
+    index, so block j of the rank hashes as global block offset / block + j. Raises when the rank's rows
+    do not start and end on the global batch's block boundaries."""
+    if _shard is None:
+        return pick_block(b, train_block(kind, block_b)), int(seed)
+    offset, global_rows = _shard
+    block = pick_block(global_rows, train_block(kind, block_b))
+    if b % block or offset % block:
+        raise ValueError(f"a rank's {b} rows at offset {offset} of a global batch of {global_rows} do not fall on "
+                         f"its {kind} dropout blocks of {block} rows")
+    return block, int(seed) + (offset // block) * BLOCK_SEED_STRIDE

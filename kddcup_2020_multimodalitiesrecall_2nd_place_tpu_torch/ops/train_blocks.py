@@ -53,7 +53,7 @@ import torch
 from .activations import gelu_erf, gelu_tanh
 from .attention import merge_heads, split_heads
 from .attention_block import key_bias_rows
-from .dropout import cross_probs_keep, hidden_keep, keep_scale, pick_block, train_block
+from .dropout import cross_probs_keep, hidden_keep, keep_scale, shard_block
 from .kernels import layernorm_plain
 from .library import (
     attn_train,
@@ -134,8 +134,8 @@ def ffn_block_train(x, w1, b1, w2, b2, gamma, beta, seed: int, dropout_rate: flo
     LN's [H] -> [B, S, H] in x's dtype; hidden dropout at ``dropout_rate`` from
     ``seed`` (a 32-bit int), its masks drawn per grid block of ``block_b``
     pairs (resolved as the JAX package does, ``dropout.train_block``)."""
-    block = pick_block(x.shape[0], train_block("ffn", block_b))
-    y = _FfnTrain.apply(x, w1, b1, w2, b2, gamma, beta, int(seed), float(dropout_rate), approximate_gelu, eps, block)
+    block, seed = shard_block("ffn", x.shape[0], block_b, seed)
+    y = _FfnTrain.apply(x, w1, b1, w2, b2, gamma, beta, seed, float(dropout_rate), approximate_gelu, eps, block)
     if x.is_cuda:
         ffn_block_train.launches += 1
     return y
@@ -150,7 +150,7 @@ def ffn_block_train_plain(x, w1, b1, w2, b2, gamma, beta, seed: int, dropout_rat
     """The same block in plain differentiable torch, on any device, in x's dtype."""
     b, s, h = x.shape
     dt = x.dtype
-    block = pick_block(b, train_block("ffn", block_b))
+    block, seed = shard_block("ffn", b, block_b, seed)
     x2d = x.reshape(b * s, h)
     act = gelu_tanh if approximate_gelu else gelu_erf
     g = act(torch.matmul(x2d.float(), w1.to(dt).float()) + b1.float()).to(dt)
@@ -224,8 +224,8 @@ def attention_block_train(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, se
     in x's dtype; probability and hidden dropout from ``seed``, masks drawn
     per grid block of ``block_b`` pairs (``dropout.train_block``)."""
     b, s, _ = x.shape
-    block = pick_block(b, train_block("attn", block_b))
-    y = _AttnTrain.apply(x, wqkv, bqkv, wo, bo, gamma, beta, key_bias_rows(bias, b, s), num_heads, int(seed),
+    block, seed = shard_block("attn", b, block_b, seed)
+    y = _AttnTrain.apply(x, wqkv, bqkv, wo, bo, gamma, beta, key_bias_rows(bias, b, s), num_heads, seed,
                          float(attn_dropout_rate), float(hidden_dropout_rate), eps, block)
     if x.is_cuda:
         attention_block_train.launches += 1
@@ -241,7 +241,7 @@ def attention_block_train_plain(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: i
     """The same block in plain differentiable torch, on any device, in x's dtype."""
     b, s, h = x.shape
     dt = x.dtype
-    block = pick_block(b, train_block("attn", block_b))
+    block, seed = shard_block("attn", b, block_b, seed)
     x2d = x.reshape(b * s, h)
     qkv = (torch.matmul(x2d.float(), wqkv.to(dt).float()) + bqkv.float()).to(dt)
     q, k, v = (split_heads(t, num_heads) for t in qkv.reshape(b, s, 3 * h).split(h, dim=-1))
@@ -333,9 +333,9 @@ def cross_attention_block_train(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, n
     pairs (``dropout.train_block``, the attention kind, as JAX resolves it)."""
     b, _, _ = x.shape
     t = ctx.shape[1]
-    block = pick_block(b, train_block("attn", block_b))
+    block, seed = shard_block("attn", b, block_b, seed)
     y = _CrossTrain.apply(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, key_bias_rows(bias, b, t), num_heads,
-                          int(seed), float(attn_dropout_rate), float(hidden_dropout_rate), eps, block)
+                          seed, float(attn_dropout_rate), float(hidden_dropout_rate), eps, block)
     if x.is_cuda:
         cross_attention_block_train.launches += 1
     return y
@@ -351,7 +351,7 @@ def cross_attention_block_train_plain(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, b
     b, f, h = x.shape
     t = ctx.shape[1]
     dt = x.dtype
-    block = pick_block(b, train_block("attn", block_b))
+    block, seed = shard_block("attn", b, block_b, seed)
     x2d, c2d = x.reshape(b * f, h), ctx.to(dt).reshape(b * t, h)
     q = (torch.matmul(x2d.float(), wq.to(dt).float()) + bq.float()).to(dt)
     kv = (torch.matmul(c2d.float(), wkv.to(dt).float()) + bkv.float()).to(dt)

@@ -67,12 +67,13 @@ def teacher_logodds(probs: torch.Tensor) -> torch.Tensor:
 
 
 def distill_soft_ce(student_logodds: torch.Tensor, teacher_probs: torch.Tensor, temperature: float = 1.0,
-                    weights: torch.Tensor | None = None) -> torch.Tensor:
+                    weights: torch.Tensor | None = None, weight_sum: torch.Tensor | None = None) -> torch.Tensor:
     """T^2-scaled soft binary cross entropy between the temperature-softened
     teacher and student match distributions. With x = s/T and
     pT = sigmoid(t/T): CE = softplus(x) - pT * x (the stable form of
     -[pT log sig(x) + (1-pT) log sig(-x)]); the mean, or the ``weights``-weighted
-    mean over at least one unit of weight."""
+    mean over at least one unit of weight (``weight_sum`` in place of the
+    weights' sum: a data-parallel rank's global one)."""
     t = teacher_logodds(teacher_probs)
     x = student_logodds.float() / temperature
     p_t = torch.sigmoid(t / temperature)
@@ -80,7 +81,7 @@ def distill_soft_ce(student_logodds: torch.Tensor, teacher_probs: torch.Tensor, 
     if weights is None:
         return ce.mean()
     w = weights.float()
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    return (ce * w).sum() / (w.sum() if weight_sum is None else weight_sum).clamp_min(1.0)
 
 
 def match_logodds(model_name: str, params, out: dict, batch: dict) -> torch.Tensor:

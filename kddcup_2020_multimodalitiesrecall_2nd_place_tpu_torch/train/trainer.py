@@ -37,8 +37,24 @@ LXMERT's ``visual_attention`` as ``query`` and ``kv`` only, and
 banded again by ``eval_params``); matmul inputs are rounded to
 ``precision.compute_dtype`` inside the model, whose encoder blocks are the
 train blocks of ``blocks`` (the kernels' by default). Dropout comes from a
-``torch.Generator`` seeded per step from the caller's int. Data parallelism
-across devices is not ported (ROADMAP.md Queue 1 item 12).
+``torch.Generator`` seeded per step from the caller's int.
+
+Data parallelism (``torch.distributed``, ``parallel/distributed.py``): with a
+process group up, each rank takes its rows of the global batch (the ranks'
+rows in rank order) and a step equals a one-rank step on the global batch,
+as the JAX package's jit over the logical global batch gives it for free
+(its ``train/trainer.py`` :358-390). Parameters are broadcast from rank 0 at
+``init_state``; the gradients are averaged over ranks (one all-reduce)
+before the clip, the optimizer and the EMA, so every rank applies the same
+update; the metrics are averaged too. The losses that couple rows see the
+global batch: the Multi-Similarity loss and the two-tower's in-batch
+negatives gather the embeddings (``all_gather_rows``, whose backward sums
+each rank's rows' gradients), and the weighted means of the MLM and the
+distillation losses divide by the global weight sum (a rank's term scaled by
+the world size, so the average is the global mean; the word-match loss is a
+batch mean of equal shares). Dropout masks are the global batch's rows
+(``ops/dropout.py:batch_shard``): a rank's rows must fall on the train
+blocks' dropout blocks.
 """
 
 from __future__ import annotations
@@ -54,6 +70,9 @@ import torch
 from ..checkpoint.npz import unflatten_tree
 from ..models import ModelSpec, Precision, heads, two_tower
 from ..models.core import TRAIN_KERNEL_BLOCKS, Params, TrainBlocks
+from ..ops.dropout import batch_shard
+from ..parallel.distributed import all_gather_rows, all_reduce_mean_, all_reduce_sum, broadcast_, initialized
+from ..parallel.distributed import process_count, process_index
 from ..parallel.engine import default_precision, resolve_device
 from .distill import TEACHER_KEYS, distill_soft_ce, match_logodds
 from .ema import Ema
@@ -167,11 +186,14 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
         raise ValueError("distillation targets the cross-encoder scorers")
     if model.name not in TRAINED:
         raise ValueError(f"no training recipe for model {model.name!r}")
+    # on a data-parallel rank (process_count() > 1) the row-coupled losses see the global batch
     if model.name == "two_tower":
         def tower_loss_fn(params: Params, batch: dict, gen: torch.Generator):
             out = model.apply(params, batch, model.config, precision, blocks, train=True, gen=gen)
-            loss, metrics = two_tower.contrastive_loss(out["q_emb"], out["p_emb"], model.config.temperature,
-                                                       group_ids=batch.get("query_group"))
+            group = batch.get("query_group")
+            loss, metrics = two_tower.contrastive_loss(
+                all_gather_rows(out["q_emb"]), all_gather_rows(out["p_emb"]), model.config.temperature,
+                group_ids=None if group is None else all_gather_rows(group))
             return loss, {**metrics, "loss": loss.detach()}
 
         return tower_loss_fn
@@ -187,7 +209,11 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
         hidden = _GatherPositions.apply(seq, pos)
         logits = heads.mlm_logits(params["cls"]["predictions"], hidden,
                                   params["bert"]["embeddings"]["word_embeddings"], precision)
-        return heads.mlm_loss(logits, batch["masked_lm_ids"], batch["masked_lm_weights"])
+        weights, world = batch["masked_lm_weights"], process_count()
+        if world == 1:
+            return heads.mlm_loss(logits, batch["masked_lm_ids"], weights)
+        total = all_reduce_sum(weights.float().sum())
+        return world * heads.mlm_loss(logits, batch["masked_lm_ids"], weights, weight_sum=total)
 
     mlm = tc.mlm_loss_weight and model.name in MLM_SEQUENCE
     # pure-soft distillation never builds the family's loss
@@ -205,7 +231,7 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
         elif model.name == "imagebert_a":
             loss = heads.nsp_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
             if tc.ms_loss_weight:
-                loss = loss + tc.ms_loss_weight * ms_loss(labels, out["pooled"])
+                loss = loss + tc.ms_loss_weight * ms_loss(all_gather_rows(labels), all_gather_rows(out["pooled"]))
         else:
             loss = heads.am_loss(params["cls"]["seq_relationship"], out["pooled"], labels)
             if tc.word_match_loss_weight and "word_match_labels" in batch:
@@ -218,8 +244,13 @@ def make_loss_fn(model: ModelSpec, tc: TrainConfig, precision: Precision,
             metrics["mlm_loss"] = term.detach()
             loss = loss + tc.mlm_loss_weight * term
         if tc.distill_weight and "teacher_prob" in batch:
-            d = distill_soft_ce(match_logodds(model.name, params, out, batch), batch["teacher_prob"],
-                                tc.distill_temperature, batch.get("teacher_weight"))
+            tw, world = batch.get("teacher_weight"), process_count()
+            logodds = match_logodds(model.name, params, out, batch)
+            if world == 1 or tw is None:
+                d = distill_soft_ce(logodds, batch["teacher_prob"], tc.distill_temperature, tw)
+            else:
+                d = world * distill_soft_ce(logodds, batch["teacher_prob"], tc.distill_temperature, tw,
+                                            weight_sum=all_reduce_sum(tw.float().sum()))
             metrics["distill_loss"] = d.detach()
             loss = tc.hard_loss_weight * loss + tc.distill_weight * d
         accuracy = (out["probs"].argmax(dim=-1) == labels.long()).float().mean()
@@ -243,7 +274,8 @@ class TrainState:
 
 
 class Trainer:
-    """One model trained on one device (cuda unless the caller asks for cpu)."""
+    """One model trained on one device (cuda unless the caller asks for cpu),
+    a rank of a data-parallel group when ``torch.distributed`` is up."""
 
     def __init__(self, model: ModelSpec, tc: TrainConfig | None = None, precision: Precision | None = None,
                  device=None, blocks: TrainBlocks = TRAIN_KERNEL_BLOCKS):
@@ -271,6 +303,7 @@ class Trainer:
 
         params = to_leaves(params)
         leaves = list(flatten_paths(params).values())
+        broadcast_(leaves)  # every rank starts from rank 0's parameters
         return TrainState(params, make_optimizer(self.tc, params),
                           Ema(leaves, self.tc.ema_decay) if self.tc.ema_decay else None)
 
@@ -356,12 +389,25 @@ class Trainer:
         return {k: on_device(batch[k]) for k in keys}
 
     def grads(self, state: TrainState, batch: dict, seed: int) -> tuple[list[torch.Tensor], dict]:
-        """Phase 1: the loss and its gradient w.r.t. every leaf (zeros where unused)."""
+        """Phase 1: the loss and its gradient w.r.t. every leaf (zeros where
+        unused); on a data-parallel rank, over its rows of the global batch,
+        then the gradients and the metrics averaged over ranks."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         leaves = state.leaves()
-        loss, metrics = self.loss_fn(state.params, batch, gen)
+        if not initialized():
+            loss, metrics = self.loss_fn(state.params, batch, gen)
+        else:
+            rows = len(next(iter(batch.values())))
+            with batch_shard(process_index() * rows, process_count() * rows):
+                loss, metrics = self.loss_fn(state.params, batch, gen)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)], metrics
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if initialized():
+            all_reduce_mean_(grads)
+            values = [v.detach().float().reshape(1) for v in metrics.values()]
+            all_reduce_mean_(values)
+            metrics = {k: v[0] for k, v in zip(metrics, values, strict=True)}
+        return grads, metrics
 
     def apply(self, state: TrainState, grads: list[torch.Tensor]) -> dict:
         """Phase 2: clip, optimizer update and EMA, in place; with

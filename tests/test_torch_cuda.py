@@ -1486,3 +1486,68 @@ def test_cuda_tower_embeddings_match_plain(cuda):
             want = fn(engine.params, engine.side_to_device(side, batch), spec.config, engine.precision, PLAIN_BLOCKS)
         assert got.shape == (64, 128) and within_band(got, want, atol=2e-2, rtol=0.0), side
     assert kernels.gemm.launches - before == 2 * 16 + 1 + 2  # 4 + 4 layers' products, the label conv, 2 projections
+
+
+# ---- the int8 serving path, data parallelism and best_mha (kernel-free checks that need the card) -------------
+
+
+@pytest.mark.parametrize("shape", [(20480, 768, 3072), (20480, 3072, 768), (512, 5, 768), (512, 768, 2), (7, 64, 48),
+                                   (16, 37, 40)])
+def test_cuda_dense_q8_matches_its_cpu_run(cuda, shape):
+    """``dense_q8`` on the card = on the CPU within 1e-6 relative (the int32 sums are exact; the padding to
+    ``torch._int_mm``'s shape rules adds zero products): the FFN shapes at B=512, B's box dense (K=5), a 2-wide
+    head, 16 rows or fewer."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.quant import dense_q8, int8_matmul, quantize_kernel
+
+    m, k, n = shape
+    g = torch.Generator().manual_seed(3)
+    x, w, b = torch.randn(m, k, generator=g), torch.randn(k, n, generator=g) / k**0.5, torch.randn(n, generator=g)
+    p = {**quantize_kernel(w), "bias": b}
+    want = dense_q8(p, x)
+    got = dense_q8({key: v.to(cuda) for key, v in p.items()}, x.to(cuda)).cpu()
+    assert torch.allclose(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    a8 = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    assert torch.equal(int8_matmul(a8.to(cuda), p["kernel_q8"].to(cuda)).cpu(), int8_matmul(a8, p["kernel_q8"]))
+
+
+def test_cuda_best_mha_times_both_routes_and_picks(cuda):
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(64, 12, 40, 64, generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    route = attention.backend_choice(q)
+    choice, t_kernel, t_xla = attention._backend_choice((*q.shape, False, str(q.dtype)))
+    assert route == choice and route in ("pallas", "xla") and t_kernel > 0 and t_xla > 0
+    out = attention.best_mha(q, k, v)
+    assert within_band(out, attention.mha_xla(q, k, v))
+
+
+def test_cuda_recall_sharded_one_rank_is_top_k_products(cuda):
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models.two_tower import recall_sharded, top_k_products
+
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(8, 128, generator=g).to(cuda)
+    cat = torch.randn(5001, 128, generator=g).to(cuda, torch.bfloat16)
+    cat[100] = cat[7]  # a tie
+    s, i = recall_sharded(q, cat, k=10, chunk=1024)
+    ws, wi = top_k_products(q, cat, k=10, chunk=1024)
+    assert torch.equal(i, wi) and torch.equal(s, ws)
+
+
+def test_cuda_int8_scores_track_bf16(cuda):
+    """ImageBERT-A at a 2-layer, 768-wide config in both int8 modes on the engine's default route (the bf16
+    residual tree): finite, and within 5e-2 of the bf16 kernels' scores."""
+    import numpy as np
+
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.batchspec import example_batch
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.quant import quantize_for_serving
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine
+
+    spec = get_model("imagebert_a", overrides={"num_hidden_layers": 2})
+    params = spec.init_params(0)
+    batch = example_batch("imagebert_a", spec.config, 64, np.random.default_rng(0))
+    bf16 = ScoringEngine(spec, params).score_batch(batch).float()
+    for mode in ("int8", "int8-ffn"):
+        q8 = ScoringEngine(spec, quantize_for_serving(spec, params, mode, bf16_residual=True)).score_batch(batch)
+        assert bool(torch.isfinite(q8).all()) and float((q8.float() - bf16).abs().max()) < 5e-2, mode

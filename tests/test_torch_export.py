@@ -101,7 +101,7 @@ def _cli(args, tmp_path):
 
 def test_export_cli(tmp_path):
     """An npz of the JAX tree in, an artifact out that scores as the engine
-    does on the same params; two_tower without --side and --quantize exit 2, naming what they need."""
+    does on the same params; two_tower without --side, and with --quantize, exits 2, naming what it needs."""
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.models import get_model as jax_get_model
 
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.checkpoint import params_from_jax
@@ -120,7 +120,8 @@ def test_export_cli(tmp_path):
     want = _live(spec, spec.from_jax(params_from_jax(tree)), batch, "pallas_packed")
     np.testing.assert_allclose(load_scorer(out)(batch), want, atol=1e-6, rtol=0)
     for args, item in ((["--model", "two_tower"], "--side query|product is required"),
-                       (["--model", "imagebert_a", "--quantize", "int8"], "Queue 1 item 12")):
+                       (["--model", "two_tower", "--side", "query", "--quantize", "int8"],
+                        "--quantize is not supported for two_tower")):
         r = _cli([*args, "--device", "cpu", "--out", str(tmp_path / "never")], tmp_path)
         assert r.returncode == 2 and item in r.stderr and not (tmp_path / "never").exists()
 

@@ -90,10 +90,14 @@ def test_train_cli_device_cuda_raises_without_a_gpu(data_dir):
 
 
 @pytest.mark.parametrize("extra", [["--distributed"], ["--am-loss"]])
-def test_unported_flags_exit_2(data_dir, extra, capsys):
+def test_unported_flags_exit_2(data_dir, extra, capsys, monkeypatch):
+    """``--am-loss`` is not ported (it names its ROADMAP item); ``--distributed`` is, and without torchrun's
+    environment it exits 2 naming it."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit) as e:
         train_cli.run(_argv(data_dir, *extra))
-    assert e.value.code == 2 and "ROADMAP" in capsys.readouterr().err
+    assert e.value.code == 2 and ("torchrun" if extra == ["--distributed"] else "ROADMAP") in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("model", ["two_tower", "lxmert"])
