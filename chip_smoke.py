@@ -229,6 +229,15 @@
    --device cuda`` with its full-config stage; ``best_mha``'s pick at A's and
    B's shapes; ``cli/bench_all.py`` and ``cli/perf_lab.py model_q8`` and
    ``int8``.
+11. The JAX package's orbax checkpoints, read without orbax, tensorstore or
+   JAX (``checkpoint/orbax_io.py``): the libzstd loaded and its version; the
+   committed fixture ``tests/data/orbax_tiny_a/`` (written by orbax itself)
+   leaf-equal to its npz twin; ImageBERT-A and the two-tower at full width
+   written as orbax directories by ``tests/torch_orbax_writer.py``, each
+   read by ``load_checkpoint`` beside its npz (seconds, MB/s), then phase
+   3's 2,048 pairs scored through ``cli/score.py --checkpoint <dir>`` and a
+   catalog built through ``cli/recall.py build``, bit-equal to the npz route
+   with exact launches; the files deleted.
 
 The GEMM sites (run after phase 2's kernel timings): every ``gemm_bf16``
 launch shape of the driven paths (``gemm_sites()``: ImageBERT-A at S=40,
@@ -4236,6 +4245,140 @@ class Smoke:
         perf_lab.main(["int8", "--iters", "10"])
         return {"bench_all": lines, "seconds": time.perf_counter() - t0}
 
+    # ---- phase 11: the JAX package's orbax checkpoints, read without orbax -----------------------------------
+
+    def orbax_checkpoints(self) -> tuple[dict[str, dict], dict]:
+        """Phase 11: the port's orbax reader (``checkpoint/orbax_io.py``; no orbax, tensorstore or JAX here).
+        The libzstd it loaded; the committed fixture ``tests/data/orbax_tiny_a/`` (the real orbax's output)
+        leaf-equal to its npz twin; ImageBERT-A at full width (12 x 768, the seed's weights) written as an orbax
+        directory by ``tests/torch_orbax_writer.py`` beside its npz, each read by ``load_checkpoint`` (seconds,
+        MB/s of the decoded leaves) and scored over phase 3's TSV through ``cli/score.py --checkpoint`` (exact
+        launches, the scores bit-equal); the two-tower at its widths the same way through ``cli/recall.py
+        build`` (the catalogs bit-equal); the files deleted -> (each counted run's launches, the phase's
+        numbers)."""
+        from importlib import import_module
+
+        import numpy as np
+
+        torch = self.torch
+        pkg = import_module(PKG)
+        models = import_module(f"{PKG}.models")
+        checkpoint = import_module(f"{PKG}.checkpoint")
+        zstd = import_module(f"{PKG}.checkpoint.zstd")
+        ensemble = import_module(f"{PKG}.ensemble")
+        score_cli = import_module(f"{PKG}.cli.score")
+        recall_cli = import_module(f"{PKG}.cli.recall")
+        sys.path.insert(0, str(REPO / "tests"))
+        writer = import_module("torch_orbax_writer")
+
+        t_phase = time.perf_counter()
+        work = pkg.BUILD_DIR / "smoke" / "orbax"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        tsv, labels = pkg.BUILD_DIR / "smoke" / "pairs.tsv", pkg.BUILD_DIR / "smoke" / "labels.txt"  # phase 3's
+        runs, rates = {}, {"card": nvidia_smi(), "libzstd": {"path": zstd.library()._name, "version": zstd.version()}}
+        log(f"phase 11: libzstd {zstd.version()} from {zstd.library()._name}")
+
+        def counted(path, expected, fn):
+            return counted_run(torch, runs, path, {k: expected.get(k, 0) for k in expected_launches(0, {})}, fn)
+
+        def same_leaves(got: dict, want: dict, what: str) -> int:
+            got, want = checkpoint.flatten_tree(got), checkpoint.flatten_tree(want)
+            differ = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+                      or got[k].tobytes() != want[k].tobytes()]
+            if got.keys() != want.keys() or differ:
+                raise RuntimeError(f"{what}: leaves differ from the npz twin's: {sorted(got.keys() ^ want.keys())[:5]} "
+                                   f"{differ[:5]}")
+            return len(want)
+
+        # 1: the committed fixture, written by orbax and tensorstore
+        fixture = REPO / "tests" / "data" / "orbax_tiny_a"
+        t0 = time.perf_counter()
+        got = checkpoint.restore_pytree(fixture)
+        fixture_s = time.perf_counter() - t0
+        n = same_leaves(got, checkpoint.load_npz(fixture.with_suffix(".npz")), "tests/data/orbax_tiny_a")
+        rates["fixture"] = {"leaves": n, "seconds": fixture_s,
+                            "bytes": sum(p.stat().st_size for p in fixture.rglob("*") if p.is_file())}
+        log(f"the committed orbax fixture: {n} leaves read in {fixture_s:.4f} s, equal to its npz twin")
+
+        def write_both(name: str, tree: dict) -> dict:
+            t0 = time.perf_counter()
+            writer.write_orbax(work / name, tree, seed=self.seed)
+            write_s = time.perf_counter() - t0
+            checkpoint.save_npz(work / f"{name}.npz", tree)
+            return {"leaves_bytes": sum(np.asarray(v).nbytes for v in checkpoint.flatten_tree(tree).values()),
+                    "orbax_bytes": sum(p.stat().st_size for p in (work / name).rglob("*") if p.is_file()),
+                    "npz_bytes": (work / f"{name}.npz").stat().st_size, "write_s": write_s}
+
+        def timed_loads(model: str, name: str, spec, info: dict) -> None:
+            """``load_checkpoint`` on the directory and on the npz, twice each in turns (the second pair warm in
+            the page cache), and ``restore_pytree`` alone; the params equal."""
+            loaded = {}
+            for turn in range(2):
+                for kind, path in (("orbax", work / name), ("npz", work / f"{name}.npz")):
+                    t0 = time.perf_counter()
+                    loaded[kind] = checkpoint.load_checkpoint(model, path, spec)
+                    info[f"{kind}_load_s_{turn}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoint.restore_pytree(work / name)
+            info["restore_pytree_s"] = time.perf_counter() - t0
+            for kind in ("orbax", "npz"):
+                info[f"{kind}_load_mb_per_s"] = info["leaves_bytes"] / 1e6 / info[f"{kind}_load_s_1"]
+            info["restore_pytree_mb_per_s"] = info["leaves_bytes"] / 1e6 / info["restore_pytree_s"]
+            same_leaves(loaded["orbax"], loaded["npz"], name)
+
+        # 2: ImageBERT-A at full width, scored over phase 3's TSV from the directory and from the npz
+        spec = models.get_model("imagebert_a")
+        info_a = write_both("imagebert_a", checkpoint.params_to_jax(spec.init_params(self.seed)))
+        timed_loads("imagebert_a", "imagebert_a", spec, info_a)
+        n_score = -(-N_ROWS // MAIN_B)
+        scores = {}
+        for kind, path in (("orbax", work / "imagebert_a"), ("npz", work / "imagebert_a.npz")):
+            out = work / f"scores_{kind}.tsv"
+            t0 = time.perf_counter()
+            counted(f"orbax_imagebert_a_{kind}", expected_launches(n_score, PER_BATCH["imagebert_a"]),
+                    lambda: score_cli.main(["--model", "imagebert_a", "--tsv", str(tsv), "--labels", str(labels),
+                                            "--checkpoint", str(path), "--out", str(out),
+                                            "--expect-pairs", str(N_ROWS)]))
+            info_a[f"score_cli_{kind}_s"] = time.perf_counter() - t0
+            scores[kind] = {(q, p): s for q, row in ensemble.load_tsv_scores(out).items() for p, s in row.items()}
+        if scores["orbax"] != scores["npz"] or len(scores["npz"]) != N_ROWS \
+                or not np.isfinite(list(scores["npz"].values())).all():
+            raise RuntimeError(f"imagebert_a: the orbax directory's scores differ from the npz route's "
+                               f"({sum(scores['orbax'].get(k) != v for k, v in scores['npz'].items())} of "
+                               f"{len(scores['npz'])} pairs)")
+        rates["imagebert_a"] = info_a
+        log(f"orbax imagebert_a: {info_a['leaves_bytes'] / 1e6:.1f} MB of leaves ({info_a['orbax_bytes'] / 1e6:.1f} "
+            f"MB on disk, written in {info_a['write_s']:.2f} s); load_checkpoint {info_a['orbax_load_s_1']:.3f} s "
+            f"({info_a['orbax_load_mb_per_s']:.0f} MB/s) beside the npz's {info_a['npz_load_s_1']:.3f} s "
+            f"({info_a['npz_load_mb_per_s']:.0f} MB/s), restore_pytree alone {info_a['restore_pytree_s']:.3f} s; "
+            f"{N_ROWS} scores through cli/score.py bit-equal to the npz route's")
+
+        # 3: the two-tower at its widths, a catalog built from the directory and from the npz
+        tower = models.get_model("two_tower")
+        info_t = write_both("two_tower", checkpoint.params_to_jax(tower.init_params(self.seed)))
+        timed_loads("two_tower", "two_tower", tower, info_t)
+        catalogs = {}
+        for kind, path in (("orbax", work / "two_tower"), ("npz", work / "two_tower.npz")):
+            cat = work / f"catalog_{kind}.npz"
+            counted(f"orbax_two_tower_{kind}", expected_launches(n_score, tower_launches("product")),
+                    lambda: recall_cli.main(["build", "--tsv", str(tsv), "--labels", str(labels), "--checkpoint",
+                                             str(path), "--out", str(cat)]))
+            with np.load(cat) as z:
+                catalogs[kind] = {k: z[k] for k in z.files}
+        if catalogs["orbax"].keys() != catalogs["npz"].keys() or any(
+                catalogs["orbax"][k].tobytes() != v.tobytes() for k, v in catalogs["npz"].items()):
+            raise RuntimeError("two_tower: the catalog built from the orbax directory differs from the npz route's")
+        info_t["catalog_rows"] = int(len(next(iter(catalogs["npz"].values()))))
+        rates["two_tower"] = info_t
+        log(f"orbax two_tower: {info_t['leaves_bytes'] / 1e6:.1f} MB of leaves; load_checkpoint "
+            f"{info_t['orbax_load_s_1']:.3f} s beside the npz's {info_t['npz_load_s_1']:.3f} s; the catalog of "
+            f"{info_t['catalog_rows']} rows through cli/recall.py build bit-equal to the npz route's")
+        shutil.rmtree(work)
+        rates["phase_seconds"] = time.perf_counter() - t_phase
+        log(f"phase 11: {rates['phase_seconds']:.1f} s")
+        return runs, rates
+
 
 PER_A = f"one ImageBERT-A layer at B={MAIN_B}, S={S}"
 PER_X = f"one LXMERT x-layer at B={MAIN_B}, F={LX_F}, T={LX_T}"
@@ -4930,16 +5073,18 @@ def main(argv: list[str] | None = None) -> int:
         util_rates = smoke.utilities()
         log(json.dumps({"utilities": util_rates}))
         log(f"phase 10: {time.perf_counter() - t_phase10:.1f} s")
+        ob_launches, ob_rates = smoke.orbax_checkpoints()
+        log(json.dumps({"orbax_checkpoints": ob_rates}))
         all_launches = {"imagebert_a": launches, **lx_launches, **b_launches, **a_launches,
                         "mha_packed_entry": packed, **train_runs, **b_train_launches,
                         "lxmert_train": lx_train_launches, **ot_launches, **di_launches, **tt_launches,
-                        **q8_launches, **dp_launches}
+                        **q8_launches, **dp_launches, **ob_launches}
         line = kernel_line(times, all_launches, smoke.errors)
         unlaunched = [kr["name"] for kr in line["kernels"] if kr["launches"] == 0]
         if unlaunched:
             raise RuntimeError(f"kernels never launched on a driven path: {unlaunched}")
         log(json.dumps(line))
-        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-10, the build included")
+        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s for phases 1-11, the build included")
         log(f"nvidia-smi: {nvidia_smi()}")
     except Exception:  # any phase failing fails the run, with its traceback
         traceback.print_exc()

@@ -17,6 +17,7 @@ from .npz import (
     tree_to,
     unflatten_tree,
 )
+from .orbax_io import restore_pytree
 from .tf_bundle import read_tf_checkpoint
 from .torch_io import read_torch_state_dict
 
@@ -35,6 +36,7 @@ __all__ = [
     "read_checkpoint",
     "read_tf_checkpoint",
     "read_torch_state_dict",
+    "restore_pytree",
     "save_npz",
     "scoring_params",
     "tree_to",

@@ -7,14 +7,14 @@ takes, the port of the JAX package's ``scripts/score.py`` :43-82
 * ``*.npz`` holding a flat variable dict (TF names with ``/``, or torch
   names): the model's importer over it;
 * ``*.pth`` / ``*.pt`` / ``*.bin``: a torch state dict, LXMERT's importer;
+* a directory: an orbax param tree of the JAX package (``step_<N>``,
+  ``best``, ``student_final``), read without orbax (``orbax_io.py``);
 * anything else: a TF1 bundle prefix (``<prefix>.index`` beside it), the
   ImageBERT-A importer, or for B/C the importer of the EMA shadows.
 
-The two-tower model has no reference checkpoint: it reads npz param trees only.
-
-A directory is an orbax tree of the JAX package: reading one needs orbax and
-tensorstore, which the port does not depend on, so it raises (ROADMAP.md
-Queue 1 item 8).
+The two-tower model has no reference checkpoint: it reads param trees only,
+an npz or an orbax directory, as the JAX package's ``scripts/recall.py``
+(:61-63) does.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 from ..models.core import Params
 from .importers import imagebert_a_from_tf, imagebert_b_from_tf, lxmert_from_torch
 from .npz import params_from_jax, unflatten_tree
+from .orbax_io import restore_pytree
 from .tf_bundle import read_tf_checkpoint
 from .torch_io import read_torch_state_dict
 
@@ -47,11 +48,12 @@ def read_checkpoint(model_name: str, path, spec) -> dict:
     ``spec.config`` gives the importers their depths."""
     p = Path(path)
     if p.is_dir():
-        raise ValueError(
-            f"{path} is a directory, an orbax param tree of the JAX package: the port reads no orbax "
-            f"(ROADMAP.md Queue 1 item 8). Convert it to an npz tree with the JAX package "
-            f"(checkpoint.save_npz(out, checkpoint.restore_pytree(dir)); scripts/convert_checkpoint.py "
-            f"writes npz from the reference's TF1 and torch checkpoints)")
+        tree = restore_pytree(p)
+        if not isinstance(tree, dict) or "bert" not in tree:
+            raise ValueError(f"{path}: an orbax tree with no param tree at its root (keys "
+                             f"{sorted(tree) if isinstance(tree, dict) else type(tree).__name__}): a "
+                             "training state (state_<N>) holds its params under 'params'; pass step_<N>")
+        return tree
     if p.suffix == ".npz":
         with np.load(p) as data:
             flat = {k: data[k] for k in data.files}
@@ -59,7 +61,8 @@ def read_checkpoint(model_name: str, path, spec) -> dict:
             return unflatten_tree(flat)
     if model_name == "two_tower":
         raise ValueError(f"{path}: a two_tower checkpoint is an npz param tree (the JAX package's save_npz, "
-                         "the port's step_<N>.npz); the reference has no tower checkpoint to import")
+                         "the port's step_<N>.npz) or an orbax directory (the JAX package's step_<N>); the "
+                         "reference has no tower checkpoint to import")
     if p.suffix in TORCH_SUFFIXES:
         return lxmert_from_torch(read_torch_state_dict(p), spec.config)
     if p.suffix != ".npz":

@@ -8,7 +8,7 @@ importers and ``cli/convert_checkpoint.py`` against the JAX package's, leaf
 for leaf (``np.array_equal``); ``cli/score.py --device cpu`` on a TF prefix,
 a ``.pth`` and a flat npz within 1e-4 of ``scripts/score.py`` (f32), with the
 same nDCG@5; every format through ``load_checkpoint`` equal to the npz route;
-an orbax directory raising; the student sidecar's precedence in
+a directory without ``_METADATA`` raising; the student sidecar's precedence in
 ``cli/score.py`` and ``cli/export.py``; and no module of the slice importing
 JAX.
 """
@@ -266,7 +266,9 @@ def test_every_format_loads_as_the_npz_route(ckpts, model):
 
 
 def test_a_directory_raises_naming_item_8(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
+    """A directory is read as an orbax tree (ROADMAP.md Queue 1 item 8, closed): one without ``_METADATA``
+    raises naming it (``tests/test_torch_orbax.py`` reads the trees)."""
+    with pytest.raises(ValueError, match="without _METADATA, not an orbax checkpoint"):
         read_checkpoint("imagebert_a", tmp_path, get_model("imagebert_a"))
 
 
@@ -355,15 +357,18 @@ def test_export_cli_reads_a_tf_prefix(ckpts, tmp_path):
 
 
 NEW_MODULES = ["checkpoint", "checkpoint.formats", "checkpoint.importers", "checkpoint.tf_bundle",
-               "checkpoint.torch_io", "cli.convert_checkpoint", "cli.distill", "cli.score", "cli.score_fidelity",
+               "checkpoint.torch_io", "checkpoint.orbax_io", "checkpoint.ocdbt", "checkpoint.zarr", "checkpoint.zstd",
+               "cli.convert_checkpoint", "cli.distill", "cli.score", "cli.score_fidelity",
                "cli.train", "cli.export", "cli.main", "train", "train.distill", "train.trainer"]
 
 
 def test_no_module_of_the_slice_imports_jax():
-    """Every module this slice adds or changes, chip_smoke.py and the bundle writer, imported in a fresh
-    interpreter where ``jax`` and the JAX package cannot be imported."""
+    """Every module this slice adds or changes (and the orbax reader's), chip_smoke.py and the bundle writer,
+    imported in a fresh interpreter where ``jax``, the JAX package, orbax, tensorstore and ml_dtypes cannot be
+    imported."""
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'kddcup_2020_multimodalitiesrecall_2nd_place_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'kddcup_2020_multimodalitiesrecall_2nd_place_tpu', 'orbax',\n"
+            "             'orbax.checkpoint', 'tensorstore', 'ml_dtypes'):\n"
             "    sys.modules[name] = None\n"
             f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"
             "import importlib\n"
