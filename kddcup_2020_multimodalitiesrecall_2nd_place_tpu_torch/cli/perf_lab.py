@@ -15,7 +15,7 @@ line a measurement:
   dualcross <F> <T> [B]            the dual cross block (both directions, one attention launch)
   int8     [M K N]                 ``torch._int_mm`` vs ``gemm_bf16``, and the int8 dense vs the bf16 dense
   host     [rows] [batch]          host input-pipeline rows/s (no device)
-  trace    <name> <B> <dir>        a ``torch.profiler`` trace around scoring steps
+  trace    <name> <B> <dir>        a ``torch.profiler`` trace around scoring steps, the program's spans in it
   trace_train <name> <B> <dir>     the same around 2 training steps
 
 Device times are CUDA events around ``--iters`` calls after one warm-up (the
@@ -362,7 +362,8 @@ def cmd_host(n_rows: int, batch_size: int, reps: int = 3) -> None:
 
 def cmd_trace(name: str, b: int, log_dir: str, train: bool, device) -> None:
     """``utils/observability.py:device_profile`` around 3 scoring steps (or 2 training steps), after a warm-up;
-    the trace goes into ``log_dir``."""
+    the trace, with the program's spans (``block.*``; training's ``train.*``, ``optim.*``) on its clock, goes
+    into ``log_dir``."""
     from ..utils import device_profile
 
     if train:

@@ -22,6 +22,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from ..utils.observability import span
 from .featurize import SEGMENT_IDS_B, Featurizer, pad_batch
 from .native import parse_pairs_native
 from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, MAX_QUERY_LEN_L, rewrite_sen2forest
@@ -116,7 +117,8 @@ def rebatch(fulls: Iterable[dict], batch_size: int, stats=None) -> Iterator[dict
     """Featurized arrays of consecutive parts (files, or a file's byte spans)
     -> fixed-shape batches whose rows run on across the parts, with one padded
     tail: the batches of the per-example path over the same rows, whatever
-    the parts. ``stats`` (a ``PipelineStats``) counts the batches."""
+    the parts. ``stats`` (a ``PipelineStats``) counts the batches; span
+    ``loader.batch`` is the assembly of each (and the join of parts)."""
     carry: list[dict[str, np.ndarray]] = []
     rows = 0
     for full in fulls:
@@ -127,18 +129,23 @@ def rebatch(fulls: Iterable[dict], batch_size: int, stats=None) -> Iterator[dict
         rows += n
         if rows < batch_size:
             continue
-        whole = {k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]} if len(carry) > 1 else full
+        with span("loader.batch"):
+            whole = {k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]} if len(carry) > 1 else full
         n_emit = rows // batch_size * batch_size
         for start in range(0, n_emit, batch_size):
             if stats is not None:
                 stats.batches += 1
-            yield pad_batch({k: v[start : start + batch_size] for k, v in whole.items()}, batch_size)
+            with span("loader.batch"):
+                batch = pad_batch({k: v[start : start + batch_size] for k, v in whole.items()}, batch_size)
+            yield batch
         carry = [{k: v[n_emit:] for k, v in whole.items()}] if rows > n_emit else []
         rows -= n_emit
     if rows:
         if stats is not None:
             stats.batches += 1
-        yield pad_batch({k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]}, batch_size)
+        with span("loader.batch"):
+            batch = pad_batch({k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]}, batch_size)
+        yield batch
 
 
 def assemble_batches(raw: dict, featurizer: Featurizer, layout: str,
@@ -151,15 +158,21 @@ def native_batches_from_files(paths, featurizer: Featurizer, layout: str, batch_
                               stats=None) -> Iterator[dict[str, np.ndarray]]:
     """The files parsed whole by the native parser, one after another, and
     batched as one stream; ``stats`` (a ``PipelineStats``) counts parsed rows,
-    parse errors and batches."""
+    parse errors and batches. Spans ``loader.read``, ``loader.parse`` and
+    ``loader.featurize`` for each file."""
 
     def fulls():
         for path in paths:
-            with open(path, "rb") as f:
-                raw = parse_pairs_native(f.read())
+            with span("loader.read"), open(path, "rb") as f:
+                buf = f.read()
+            with span("loader.parse"):
+                raw = parse_pairs_native(buf)
+            del buf
             if stats is not None:
                 stats.parsed += len(raw["product_id"])
                 stats.errors += raw["n_errors"]
-            yield featurize_raw(raw, featurizer, layout)
+            with span("loader.featurize"):
+                full = featurize_raw(raw, featurizer, layout)
+            yield full
 
     return rebatch(fulls(), batch_size, stats)

@@ -24,6 +24,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from ..utils.observability import span
+
 MANIFEST = "manifest.json"
 
 
@@ -87,19 +89,21 @@ class PackedDataset:
         return self.manifest["num_instances"]
 
     def _assemble(self, parts: list[tuple[dict, np.ndarray]]) -> dict:
-        """One batch from its (shard, indices) parts: a gather per part, features cast to float32."""
-        gathered = []
-        for shard, idx in parts:
-            batch = {}
-            for f, arr in shard.items():
-                a = arr[idx]
-                if f == "features" and a.dtype != np.float32:
-                    a = a.astype(np.float32)
-                batch[f] = a
-            gathered.append(batch)
-        if len(gathered) == 1:
-            return gathered[0]
-        return {f: np.concatenate([g[f] for g in gathered], axis=0) for f in self.fields}
+        """One batch from its (shard, indices) parts: a gather per part, features cast to float32; span
+        ``packed.gather``."""
+        with span("packed.gather"):
+            gathered = []
+            for shard, idx in parts:
+                batch = {}
+                for f, arr in shard.items():
+                    a = arr[idx]
+                    if f == "features" and a.dtype != np.float32:
+                        a = a.astype(np.float32)
+                    batch[f] = a
+                gathered.append(batch)
+            if len(gathered) == 1:
+                return gathered[0]
+            return {f: np.concatenate([g[f] for g in gathered], axis=0) for f in self.fields}
 
     def batches(self, batch_size: int, epochs: int | None = 1, seed: int = 0, drop_remainder: bool = True,
                 process_id: int = 0, process_count: int = 1, skip: int = 0) -> Iterator[dict]:

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import span
 from .attention import merge_heads, mha_xla, split_heads
 from .kernels import layernorm_plain
 from .library import attn_core, gemm, layernorm
@@ -73,13 +74,14 @@ def mha_bias(rows: torch.Tensor | None) -> torch.Tensor | None:
 
 def attention_block(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, bias=None,
                     eps: float = 1e-12) -> torch.Tensor:
-    """x [B, S, H] (bf16 on CUDA) -> [B, S, H] in x's dtype."""
+    """x [B, S, H] (bf16 on CUDA) -> [B, S, H] in x's dtype; span ``block.attention``."""
     b, s, h = x.shape
-    x2d = x.reshape(b * s, h)
-    qkv = gemm(x2d, wqkv, bqkv, "bias")
-    ctx = attn_core(qkv, attention_bias(bias, b, s, s), b, s, num_heads)
-    y = gemm(ctx, wo, bo, "residual", residual=x2d)
-    out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
+    with span("block.attention"):
+        x2d = x.reshape(b * s, h)
+        qkv = gemm(x2d, wqkv, bqkv, "bias")
+        ctx = attn_core(qkv, attention_bias(bias, b, s, s), b, s, num_heads)
+        y = gemm(ctx, wo, bo, "residual", residual=x2d)
+        out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
     if x.is_cuda:
         attention_block.launches += 1
     return out.reshape(b, s, h)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import span
 from .activations import gelu_erf, gelu_tanh
 from .kernels import layernorm_plain
 from .library import gemm, layernorm
@@ -33,12 +34,13 @@ from .library import gemm, layernorm
 
 def ffn_block(x, w1, b1, w2, b2, gamma, beta, approximate_gelu: bool = True,
               eps: float = 1e-12) -> torch.Tensor:
-    """x [B, S, H] (bf16 on CUDA) -> [B, S, H] in x's dtype."""
+    """x [B, S, H] (bf16 on CUDA) -> [B, S, H] in x's dtype; span ``block.ffn``."""
     b, s, h = x.shape
-    x2d = x.reshape(b * s, h)
-    hmid = gemm(x2d, w1, b1, "gelu_tanh" if approximate_gelu else "gelu_erf")
-    y = gemm(hmid, w2, b2, "residual", residual=x2d)
-    out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
+    with span("block.ffn"):
+        x2d = x.reshape(b * s, h)
+        hmid = gemm(x2d, w1, b1, "gelu_tanh" if approximate_gelu else "gelu_erf")
+        y = gemm(hmid, w2, b2, "residual", residual=x2d)
+        out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
     if x.is_cuda:
         ffn_block.launches += 1
     return out.reshape(b, s, h)

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import span
 from .activations import gelu_erf, gelu_tanh
 from .attention import merge_heads, split_heads
 from .attention_block import key_bias_rows
@@ -124,7 +125,8 @@ class _FfnTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        grads = ffn_block_train_backward(dy, *ctx.saved_tensors, *ctx.cfg)
+        with span("block.ffn_train_bwd"):  # on autograd's thread on the card
+            grads = ffn_block_train_backward(dy, *ctx.saved_tensors, *ctx.cfg)
         return (*grads, None, None, None, None, None)
 
 
@@ -133,9 +135,11 @@ def ffn_block_train(x, w1, b1, w2, b2, gamma, beta, seed: int, dropout_rate: flo
     """x [B, S, H] (bf16 on CUDA), f32 weights [H, I], [I], [I, H], [H] and the
     LN's [H] -> [B, S, H] in x's dtype; hidden dropout at ``dropout_rate`` from
     ``seed`` (a 32-bit int), its masks drawn per grid block of ``block_b``
-    pairs (resolved as the JAX package does, ``dropout.train_block``)."""
+    pairs (resolved as the JAX package does, ``dropout.train_block``). Spans
+    ``block.ffn_train`` and, around its backward, ``block.ffn_train_bwd``."""
     block, seed = shard_block("ffn", x.shape[0], block_b, seed)
-    y = _FfnTrain.apply(x, w1, b1, w2, b2, gamma, beta, seed, float(dropout_rate), approximate_gelu, eps, block)
+    with span("block.ffn_train"):
+        y = _FfnTrain.apply(x, w1, b1, w2, b2, gamma, beta, seed, float(dropout_rate), approximate_gelu, eps, block)
     if x.is_cuda:
         ffn_block_train.launches += 1
     return y
@@ -211,7 +215,8 @@ class _AttnTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        grads = attention_block_train_backward(dy, *ctx.saved_tensors, *ctx.cfg)
+        with span("block.attention_train_bwd"):  # on autograd's thread on the card
+            grads = attention_block_train_backward(dy, *ctx.saved_tensors, *ctx.cfg)
         # the key mask is an additive bias from integer lengths: no gradient (:955-957)
         return (*grads, None, None, None, None, None, None, None)
 
@@ -222,11 +227,13 @@ def attention_block_train(x, wqkv, bqkv, wo, bo, gamma, beta, num_heads: int, se
     """x [B, S, H] (bf16 on CUDA), f32 weights [H, 3H], [3H], [H, H], [H] and
     the LN's [H], bias None or a [B, S] / [B, 1, 1, S] key mask -> [B, S, H]
     in x's dtype; probability and hidden dropout from ``seed``, masks drawn
-    per grid block of ``block_b`` pairs (``dropout.train_block``)."""
+    per grid block of ``block_b`` pairs (``dropout.train_block``). Spans
+    ``block.attention_train`` and, around its backward, ``block.attention_train_bwd``."""
     b, s, _ = x.shape
     block, seed = shard_block("attn", b, block_b, seed)
-    y = _AttnTrain.apply(x, wqkv, bqkv, wo, bo, gamma, beta, key_bias_rows(bias, b, s), num_heads, seed,
-                         float(attn_dropout_rate), float(hidden_dropout_rate), eps, block)
+    with span("block.attention_train"):
+        y = _AttnTrain.apply(x, wqkv, bqkv, wo, bo, gamma, beta, key_bias_rows(bias, b, s), num_heads, seed,
+                             float(attn_dropout_rate), float(hidden_dropout_rate), eps, block)
     if x.is_cuda:
         attention_block_train.launches += 1
     return y

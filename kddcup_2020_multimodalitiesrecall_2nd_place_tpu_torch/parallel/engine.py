@@ -36,6 +36,7 @@ from ..data.multiworker import MultiWorkerLoader
 from ..data.native import get_lib
 from ..models import ModelSpec, Precision, two_tower
 from ..ops import attention
+from ..utils.observability import count, span, tracing
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -73,7 +74,9 @@ class ScoringStats:
 
 
 class ScoringEngine:
-    """Pairwise scorer for one model on one device."""
+    """Pairwise scorer for one model on one device. Spans (``utils/observability.py``):
+    ``score.files``, ``loader.wait``, ``engine.h2d``, ``engine.forward``, ``engine.d2h``;
+    counter ``h2d.bytes``."""
 
     def __init__(self, model: ModelSpec, params, device=None, precision: Precision | None = None,
                  attention_backend: str | None = None):
@@ -97,25 +100,32 @@ class ScoringEngine:
                                                   self.model.matmul_kernels), self.device)
 
     def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        return {
-            k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-            for k in self.model.input_keys
-        }
+        with span("engine.h2d"):
+            out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in self.model.input_keys}
+        if tracing():
+            count("h2d.bytes", sum(t.nbytes for t in out.values()))
+        return out
 
     @torch.inference_mode()
     def score_batch(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
         """-> f32 scores [B] on the device (not yet synchronised)."""
         feats = self.to_device(batch)
-        with attention.attention_backend(self.attention_backend):
+        with span("engine.forward"), attention.attention_backend(self.attention_backend):
             return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
 
     def score_stream(
         self, batches: Iterable[dict], stats: ScoringStats | None = None
     ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """-> (query_ids, product_ids, scores) per batch, valid rows only."""
+        """-> (query_ids, product_ids, scores) per batch, valid rows only;
+        span ``loader.wait`` is the time blocked on ``batches`` for each."""
         stats = stats if stats is not None else ScoringStats()
         pending = None  # (qid, pid, valid, device_scores)
-        for batch in batches:
+        batches = iter(batches)
+        while True:
+            with span("loader.wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             scores = self.score_batch(batch)
             if pending is not None:
                 yield self._finish(pending, stats)
@@ -126,7 +136,8 @@ class ScoringEngine:
     @staticmethod
     def _finish(pending, stats: ScoringStats):
         qid, pid, valid, scores = pending
-        scores = scores.float().cpu().numpy()[valid]  # waits for this batch only
+        with span("engine.d2h"):
+            scores = scores.float().cpu().numpy()[valid]  # waits for this batch only
         stats.pairs += int(valid.sum())
         stats.batches += 1
         return qid[valid], pid[valid], scores
@@ -145,24 +156,25 @@ class ScoringEngine:
         per-example Python path. A native library that cannot be built raises;
         no loader is swapped for another."""
         stats = stats if stats is not None else ScoringStats()
-        layout = self.model.featurizer_layout
-        if num_workers:
-            loader = MultiWorkerLoader(paths, featurizer, layout, batch_size, num_workers=num_workers,
-                                       stats=stats.pipeline, use_native=use_native)
-            batches = PrefetchIterator(iter(loader), prefetch=4)
-        elif use_native:
-            get_lib()  # built here, so a failure raises before the prefetch thread starts
-            batches = PrefetchIterator(
-                native_batches_from_files(paths, featurizer, layout, batch_size, stats=stats.pipeline), prefetch=4)
-        else:
-            batches = batches_from_files(paths, featurizer.for_model(layout), batch_size, stats=stats.pipeline)
-        result: dict[str, dict[str, float]] = {}
-        t0 = time.perf_counter()
-        for qids, pids, scores in self.score_stream(batches, stats):
-            for q, p, s in zip(qids, pids, scores):
-                result.setdefault(str(q), {})[str(p)] = float(s)
-        stats.seconds = time.perf_counter() - t0
-        return result
+        with span("score.files"):
+            layout = self.model.featurizer_layout
+            if num_workers:
+                loader = MultiWorkerLoader(paths, featurizer, layout, batch_size, num_workers=num_workers,
+                                           stats=stats.pipeline, use_native=use_native)
+                batches = PrefetchIterator(iter(loader), prefetch=4)
+            elif use_native:
+                get_lib()  # built here, so a failure raises before the prefetch thread starts
+                batches = PrefetchIterator(native_batches_from_files(paths, featurizer, layout, batch_size,
+                                                                     stats=stats.pipeline), prefetch=4)
+            else:
+                batches = batches_from_files(paths, featurizer.for_model(layout), batch_size, stats=stats.pipeline)
+            result: dict[str, dict[str, float]] = {}
+            t0 = time.perf_counter()
+            for qids, pids, scores in self.score_stream(batches, stats):
+                for q, p, s in zip(qids, pids, scores):
+                    result.setdefault(str(q), {})[str(p)] = float(s)
+            stats.seconds = time.perf_counter() - t0
+            return result
 
 
 class TowerEngine(ScoringEngine):

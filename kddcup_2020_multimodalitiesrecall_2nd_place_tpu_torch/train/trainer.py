@@ -74,6 +74,7 @@ from ..ops.dropout import batch_shard
 from ..parallel.distributed import all_gather_rows, all_reduce_mean_, all_reduce_sum, broadcast_, initialized
 from ..parallel.distributed import process_count, process_index
 from ..parallel.engine import default_precision, resolve_device
+from ..utils.observability import span
 from .distill import TEACHER_KEYS, distill_soft_ce, match_logodds
 from .ema import Ema
 from .losses import ms_loss
@@ -386,28 +387,30 @@ class Trainer:
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
             return t.to(self.device)
 
-        return {k: on_device(batch[k]) for k in keys}
+        with span("train.h2d"):
+            return {k: on_device(batch[k]) for k in keys}
 
     def grads(self, state: TrainState, batch: dict, seed: int) -> tuple[list[torch.Tensor], dict]:
         """Phase 1: the loss and its gradient w.r.t. every leaf (zeros where
         unused); on a data-parallel rank, over its rows of the global batch,
         then the gradients and the metrics averaged over ranks."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        leaves = state.leaves()
-        if not initialized():
-            loss, metrics = self.loss_fn(state.params, batch, gen)
-        else:
-            rows = len(next(iter(batch.values())))
-            with batch_shard(process_index() * rows, process_count() * rows):
+        with span("train.forward_backward"):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            leaves = state.leaves()
+            if not initialized():
                 loss, metrics = self.loss_fn(state.params, batch, gen)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        if initialized():
-            all_reduce_mean_(grads)
-            values = [v.detach().float().reshape(1) for v in metrics.values()]
-            all_reduce_mean_(values)
-            metrics = {k: v[0] for k, v in zip(metrics, values, strict=True)}
-        return grads, metrics
+            else:
+                rows = len(next(iter(batch.values())))
+                with batch_shard(process_index() * rows, process_count() * rows):
+                    loss, metrics = self.loss_fn(state.params, batch, gen)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            if initialized():
+                all_reduce_mean_(grads)
+                values = [v.detach().float().reshape(1) for v in metrics.values()]
+                all_reduce_mean_(values)
+                metrics = {k: v[0] for k, v in zip(metrics, values, strict=True)}
+            return grads, metrics
 
     def apply(self, state: TrainState, grads: list[torch.Tensor]) -> dict:
         """Phase 2: clip, optimizer update and EMA, in place; with
@@ -415,24 +418,32 @@ class Trainer:
         clip (the JAX package's :271-283)."""
         metrics = {}
         names = state.optimizer.names
-        if self.tc.grad_summaries:
-            metrics.update({f"grad_norm_pre_clip/{g}": n for g, n in grad_group_norms(names, grads).items()})
-        if self.tc.clip == "global_norm":
-            metrics["grad_norm"] = clip_by_global_norm(grads, self.tc.clip_value)
-        elif self.tc.clip == "value":
-            clip_by_value(grads, self.tc.clip_value)
-        if self.tc.grad_summaries and self.tc.clip != "none":
-            metrics.update({f"grad_norm_post_clip/{g}": n for g, n in grad_group_norms(names, grads).items()})
-        leaves = state.leaves()
-        state.optimizer.update(leaves, grads)
-        if state.ema is not None:
-            state.ema.update(leaves)
+        with span("train.optimizer"):
+            with span("optim.clip"):
+                if self.tc.grad_summaries:
+                    metrics.update({f"grad_norm_pre_clip/{g}": n for g, n in grad_group_norms(names, grads).items()})
+                if self.tc.clip == "global_norm":
+                    metrics["grad_norm"] = clip_by_global_norm(grads, self.tc.clip_value)
+                elif self.tc.clip == "value":
+                    clip_by_value(grads, self.tc.clip_value)
+                if self.tc.grad_summaries and self.tc.clip != "none":
+                    metrics.update({f"grad_norm_post_clip/{g}": n
+                                    for g, n in grad_group_norms(names, grads).items()})
+            leaves = state.leaves()
+            with span("optim.adam"):
+                state.optimizer.update(leaves, grads)
+            if state.ema is not None:
+                with span("optim.ema"):
+                    state.ema.update(leaves)
         return metrics
 
     def train_step(self, state: TrainState, batch: dict[str, np.ndarray], seed: int) -> dict:
-        """One step on a host batch; -> metrics as 0-d device tensors."""
-        grads, metrics = self.grads(state, self.to_device(batch), seed)
-        metrics.update(self.apply(state, grads))
+        """One step on a host batch; -> metrics as 0-d device tensors. Spans
+        ``train.step`` around ``train.h2d``, ``train.forward_backward`` and
+        ``train.optimizer`` (``optim.clip``, ``optim.adam``, ``optim.ema``)."""
+        with span("train.step"):
+            grads, metrics = self.grads(state, self.to_device(batch), seed)
+            metrics.update(self.apply(state, grads))
         return metrics
 
     def eval_params(self, state: TrainState) -> Params:
