@@ -4,12 +4,14 @@ port of the JAX package's ``data/fast_pipeline.py``).
 The per-example Python path (``pipeline.py``) is the readable reference;
 this path feeds the card at a higher rate:
 
-* the C++ library decodes a whole TSV buffer into dense arrays
-  (``native/preproc.cpp``),
+* the files are cut into line-aligned byte spans (``chunk_spans``), which a
+  pool of threads reads, decodes with the C++ library into dense arrays
+  (``native/preproc.cpp``) and featurizes, a bounded few spans ahead of the
+  batches,
 * box-label token ids come from a precomputed [num_label_ids, 8] lookup
   table (one gather instead of per-box tokenizer calls),
-* queries are tokenized once per *unique* string (testB has ~500 unique
-  queries across 29k rows), after the sen2forest rewrite where the
+* queries are tokenized once per *unique* string of a span (testB has ~500
+  unique queries across 29k rows), after the sen2forest rewrite where the
   featurizer has it (ImageBERT-C).
 
 It yields the same fixed-shape batches as ``Featurizer``, bit for bit
@@ -18,6 +20,10 @@ It yields the same fixed-shape batches as ``Featurizer``, bit for bit
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
+import os
+from pathlib import Path
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -26,6 +32,9 @@ from ..utils.observability import span
 from .featurize import SEGMENT_IDS_B, Featurizer, pad_batch
 from .native import parse_pairs_native
 from .tsv import MAX_BOXES, MAX_LABEL_TOKENS, MAX_QUERY_LEN_AB, MAX_QUERY_LEN_L, rewrite_sen2forest
+
+SPAN_BYTES = 8 << 20  # ~140 testB-sized rows; measured against 4-32 MB on the card's host (PERF.md §6)
+LOADER_THREADS = max(1, min(8, os.cpu_count() or 1) - 1)  # the main thread, which drives the card, keeps a core
 
 
 def build_label_lut(featurizer: Featurizer) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -63,14 +72,16 @@ def _tokenize_queries(featurizer: Featurizer, queries: list[str], max_len: int) 
     return out, lens
 
 
-def featurize_raw(raw: dict, featurizer: Featurizer, layout: str) -> dict[str, np.ndarray]:
+def featurize_raw(raw: dict, featurizer: Featurizer, layout: str, label_lut=None) -> dict[str, np.ndarray]:
     """Native-parser output -> the featurized arrays of a model layout (the
     fields of the per-example ``Featurizer`` path, unsliced): the unit of work
     a loader worker ships back whole (``multiworker.py``);
     ``assemble_batches`` slices it. ``layout`` is the featurizer layout
-    (``imagebert_c`` is ``imagebert_b``'s, its rewrite the featurizer's flag)."""
+    (``imagebert_c`` is ``imagebert_b``'s, its rewrite the featurizer's flag).
+    ``label_lut`` is ``build_label_lut(featurizer)``, built here if not given
+    (a caller that featurizes many spans builds it once)."""
     n = len(raw["product_id"])
-    label_lut, label_mask_lut, label_lens_lut = build_label_lut(featurizer)
+    label_lut, label_mask_lut, label_lens_lut = label_lut if label_lut is not None else build_label_lut(featurizer)
     clipped = np.clip(raw["class_labels"], 0, len(label_lut) - 1)
     box_valid = np.arange(MAX_BOXES)[None, :] < np.minimum(raw["num_boxes"], MAX_BOXES)[:, None]  # [N, 10]
     # label rows past num_boxes are all-zero ids (the per-example path never
@@ -113,38 +124,62 @@ def featurize_raw(raw: dict, featurizer: Featurizer, layout: str) -> dict[str, n
     }
 
 
+def chunk_spans(paths, chunk_bytes: int) -> list[tuple[str, int, int]]:
+    """Split files into (path, start, end) byte spans at line boundaries. The
+    split is a function of (paths, chunk_bytes) alone, never of the worker
+    count or the pool's size, which is what makes the loaders' output
+    deterministic."""
+    spans: list[tuple[str, int, int]] = []
+    for path in paths:
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            start = 0
+            while start < size:
+                target = start + chunk_bytes
+                if target >= size:
+                    end = size
+                else:
+                    f.seek(target)
+                    f.readline()  # on to the next line boundary
+                    end = f.tell()
+                spans.append((str(Path(path)), start, end))
+                start = end
+    return spans
+
+
+def _concat(parts: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    return {k: np.concatenate([p[k] for p in parts], axis=0) for k in parts[0]}
+
+
 def rebatch(fulls: Iterable[dict], batch_size: int, stats=None) -> Iterator[dict[str, np.ndarray]]:
     """Featurized arrays of consecutive parts (files, or a file's byte spans)
     -> fixed-shape batches whose rows run on across the parts, with one padded
     tail: the batches of the per-example path over the same rows, whatever
-    the parts. ``stats`` (a ``PipelineStats``) counts the batches; span
-    ``loader.batch`` is the assembly of each (and the join of parts)."""
-    carry: list[dict[str, np.ndarray]] = []
+    the parts. A batch inside one part is a view of it; a batch that straddles
+    parts copies its own rows only. ``stats`` (a ``PipelineStats``) counts the
+    batches; span ``loader.batch`` is the assembly of each."""
+    carry: list[dict[str, np.ndarray]] = []  # the rows not yet batched, as views of their parts
     rows = 0
     for full in fulls:
         n = len(next(iter(full.values()))) if full else 0
-        if n == 0:
-            continue
-        carry.append(full)
-        rows += n
-        if rows < batch_size:
-            continue
-        with span("loader.batch"):
-            whole = {k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]} if len(carry) > 1 else full
-        n_emit = rows // batch_size * batch_size
-        for start in range(0, n_emit, batch_size):
+        start = 0
+        while n - start >= batch_size - rows:
+            take = batch_size - rows
+            with span("loader.batch"):
+                head = {k: v[start : start + take] for k, v in full.items()}
+                batch = pad_batch(_concat([*carry, head]) if carry else head, batch_size)
+            carry, rows, start = [], 0, start + take
             if stats is not None:
                 stats.batches += 1
-            with span("loader.batch"):
-                batch = pad_batch({k: v[start : start + batch_size] for k, v in whole.items()}, batch_size)
             yield batch
-        carry = [{k: v[n_emit:] for k, v in whole.items()}] if rows > n_emit else []
-        rows -= n_emit
+        if start < n:
+            carry.append({k: v[start:] for k, v in full.items()})
+            rows += n - start
     if rows:
         if stats is not None:
             stats.batches += 1
         with span("loader.batch"):
-            batch = pad_batch({k: np.concatenate([c[k] for c in carry], axis=0) for k in carry[0]}, batch_size)
+            batch = pad_batch(_concat(carry), batch_size)
         yield batch
 
 
@@ -154,25 +189,58 @@ def assemble_batches(raw: dict, featurizer: Featurizer, layout: str,
     return rebatch([featurize_raw(raw, featurizer, layout)], batch_size)
 
 
+def _load_span(path: str, start: int, end: int, featurizer: Featurizer, layout: str,
+               label_lut) -> tuple[dict[str, np.ndarray], int, int]:
+    """One byte span read, parsed on this thread and featurized -> (its arrays, rows parsed, parse errors)."""
+    with span("loader.read"), open(path, "rb") as f:
+        f.seek(start)
+        buf = f.read(end - start)
+    with span("loader.parse"):
+        raw = parse_pairs_native(buf, n_threads=1)
+    del buf
+    with span("loader.featurize"):
+        full = featurize_raw(raw, featurizer, layout, label_lut)
+    return full, len(raw["product_id"]), raw["n_errors"]
+
+
 def native_batches_from_files(paths, featurizer: Featurizer, layout: str, batch_size: int,
                               stats=None) -> Iterator[dict[str, np.ndarray]]:
-    """The files parsed whole by the native parser, one after another, and
-    batched as one stream; ``stats`` (a ``PipelineStats``) counts parsed rows,
-    parse errors and batches. Spans ``loader.read``, ``loader.parse`` and
-    ``loader.featurize`` for each file."""
+    """The files cut into line-aligned byte spans of about ``SPAN_BYTES``
+    (``chunk_spans``), each read, parsed by the native parser and featurized on
+    one pool of ``LOADER_THREADS`` threads, and batched in file order as one
+    stream: the batches of the whole files parsed at once, bit for bit. At most
+    as many spans as the pool has threads are in flight (submitted and not yet
+    handed to ``rebatch``), so a pass's first batch leaves after its first span,
+    later spans parse while the caller uses it, and the host memory held is
+    bounded by the pool, not by the files.
+
+    ``stats`` (a ``PipelineStats``) counts parsed rows, parse errors and
+    batches. Spans ``loader.read``, ``loader.parse`` and ``loader.featurize``
+    for each byte span, on the pool's threads. A span's error is raised here;
+    closing the generator cancels the spans not yet started and joins the
+    pool's threads."""
+    spans = iter(chunk_spans(paths, SPAN_BYTES))
+    label_lut = build_label_lut(featurizer)
+    pool = cf.ThreadPoolExecutor(LOADER_THREADS, thread_name_prefix="kmr-loader")
+    ahead: collections.deque[cf.Future] = collections.deque()
+
+    def submit_next() -> None:
+        nxt = next(spans, None)
+        if nxt is not None:
+            ahead.append(pool.submit(_load_span, *nxt, featurizer, layout, label_lut))
 
     def fulls():
-        for path in paths:
-            with span("loader.read"), open(path, "rb") as f:
-                buf = f.read()
-            with span("loader.parse"):
-                raw = parse_pairs_native(buf)
-            del buf
+        for _ in range(LOADER_THREADS):
+            submit_next()
+        while ahead:
+            full, parsed, errors = ahead.popleft().result()
             if stats is not None:
-                stats.parsed += len(raw["product_id"])
-                stats.errors += raw["n_errors"]
-            with span("loader.featurize"):
-                full = featurize_raw(raw, featurizer, layout)
+                stats.parsed += parsed
+                stats.errors += errors
             yield full
+            submit_next()
 
-    return rebatch(fulls(), batch_size, stats)
+    try:
+        yield from rebatch(fulls(), batch_size, stats)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)

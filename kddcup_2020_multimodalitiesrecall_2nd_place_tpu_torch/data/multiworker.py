@@ -37,12 +37,11 @@ import sys
 import threading
 import traceback
 import types
-from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 
-from .fast_pipeline import featurize_raw, rebatch
+from .fast_pipeline import chunk_spans, featurize_raw, rebatch
 from .featurize import Featurizer, stack_examples
 from .native import get_lib, parse_pairs_native
 from .pipeline import PipelineStats, iter_examples
@@ -120,28 +119,6 @@ def _shm_sweep(pids) -> None:
         for name in os.listdir("/dev/shm"):
             if name.startswith(prefixes):
                 _shm_drop(name)
-
-
-def chunk_spans(paths, chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> list[tuple[str, int, int]]:
-    """Split files into (path, start, end) byte spans at line boundaries. The
-    split is a function of (paths, chunk_bytes) alone, never of the worker
-    count, which is what makes the loader's output deterministic."""
-    spans: list[tuple[str, int, int]] = []
-    for path in paths:
-        size = os.path.getsize(path)
-        with open(path, "rb") as f:
-            start = 0
-            while start < size:
-                target = start + chunk_bytes
-                if target >= size:
-                    end = size
-                else:
-                    f.seek(target)
-                    f.readline()  # on to the next line boundary
-                    end = f.tell()
-                spans.append((str(Path(path)), start, end))
-                start = end
-    return spans
 
 
 def featurize_span(path: str, start: int, end: int, featurizer: Featurizer, layout: str,

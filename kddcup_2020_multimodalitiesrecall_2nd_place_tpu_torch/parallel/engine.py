@@ -151,8 +151,9 @@ class ScoringEngine:
         The host loader, each behind a prefetch thread, yields the same batches
         bit for bit: ``num_workers > 0`` parses and featurizes in that many
         worker processes (``data/multiworker.py``); otherwise ``use_native``
-        (the default) parses with the native library inline
-        (``data/fast_pipeline.py``), and ``use_native=False`` runs the
+        (the default) parses with the native library inline, byte span by
+        byte span on a pool of threads (``data/fast_pipeline.py``), and
+        ``use_native=False`` runs the
         per-example Python path. A native library that cannot be built raises;
         no loader is swapped for another."""
         stats = stats if stats is not None else ScoringStats()

@@ -5,10 +5,11 @@ per pipeline stage (where the JAX package opens ``jax.profiler``'s), a
 device-trace scope, and the program's own spans and counters.
 
 Spans and counters. ``span(name)`` marks the hot path's layers where the
-work happens: the entry (``score.files``, ``train.step``), the host loader on
-its prefetch thread (``loader.read``, ``loader.parse``, ``loader.featurize``,
-``loader.batch``) and the main thread's wait on it (``loader.wait``), the
-packed gather (``packed.gather``), the copies (``engine.h2d``,
+work happens: the entry (``score.files``, ``train.step``), the host loader
+(``loader.read``, ``loader.parse``, ``loader.featurize``, one set a byte span
+on its pool's threads, and ``loader.batch`` on its prefetch thread) and the
+main thread's wait on it (``loader.wait``), the packed gather
+(``packed.gather``), the copies (``engine.h2d``,
 ``engine.d2h``, ``train.h2d``), the model step (``engine.forward``,
 ``train.forward_backward``, ``train.optimizer`` and its ``optim.*``) and the
 blocks (``block.*``); ``count(name, n)`` adds to a named counter (the scoring
@@ -20,7 +21,7 @@ records its name, thread, start and end (``time.perf_counter_ns``) and the
 index of its parent span on the same thread into one process-wide ``Meter``,
 and opens a ``record_function`` range of its name, so the main thread's spans
 appear in the device trace. The profiler keeps the ranges of the thread that
-started it (and of autograd's) only, so the loader thread's spans live in the
+started it (and of autograd's) only, so the loader threads' spans live in the
 record alone; ``device_profile`` writes every span into its trace file on the
 trace's clock. Each profiler session starts a fresh record; ``recorded()``
 reads the current or last one.

@@ -9,14 +9,16 @@ failed build raising rather than falling back to the Python path."""
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch import BUILD_DIR, PACKAGE_ROOT, VOCAB_PATH
-from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import Featurizer, iter_batches
-from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import native
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import Featurizer, PrefetchIterator, iter_batches
+from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import fast_pipeline, native
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.fast_pipeline import (
     assemble_batches,
     native_batches_from_files,
@@ -61,13 +63,20 @@ def test_parse_pairs_matches_jax(n, threads):
     assert native.count_rows(buf) == n + 2  # the header is no row; the two bad ones are
 
 
+# byte spans of the streamed loader: the default (one span a file here), one line each (the header
+# and the malformed row alone, and every batch boundary on a span boundary), and a few rows each
+SPANS = {"whole-file": fast_pipeline.SPAN_BYTES, "a-span-a-line": 1, "few-rows-a-span": 200_000}
+
+
+@pytest.mark.parametrize("spans", list(SPANS))
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_native_batches_match_featurizer_and_jax(layout, tmp_path):
+def test_native_batches_match_featurizer_and_jax(layout, spans, tmp_path, monkeypatch):
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.data import Featurizer as JaxFeaturizer
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.data.fast_pipeline import (
         native_batches_from_files as jax_native_batches,
     )
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.tokenization import FullTokenizer as JaxTokenizer
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import PipelineStats
 
     style = "hf_style" if layout == "lxmert" else "google_style"
     fz = Featurizer(getattr(FullTokenizer, style)(VOCAB_PATH), SYNTHETIC_LABELS, sen2forest=layout == "imagebert_c")
@@ -75,30 +84,39 @@ def test_native_batches_match_featurizer_and_jax(layout, tmp_path):
                         sen2forest=layout == "imagebert_c")
     lines = make_testb_tsv(45, seed=11, pairs_per_query=7)  # the trigger, shared products, a bad row
     p = tmp_path / "t.tsv"
-    p.write_text("\n".join(lines) + "\n")
+    p.write_text("\n".join(lines) + ("" if spans == "a-span-a-line" else "\n"))  # and a last line with no newline
 
-    slow = list(iter_batches(lines, fz.for_model(layout), 8))
-    fast = list(native_batches_from_files([p], fz, layout, 8))
+    slow_stats, fast_stats = PipelineStats(), PipelineStats()
+    slow = list(iter_batches(lines, fz.for_model(layout), 8, slow_stats))
+    monkeypatch.setattr(fast_pipeline, "SPAN_BYTES", SPANS[spans])
+    fast = list(native_batches_from_files([p], fz, layout, 8, fast_stats))
     jax_fast = list(jax_native_batches([p], jfz, layout, 8))
     assert len(slow) == len(fast) == len(jax_fast) == 6
     for s, f, j in zip(slow, fast, jax_fast):
         _arrays_equal(f, s)
         _arrays_equal(f, j)
+    assert (fast_stats.parsed, fast_stats.errors, fast_stats.batches) == (45, 1, 6)
+    assert (slow_stats.parsed, slow_stats.errors, slow_stats.batches) == (45, 1, 6)
 
 
-def test_files_batch_as_one_stream(tmp_path):
-    """Two files batch like their rows in one stream (one padded tail), and the
-    stats count rows, errors and batches as the per-example path does."""
+@pytest.mark.parametrize("spans", list(SPANS))
+def test_files_batch_as_one_stream(spans, tmp_path, monkeypatch):
+    """Two files batch like their rows in one stream (one padded tail), whatever
+    their byte spans, and the stats count rows, errors and batches as the
+    per-example path does."""
     from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data import PipelineStats
 
     fz = Featurizer(FullTokenizer.google_style(VOCAB_PATH), SYNTHETIC_LABELS)
     parts = [_tsv_bytes(5, seed=1, bad_at=(3,)).decode(), _tsv_bytes(6, seed=2, bad_at=()).decode()]
+    if spans == "a-span-a-line":
+        parts[0] = parts[0].rstrip("\n")  # a first file whose last line has no newline
     paths = []
     for i, text in enumerate(parts):
         paths.append(tmp_path / f"{i}.tsv")
         paths[-1].write_text(text)
     slow_stats, fast_stats = PipelineStats(), PipelineStats()
-    slow = list(iter_batches("".join(parts).splitlines(keepends=True), fz.imagebert_a, 4, slow_stats))
+    slow = list(iter_batches([ln for text in parts for ln in text.splitlines()], fz.imagebert_a, 4, slow_stats))
+    monkeypatch.setattr(fast_pipeline, "SPAN_BYTES", SPANS[spans])
     fast = list(native_batches_from_files(paths, fz, "imagebert_a", 4, stats=fast_stats))
     assert len(fast) == len(slow) == 3
     for s, f in zip(slow, fast):
@@ -107,6 +125,97 @@ def test_files_batch_as_one_stream(tmp_path):
     assert (slow_stats.parsed, slow_stats.errors, slow_stats.batches) == (11, 1, 3)
     one = native.parse_pairs_native(paths[1].read_bytes())
     assert len(list(assemble_batches(one, fz, "imagebert_a", 4))) == 2
+
+
+@pytest.fixture
+def spanned(tmp_path, monkeypatch):
+    """A 40-row file cut into one-row byte spans (the header rides with the first), and the streamed
+    loader's span parse and its hand-over to ``rebatch`` wrapped with counters: -> (path, featurizer,
+    number of spans, the counts). ``counts["in_flight"]`` takes, at each parse, the spans started and not
+    yet handed over; a parse of a buffer holding ``corrupt`` raises."""
+    lines = make_tsv(40, seed=3)
+    path = tmp_path / "many.tsv"
+    path.write_text("\n".join(lines) + "\n")
+    span_bytes = len(lines[0]) + 2
+    n_spans = len(fast_pipeline.chunk_spans([path], span_bytes))
+    monkeypatch.setattr(fast_pipeline, "SPAN_BYTES", span_bytes)
+    assert n_spans == 40 > fast_pipeline.LOADER_THREADS + 1
+    counts = {"parsed": 0, "handed": 0, "in_flight": []}
+    lock = threading.Lock()
+    parse, rebatch = fast_pipeline.parse_pairs_native, fast_pipeline.rebatch
+
+    def counted_parse(buf, n_threads=None):
+        with lock:
+            counts["parsed"] += 1
+            counts["in_flight"].append(counts["parsed"] - counts["handed"])
+        if b"corrupt" in buf:
+            raise ValueError("a corrupt span")
+        return parse(buf, n_threads)
+
+    def counted_rebatch(fulls, *args):
+        def handed():
+            for full in fulls:
+                with lock:
+                    counts["handed"] += 1
+                yield full
+        return rebatch(handed(), *args)
+
+    monkeypatch.setattr(fast_pipeline, "parse_pairs_native", counted_parse)
+    monkeypatch.setattr(fast_pipeline, "rebatch", counted_rebatch)
+    fz = Featurizer(FullTokenizer.google_style(VOCAB_PATH), SYNTHETIC_LABELS)
+    return path, fz, n_spans, counts
+
+
+def _loader_threads(before=frozenset()) -> set[threading.Thread]:
+    """The loader pools' threads alive now that were not in ``before``."""
+    return {t for t in threading.enumerate() if t.name.startswith("kmr-loader")} - before
+
+
+def test_the_stream_keeps_at_most_a_pool_of_spans_in_flight(spanned):
+    """The first batch leaves after one span, with no more spans parsed than the pool has threads, and
+    no more than that are ever in flight; every span is parsed once, and the rows come in file order."""
+    path, fz, n_spans, counts = spanned
+    threads = fast_pipeline.LOADER_THREADS
+    before = _loader_threads()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # the interpreter passes between the threads as often as it can
+    try:
+        stream = native_batches_from_files([path], fz, "imagebert_a", 1)
+        first = next(stream)
+        time.sleep(0.2)  # a suspended stream starts no span, however long its consumer takes
+        assert counts["parsed"] <= threads and len(_loader_threads(before)) <= threads
+        rest = list(stream)
+    finally:
+        sys.setswitchinterval(interval)
+    assert counts["parsed"] == counts["handed"] == n_spans
+    assert max(counts["in_flight"]) <= threads
+    want = native.parse_pairs_native(path.read_bytes())["product_id"]
+    assert [int(b["product_id"][0]) for b in [first, *rest]] == want.tolist()
+    assert not _loader_threads(before)
+
+
+def test_a_span_error_is_raised_in_the_consumer(spanned):
+    path, fz, _, counts = spanned
+    text = path.read_text().splitlines()
+    text[25] = "corrupt\t" + text[25]
+    path.write_text("\n".join(text) + "\n")
+    before = _loader_threads()
+    stream = native_batches_from_files([path], fz, "imagebert_a", 4)
+    with pytest.raises(ValueError, match="a corrupt span"):
+        list(PrefetchIterator(stream))
+    assert 25 <= counts["parsed"] <= 25 + fast_pipeline.LOADER_THREADS
+    assert not _loader_threads(before)
+
+
+def test_closing_the_stream_leaves_no_loader_thread(spanned):
+    path, fz, n_spans, counts = spanned
+    before = set(threading.enumerate())
+    stream = native_batches_from_files([path], fz, "imagebert_a", 1)
+    next(stream)
+    assert _loader_threads(before)
+    stream.close()
+    assert set(threading.enumerate()) <= before
+    assert counts["parsed"] <= fast_pipeline.LOADER_THREADS < n_spans  # the rest was never started
 
 
 def test_library_lands_under_build():

@@ -182,8 +182,10 @@ def test_scoring_a_tiny_tsv_fires_each_span_once_a_batch(scored):
     for s in rec["spans"]:
         by_name.setdefault(s.name, set()).add(s.thread)
     assert by_name["loader.wait"] == by_name["engine.forward"] == by_name["score.files"] == {main}
-    loader = by_name["loader.read"] | by_name["loader.parse"] | by_name["loader.featurize"] | by_name["loader.batch"]
-    assert len(loader) == 1 and main not in loader
+    # one byte span: one pool thread reads, parses and featurizes it; the prefetch thread batches it
+    per_span = by_name["loader.read"] | by_name["loader.parse"] | by_name["loader.featurize"]
+    assert len(per_span) == len(by_name["loader.batch"]) == 1 and per_span != by_name["loader.batch"]
+    assert main not in per_span | by_name["loader.batch"]
     top = rec["spans"][[s.name for s in rec["spans"]].index("score.files")]
     assert all(rec["spans"][s.parent].name == "score.files" for s in rec["spans"] if s.name == "loader.wait")
     assert all(top.start_ns <= s.start_ns and s.end_ns <= top.end_ns for s in rec["spans"] if s.thread == main)
