@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import span
 from .attention import merge_heads, mha_xla, split_heads
 from .attention_block import attention_bias, mha_bias
 from .kernels import layernorm_plain
@@ -41,15 +42,17 @@ from .library import attn_core_cross, gemm, layernorm
 def cross_attention_block(x, ctx, wq, bq, wkv, bkv, wo, bo, gamma, beta, num_heads: int,
                           bias=None, eps: float = 1e-12) -> torch.Tensor:
     """x [B, F, H], ctx [B, T, H] (bf16 on CUDA), bias masking ctx's keys
-    ([B, T] or [B, 1, 1, T]) or a full [B, 1, F, T] one -> [B, F, H] in x's dtype."""
+    ([B, T] or [B, 1, 1, T]) or a full [B, 1, F, T] one -> [B, F, H] in x's dtype;
+    span ``block.cross_attention``."""
     b, f, h = x.shape
     t = ctx.shape[1]
-    x2d = x.reshape(b * f, h)
-    q = gemm(x2d, wq, bq, "bias")
-    kv = gemm(ctx.reshape(b * t, h), wkv, bkv, "bias")
-    o = attn_core_cross(q, kv, attention_bias(bias, b, f, t), b, f, t, num_heads)
-    y = gemm(o, wo, bo, "residual", residual=x2d)
-    out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
+    with span("block.cross_attention"):
+        x2d = x.reshape(b * f, h)
+        q = gemm(x2d, wq, bq, "bias")
+        kv = gemm(ctx.reshape(b * t, h), wkv, bkv, "bias")
+        o = attn_core_cross(q, kv, attention_bias(bias, b, f, t), b, f, t, num_heads)
+        y = gemm(o, wo, bo, "residual", residual=x2d)
+        out = layernorm(y, gamma, beta, eps, out_dtype=x.dtype)
     if x.is_cuda:
         cross_attention_block.launches += 1
     return out.reshape(b, f, h)

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import span
 from .attention_block import key_bias_rows
 from .cross_attention_block import cross_attention_block_plain
 from .library import attn_core_dual, gemm, layernorm
@@ -40,20 +41,22 @@ def dual_cross_attention_block(l, v, wqkv, bqkv, wo, bo, gamma, beta, num_heads:
                                lang_bias=None, visn_bias=None,
                                eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
     """l [B, F, H], v [B, T, H] (bf16 on CUDA); lang_bias [B, F] and visn_bias
-    [B, T] (or [B, 1, 1, S]) key masks, both or neither -> (lang_out, visn_out)."""
+    [B, T] (or [B, 1, 1, S]) key masks, both or neither -> (lang_out, visn_out);
+    span ``block.dual_cross_attention``."""
     if (lang_bias is None) != (visn_bias is None):
         raise ValueError("dual_cross_attention_block takes both key masks or neither")
     b, f, h = l.shape
     t = v.shape[1]
-    l2d, v2d = l.reshape(b * f, h), v.reshape(b * t, h)
-    lqkv = gemm(l2d, wqkv, bqkv, "bias")
-    vqkv = gemm(v2d, wqkv, bqkv, "bias")
-    ctx_l, ctx_v = attn_core_dual(lqkv, vqkv, key_bias_rows(lang_bias, b, f),
-                                  key_bias_rows(visn_bias, b, t), b, f, t, num_heads)
-    outs = []
-    for ctx, x2d, rows in ((ctx_l, l2d, f), (ctx_v, v2d, t)):
-        y = gemm(ctx, wo, bo, "residual", residual=x2d)
-        outs.append(layernorm(y, gamma, beta, eps, out_dtype=l.dtype).reshape(b, rows, h))
+    with span("block.dual_cross_attention"):
+        l2d, v2d = l.reshape(b * f, h), v.reshape(b * t, h)
+        lqkv = gemm(l2d, wqkv, bqkv, "bias")
+        vqkv = gemm(v2d, wqkv, bqkv, "bias")
+        ctx_l, ctx_v = attn_core_dual(lqkv, vqkv, key_bias_rows(lang_bias, b, f),
+                                      key_bias_rows(visn_bias, b, t), b, f, t, num_heads)
+        outs = []
+        for ctx, x2d, rows in ((ctx_l, l2d, f), (ctx_v, v2d, t)):
+            y = gemm(ctx, wo, bo, "residual", residual=x2d)
+            outs.append(layernorm(y, gamma, beta, eps, out_dtype=l.dtype).reshape(b, rows, h))
     if l.is_cuda:
         dual_cross_attention_block.launches += 1
     return outs[0], outs[1]

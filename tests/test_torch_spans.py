@@ -3,9 +3,11 @@ profiler running a span reads a flag and nothing else; under
 ``torch.profiler`` the record (names, threads, parents, times, counters), the
 loader thread's spans, a fresh record a session; the spans and counters of
 the scoring and training paths on a tiny TSV and a tiny packed shard;
-``device_profile``'s trace with the spans on its clock; and the benchmark's
+``device_profile``'s trace with the spans on its clock; the benchmark's
 five readers of them (``portbench/metrics/``), over the program's record and
-over spans taken from outside a program that keeps none."""
+over spans taken from outside a program that keeps none; and LXMERT's cross
+blocks, their spans, the reader of their share and the bridge that spans
+them from outside a program whose blocks open none."""
 
 import json
 import math
@@ -33,6 +35,10 @@ from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.tokenization import F
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.train import Trainer
 from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.utils import observability as obs
 from portbench import harness
+from portbench.entries import score_stream_lxmert
+from portbench.reference.tokenizer import Tokenizer
+from portbench.yardstick import lxmert as bench_lxmert
+from portbench.yardstick import packed as bench_packed
 from portbench.yardstick import spans as bench_spans
 from torch_parity import TINY, imagebert_b_batch
 
@@ -351,3 +357,78 @@ def test_a_program_without_its_record_gets_the_spans_from_outside(outside, tmp_p
     assert names["packed.gather"] == names["train.forward_backward"] == names["train.optimizer"] == 2
     for name in ("packed.gather_ms.train", "host.enqueue_us_per_kernel.train"):
         assert math.isfinite(_read(name, ctx)), name
+
+
+LXMERT_TINY = {**TINY, "l_layers": 1, "r_layers": 1, "x_layers": 2}
+
+
+@pytest.fixture(scope="module")
+def lxmert_scorer():
+    """A tiny LXMERT on the blocks' route (each kernel's plain version on the CPU) and one batch of the
+    benchmark's LXMERT cell."""
+    spec = get_model("lxmert", overrides=LXMERT_TINY)
+    engine = ScoringEngine(spec, spec.init_params(0), device="cpu", attention_backend="pallas_packed")
+    tok = Tokenizer()
+    lut, _ = bench_packed.label_lut(lambda text: list(tok.pieces(text)))
+    traffic = {"batches": 1, "batch_size": 4, "pairs_per_query": 2, "min_boxes": 1, "max_boxes": 10}
+    return engine, bench_lxmert.make_batches(traffic, 3, tok.query_ids, lut)[0]
+
+
+def _profiled_forward(engine, batch) -> dict:
+    before = obs.recorded()
+    engine.score_batch(batch)  # no profiler: nothing recorded
+    assert obs.recorded()["spans"] == before["spans"]
+    with _profiled():
+        engine.score_batch(batch)
+    return obs.recorded()
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_a_tiny_lxmert_forward_records_its_cross_blocks(lxmert_scorer, monkeypatch, dual):
+    engine, batch = lxmert_scorer
+    if dual:
+        monkeypatch.setenv("KMR_DUAL_CROSS", "1")
+    else:
+        monkeypatch.delenv("KMR_DUAL_CROSS", raising=False)
+    rec = _profiled_forward(engine, batch)
+    names = Counter(s.name for s in rec["spans"])
+    x = LXMERT_TINY["x_layers"]
+    assert names["block.cross_attention"] == (0 if dual else 2 * x)
+    assert names["block.dual_cross_attention"] == (x if dual else 0)
+    assert names["engine.forward"] == 1 and names["block.attention"] == names["block.ffn"] == 1 + 1 + 2 * x
+    forward = [s.name for s in rec["spans"]].index("engine.forward")
+    assert all(s.parent == forward for s in rec["spans"] if s.name.startswith("block."))
+
+    monkeypatch.setattr(obs, "recorded", lambda: rec)
+    share = _read("cross.enqueue_share.score", _ctx(1.0))
+    if dual:
+        assert share is None  # no cross block ran: nothing to read
+    else:
+        cross = sum(s.end_ns - s.start_ns for s in rec["spans"] if s.name == "block.cross_attention")
+        assert share == pytest.approx(100 * cross / (rec["spans"][forward].end_ns - rec["spans"][forward].start_ns))
+        assert 0 < share < 100
+
+
+def test_the_cross_share_is_an_entry_of_the_benchmark_for_the_lxmert_cell():
+    m = {m["name"]: m for m in harness.load_benchmark()["per_layer"]}["cross.enqueue_share.score"]
+    assert m["workloads"] == ["lxmert.score_staged"] and m["source"] == "program_span"
+    assert m["layer"] == "blocks" and m["moves"] == "score_pairs_per_s" and m["better"] == "lower"
+
+
+def test_a_program_whose_cross_block_opens_no_span_gets_it_from_outside(lxmert_scorer, monkeypatch):
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import lxmert as model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.ops.cross_attention_block import (
+        cross_attention_block_plain,
+    )
+
+    engine, batch = lxmert_scorer
+    monkeypatch.delenv("KMR_DUAL_CROSS", raising=False)
+    assert not score_stream_lxmert.span_cross_blocks_from_outside()  # this program's block opens its span
+    monkeypatch.setattr(model, "KERNEL_BLOCKS", model.KERNEL_BLOCKS._replace(cross=cross_attention_block_plain))
+    assert Counter(s.name for s in _profiled_forward(engine, batch)["spans"])["block.cross_attention"] == 0
+    assert score_stream_lxmert.span_cross_blocks_from_outside()
+    assert not score_stream_lxmert.span_cross_blocks_from_outside()  # wrapped once
+    rec = _profiled_forward(engine, batch)
+    assert Counter(s.name for s in rec["spans"])["block.cross_attention"] == 2 * LXMERT_TINY["x_layers"]
+    monkeypatch.setattr(obs, "recorded", lambda: rec)
+    assert 0 < _read("cross.enqueue_share.score", _ctx(1.0)) < 100
