@@ -2,9 +2,17 @@
 
 Fixed batch shape (the tail padded, with a ``valid`` mask), parameters
 resident on the device, and one batch in flight: batch N+1 is launched
-before batch N's scores are copied back, so the host loader (behind a
+before batch N's scores are read back, so the host loader (behind a
 prefetch thread: the native parser inline, N loader processes, or the
-per-example Python path), the device and the copy overlap.
+per-example Python path) overlaps the device. On CUDA, ``score_stream``
+also takes the copies off the compute stream, through a ring of two slots
+(``_Slot``): each batch is staged into a slot's pinned host buffers while
+the device runs the previous forward, copied to the slot's device buffers
+on a side stream that the forward waits for, and its scores are copied
+into pinned memory right after its own forward, ahead of the next one. So
+batch N+1's copy runs beside batch N's forward, and reading N's scores
+waits for N's forward alone. A CPU engine, and ``score_batch`` (one call,
+nothing to overlap), copy as before.
 
 Device policy: the engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` it raises, and it
@@ -73,10 +81,26 @@ class ScoringStats:
         return self.pairs / self.seconds if self.seconds > 0 else 0.0
 
 
+class _Slot:
+    """One slot of ``score_stream``'s ring on CUDA: pinned host and device buffers for a batch's inputs (made
+    for one ``layout`` of keys, shapes and dtypes, and made again when it changes), a pinned buffer for its
+    scores, and the events that order their reuse."""
+
+    def __init__(self):
+        self.layout = None
+        self.host: dict[str, torch.Tensor] = {}
+        self.device: dict[str, torch.Tensor] = {}
+        self.scores: torch.Tensor | None = None
+        self.copied_in = torch.cuda.Event()  # the H2D from ``host`` into ``device`` is done
+        self.consumed = torch.cuda.Event()  # the forward that read ``device`` is done
+        self.copied_out = torch.cuda.Event()  # the scores are in ``scores``
+
+
 class ScoringEngine:
     """Pairwise scorer for one model on one device. Spans (``utils/observability.py``):
-    ``score.files``, ``loader.wait``, ``engine.h2d``, ``engine.forward``, ``engine.d2h``;
-    counter ``h2d.bytes``."""
+    ``score.files``, ``loader.wait``, ``engine.h2d``, ``engine.forward``, ``engine.d2h``, each
+    once a batch; counters ``h2d.bytes`` (the batches' input tensors) and, on CUDA in
+    ``score_stream``, ``h2d.pinned_bytes`` (those of them staged through the pinned ring)."""
 
     def __init__(self, model: ModelSpec, params, device=None, precision: Precision | None = None,
                  attention_backend: str | None = None):
@@ -89,6 +113,8 @@ class ScoringEngine:
             raise ValueError(f"unknown attention backend {attention_backend!r}, expected one of "
                              f"{attention.BACKENDS}")
         self.attention_backend = attention_backend
+        self._copy_stream = None  # CUDA: the side stream of score_stream's H2D, and its two slots
+        self._slots: tuple[_Slot, _Slot] | None = None
         self.update_params(params)
 
     @torch.no_grad()
@@ -107,37 +133,94 @@ class ScoringEngine:
         return out
 
     @torch.inference_mode()
-    def score_batch(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
-        """-> f32 scores [B] on the device (not yet synchronised)."""
-        feats = self.to_device(batch)
+    def _forward(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
         with span("engine.forward"), attention.attention_backend(self.attention_backend):
             return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
+
+    @torch.inference_mode()
+    def score_batch(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
+        """-> f32 scores [B] on the device (not yet synchronised)."""
+        return self._forward(self.to_device(batch))
+
+    def _stage(self, slot: _Slot, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The batch's inputs into ``slot``: copied into its pinned buffers on the host (torch's intra-op
+        threads; done on return, so the caller may reuse its arrays), then issued to its device buffers on
+        the copy stream, which the compute stream waits for. -> the device buffers."""
+        compute, copy = torch.cuda.current_stream(self.device), self._copy_stream
+        with span("engine.h2d"):
+            src = {k: torch.from_numpy(np.ascontiguousarray(batch[k])) for k in self.model.input_keys}
+            slot.copied_in.synchronize()  # the slot's last H2D has read its pinned buffers
+            layout = tuple((k, t.shape, t.dtype) for k, t in src.items())
+            if layout != slot.layout:
+                # a fresh device buffer may be memory that work queued on the compute stream still uses
+                copy.wait_stream(compute)
+                slot.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for k, t in src.items()}
+                slot.device = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device) for k, t in src.items()}
+                slot.layout = layout
+            for k, t in src.items():
+                slot.host[k].copy_(t)
+            with torch.cuda.stream(copy):
+                copy.wait_event(slot.consumed)  # the forward that last read the device buffers is done
+                for k, t in slot.host.items():
+                    slot.device[k].copy_(t, non_blocking=True)
+                slot.copied_in.record(copy)
+            compute.wait_event(slot.copied_in)
+        if tracing():
+            copied = sum(t.nbytes for t in slot.device.values())
+            count("h2d.bytes", copied)
+            count("h2d.pinned_bytes", copied)
+        return slot.device
+
+    def _score_pinned(self, slot: _Slot, batch: dict[str, np.ndarray]) -> tuple:
+        """Stage, forward and queue the scores' copy into ``slot``'s pinned buffer, ahead of the next
+        forward. -> ``_finish``'s pending tuple, the ids and mask copied so the caller may reuse its arrays."""
+        compute = torch.cuda.current_stream(self.device)
+        scores = self._forward(self._stage(slot, batch))
+        slot.consumed.record(compute)
+        if slot.scores is None or slot.scores.shape != scores.shape or slot.scores.dtype != scores.dtype:
+            slot.scores = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+        slot.scores.copy_(scores, non_blocking=True)
+        slot.copied_out.record(compute)
+        return (np.array(batch["query_id"]), np.array(batch["product_id"]), np.array(batch["valid"]),
+                slot.scores, slot.copied_out)
 
     def score_stream(
         self, batches: Iterable[dict], stats: ScoringStats | None = None
     ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """-> (query_ids, product_ids, scores) per batch, valid rows only;
-        span ``loader.wait`` is the time blocked on ``batches`` for each."""
+        span ``loader.wait`` is the time blocked on ``batches`` for each.
+        On CUDA each batch goes through the next slot of the two-slot ring
+        (``_score_pinned``); on the CPU through ``score_batch``."""
         stats = stats if stats is not None else ScoringStats()
-        pending = None  # (qid, pid, valid, device_scores)
+        if self.device.type == "cuda" and self._slots is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._slots = (_Slot(), _Slot())
+        pending = None  # _finish's (qid, pid, valid, scores, event the scores' copy records or None)
         batches = iter(batches)
+        n = 0
         while True:
             with span("loader.wait"):
                 batch = next(batches, None)
             if batch is None:
                 break
-            scores = self.score_batch(batch)
+            if self.device.type == "cuda":
+                current = self._score_pinned(self._slots[n % 2], batch)
+            else:
+                current = (batch["query_id"], batch["product_id"], batch["valid"], self.score_batch(batch), None)
+            n += 1
             if pending is not None:
                 yield self._finish(pending, stats)
-            pending = (batch["query_id"], batch["product_id"], batch["valid"], scores)
+            pending = current
         if pending is not None:
             yield self._finish(pending, stats)
 
     @staticmethod
     def _finish(pending, stats: ScoringStats):
-        qid, pid, valid, scores = pending
+        qid, pid, valid, scores, copied_out = pending
         with span("engine.d2h"):
-            scores = scores.float().cpu().numpy()[valid]  # waits for this batch only
+            if copied_out is not None:
+                copied_out.synchronize()  # this batch's forward and its scores' copy; the next forward runs on
+            scores = scores.float().cpu().numpy()[valid]
         stats.pairs += int(valid.sum())
         stats.batches += 1
         return qid[valid], pid[valid], scores

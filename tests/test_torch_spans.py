@@ -170,7 +170,8 @@ def scored(tmp_path_factory):
     seconds = time.perf_counter() - t0
     batches = list(native_batches_from_files([path], fz, spec.featurizer_layout, BATCH))
     assert sum(len(r) for r in result.values()) == stats.pairs == 45
-    return {"record": obs.recorded(), "stats": stats, "batches": batches, "spec": spec, "seconds": seconds}
+    return {"record": obs.recorded(), "stats": stats, "batches": batches, "spec": spec, "seconds": seconds,
+            "device": engine.device}
 
 
 def test_scoring_a_tiny_tsv_fires_each_span_once_a_batch(scored):
@@ -195,7 +196,9 @@ def test_scoring_a_tiny_tsv_fires_each_span_once_a_batch(scored):
     top = rec["spans"][[s.name for s in rec["spans"]].index("score.files")]
     assert all(rec["spans"][s.parent].name == "score.files" for s in rec["spans"] if s.name == "loader.wait")
     assert all(top.start_ns <= s.start_ns and s.end_ns <= top.end_ns for s in rec["spans"] if s.thread == main)
-    assert set(rec["counters"]) == {"h2d.bytes"}  # pairs, batches, rows and errors are ScoringStats' to count
+    # pairs, batches, rows and errors are ScoringStats' to count; the pinned ring's bytes are counted on CUDA only
+    pinned = {"h2d.pinned_bytes"} if scored["device"].type == "cuda" else set()
+    assert set(rec["counters"]) == {"h2d.bytes"} | pinned
     assert stats.pipeline.parsed == 45 and stats.pipeline.errors == 1
 
 
