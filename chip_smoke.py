@@ -148,14 +148,13 @@
    rows from the seed (~58 pairs a query, each product under 1-3 queries,
    the sen2forest trigger in a tenth of the queries, one malformed row that
    must count as a parse error): ImageBERT-A at full width scores it through
-   each host loader (the per-example Python path, the native parser inline,
-   ``MultiWorkerLoader`` at 2 and at W = max(2, min(8, os.cpu_count() // 2))
-   workers), with the launch counters set to 0 before each run and read after
-   it; each loader's rows/s alone (no model), its end-to-end pairs/s, and the
-   device's pairs/s on the same batches staged; the scores of all runs equal
-   bit for bit. Then ``cli/main.py`` as a subprocess on the card (bf16,
-   ``--workers W``, A's weights those of the runs here, B's and LXMERT's the
-   CLI's seed-0 init): four score files of every valid pair, ImageBERT-A's
+   each host loader (the per-example Python path and the native span loader),
+   with the launch counters set to 0 before each run and read after it; each
+   loader's rows/s alone (no model), its end-to-end pairs/s, and the device's
+   pairs/s on the same batches staged; the scores of both runs equal bit for
+   bit. Then ``cli/main.py`` as a subprocess on the card (bf16, A's weights
+   those of the runs here, B's and LXMERT's the CLI's seed-0 init): four
+   score files of every valid pair, ImageBERT-A's
    equal to the in-process scores bit for bit, a ``submission.csv`` with a row
    for each query, and ``ensemble.vectorized.build_submission_vectorized`` on the card
    (float64) giving its rows, with the dedup filter keeping some pairs and
@@ -2905,18 +2904,17 @@ class Smoke:
 
     def one_shot(self, n_rows: int = ONE_SHOT_ROWS) -> tuple[dict[str, dict], int, dict]:
         """ImageBERT-A at full width over a testB-like TSV through each host loader (the
-        per-example Python path, the native parser inline, 2 and W worker processes): each
-        loader's rows/s alone, its end-to-end pairs/s, the launches of each run and its scores,
-        which must be bit-equal across the loaders; the device's rate on the same batches. Then
-        ``cli/main.py`` as a subprocess (four scorers, bf16, --workers W, A's weights those of
-        the runs here) and the device fusion against its submission."""
+        per-example Python path and the native span loader): each loader's rows/s alone, its
+        end-to-end pairs/s, the launches of each run and its scores, which must be bit-equal
+        across the loaders; the device's rate on the same batches. Then ``cli/main.py`` as a
+        subprocess (four scorers, bf16, A's weights those of the runs here) and the device
+        fusion against its submission."""
         from importlib import import_module
 
         torch = self.torch
         pkg = import_module(PKG)
         data = import_module(f"{PKG}.data")
         fast = import_module(f"{PKG}.data.fast_pipeline")
-        multiworker = import_module(f"{PKG}.data.multiworker")
         synthetic = import_module(f"{PKG}.data.synthetic")
         models = import_module(f"{PKG}.models")
         imagebert_a = import_module(f"{PKG}.models.imagebert_a")
@@ -2943,18 +2941,12 @@ class Smoke:
         featurizer = data.Featurizer(tok.FullTokenizer.google_style(pkg.VOCAB_PATH),
                                      data.load_multimodal_labels(labels))
         cpus = os.cpu_count() or 2
-        workers = max(2, min(8, cpus // 2))
-        loaders = {"python": {"use_native": False, "num_workers": 0}, "native": {"use_native": True, "num_workers": 0},
-                   "workers_2": {"use_native": True, "num_workers": 2},
-                   f"workers_{workers}": {"use_native": True, "num_workers": workers}}
+        loaders = {"python": {"use_native": False}, "native": {"use_native": True}}
         log(f"phase 7 setup: {n_rows}-row testB-like TSV ({tsv.stat().st_size / 1e6:.1f} MB) and "
             f"{cfg.num_hidden_layers}x{cfg.hidden_size} params in {time.perf_counter() - t0:.1f} s; "
-            f"os.cpu_count() = {cpus}, W = {workers}")
+            f"os.cpu_count() = {cpus}")
 
         def loader(cfg_, stats):
-            if cfg_["num_workers"]:
-                return iter(multiworker.MultiWorkerLoader([tsv], featurizer, "imagebert_a", MAIN_B,
-                                                          num_workers=cfg_["num_workers"], stats=stats))
             if cfg_["use_native"]:
                 return fast.native_batches_from_files([tsv], featurizer, "imagebert_a", MAIN_B, stats=stats)
             return data.batches_from_files([tsv], featurizer.imagebert_a, MAIN_B, stats=stats, prefetch=0)
@@ -3009,7 +3001,7 @@ class Smoke:
         # the one-shot run: cli/main.py, A's weights those above (the other scorers the CLI's own seed-0 init)
         checkpoint.save_npz(work / "a.npz", checkpoint.params_to_jax(params))
         cmd = [sys.executable, "-m", f"{PKG}.cli.main", "--tsv", str(tsv), "--labels", str(labels),
-               "--checkpoint-a", str(work / "a.npz"), "--workers", str(workers), "--batch-size", str(MAIN_B),
+               "--checkpoint-a", str(work / "a.npz"), "--batch-size", str(MAIN_B),
                "--expect-pairs", str(n_rows), "--workdir", str(work / "run"), "--device", "cuda"]
         env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
         t0 = time.perf_counter()
@@ -3049,7 +3041,7 @@ class Smoke:
         for model, b in summary["breakdown"].items():
             log(f"one-shot {model}: wall {b['wall_s']} s, engine {b.get('engine_s')} s, loader {b.get('loader')}")
         log(f"one-shot total: {summary['total_wall_s']} s ({wall:.2f} s with the process)")
-        rates = {"rows": n_rows, "tsv_bytes": tsv.stat().st_size, "cpu_count": cpus, "workers": workers,
+        rates = {"rows": n_rows, "tsv_bytes": tsv.stat().st_size, "cpu_count": cpus,
                  "loader_alone": alone, "end_to_end": e2e, "device_ms": dev_ms, "device_pairs": n_pad,
                  "device_pairs_per_second": n_pad / dev_ms * 1e3, "one_shot": summary, "one_shot_wall_s": wall,
                  "queries": len(rows), "kept_pairs": kept, "products": n_products,

@@ -11,8 +11,8 @@ Ported so far: scoring with all four scorers, ImageBERT-A, -B, -C and LXMERT
 each attention backend, the AOT serving export (``serving/``,
 ``cli/export.py``), ImageBERT-A and LXMERT training (``data/sampling.py``,
 ``ops/train_blocks.py``, ``train/``, ``cli/train.py``), the native TSV parser
-and the multi-process loader (``data/native/``, ``data/fast_pipeline.py``,
-``data/multiworker.py``), the one-shot run, four scorers fused into the
+and its span loader (``data/native/``, ``data/fast_pipeline.py``), the
+one-shot run, four scorers fused into the
 top-5 submission (``ensemble/``, ``cli/submission.py``, ``cli/main.py``),
 the import of the reference's TF1 and torch checkpoints (``checkpoint/``,
 ``cli/convert_checkpoint.py``), distillation into shallower students

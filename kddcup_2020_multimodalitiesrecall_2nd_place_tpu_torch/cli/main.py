@@ -6,7 +6,7 @@
       --tsv testB.tsv --labels multimodal_labels.txt \\
       --checkpoint-a ImageBertKDD.ckpt-85002 \\
       --checkpoint-b model_attention_kdd_am_word_match_finetune_valid.ckpt-251 \\
-      --checkpoint-lxmert BEST.pth --workers 8 --workdir prediction_result
+      --checkpoint-lxmert BEST.pth --workdir prediction_result
 
 Each scorer is a ``cli.score`` subprocess: ImageBERT-B, then ImageBERT-C as a
 delta of B's file (``--delta-from``: only the sen2forest rows are scored;
@@ -76,8 +76,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--full-c", action="store_true",
                     help="score the whole TSV for imagebert_c instead of the delta pass over the sen2forest rows "
                          "(the same file; the delta pass runs ~10%% of the rows)")
-    ap.add_argument("--workers", type=int, default=0,
-                    help="loader worker processes of each scorer (0: the native parser inline)")
     ap.add_argument("--answers", default=None, help="valid_answer.json: also report the ensemble's nDCG@5")
     args = ap.parse_args(argv)
 
@@ -91,7 +89,7 @@ def main(argv: list[str] | None = None) -> None:
         dest = workdir / fname
         cmd = [sys.executable, "-m", f"{PKG}.cli.score", "--model", model, "--tsv", *args.tsv,
                "--labels", args.labels, "--out", str(dest), "--batch-size", str(args.batch_size),
-               "--device", args.device, "--workers", str(args.workers)]
+               "--device", args.device]
         if args.precision:
             cmd += ["--precision", args.precision]
         ckpt = getattr(args, ckpt_attr)

@@ -314,12 +314,10 @@ def cmd_int8(m: int, k: int, n: int, device, iters: int) -> None:
 
 def cmd_host(n_rows: int, batch_size: int, reps: int = 3) -> None:
     """Host input-pipeline rows/s (no device) over a synthetic testB-format TSV: the native parser alone, the
-    native pipeline, the per-example Python path and the multi-process loader at 0, 1 and 2 workers; best of
-    ``reps``."""
+    native pipeline and the per-example Python path; best of ``reps``."""
     from .. import VOCAB_PATH
     from ..data import Featurizer, batches_from_files
     from ..data.fast_pipeline import native_batches_from_files
-    from ..data.multiworker import MultiWorkerLoader
     from ..data.native import parse_pairs_native
     from ..data.synthetic import SYNTHETIC_LABELS, make_tsv
     from ..tokenization import FullTokenizer
@@ -351,10 +349,6 @@ def cmd_host(n_rows: int, batch_size: int, reps: int = 3) -> None:
         cases = [("native_pipeline", lambda: native_batches_from_files([path], fz, "imagebert_b", batch_size)),
                  ("python_pipeline", lambda: batches_from_files([path], fz.for_model("imagebert_b"), batch_size,
                                                                 prefetch=0))]
-        cases += [(f"multiworker_{w}", lambda w=w: MultiWorkerLoader([path], fz, "imagebert_b", batch_size,
-                                                                     num_workers=w,
-                                                                     chunk_bytes=max(len(buf) // 8, 1 << 20)))
-                  for w in (0, 1, 2)]
         for case, make in cases:
             dt = best(lambda make=make: drain(make()))
             emit(cmd="host", case=case, rows=n_rows, batch=batch_size, rows_per_s=n_rows / dt)

@@ -13,9 +13,8 @@ Runs on the card by default (bf16, through the CUDA kernels of the
 "pallas_packed" attention backend); ``--precision f32`` runs the plain f32
 route there ("xla", TF32 off), as the JAX engine does; ``--device cpu`` runs
 the plain versions (f32 by default). The host loader is the native parser
-(``data/native``, built with g++ into ``build/native/`` at first use), inline
-on a prefetch thread, or in ``--workers N`` processes: the same batches; the
-report line names the one that ran. Example:
+(``data/native``, built with g++ into ``build/native/`` at first use), on a
+prefetch thread. Example:
 
   python -m kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.cli.score \\
       --model imagebert_a --tsv testB.tsv --labels multimodal_labels.txt \\
@@ -129,11 +128,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="ImageBERT-C as a delta: the ImageBERT-B score file of the SAME tsv and "
                          "checkpoint; only rows containing 'sen department of' are scored, every "
                          "other score is copied from it. Only with --model imagebert_c.")
-    ap.add_argument("--workers", type=int, default=0,
-                    help="host loader worker processes (0: the native parser inline, on a prefetch thread)")
     args = ap.parse_args(argv)
-    if args.workers < 0:
-        ap.error("--workers takes a count >= 0")
     if args.delta_from is not None and args.model != "imagebert_c":
         ap.error("--delta-from is only meaningful for --model imagebert_c (C == B + sen2forest rewrite)")
 
@@ -171,8 +166,7 @@ def main(argv: list[str] | None = None) -> None:
             prec = None if args.precision is None else (
                 Precision.f32() if args.precision == "f32" else Precision.bf16())
             engine = ScoringEngine(spec, params, device=device, precision=prec)
-            result = engine.score_files(tsv_paths, featurizer, args.batch_size, stats=stats,
-                                        num_workers=args.workers)
+            result = engine.score_files(tsv_paths, featurizer, args.batch_size, stats=stats)
             if delta_base is not None:
                 for qid, row in result.items():
                     for pid, s in row.items():
@@ -203,7 +197,7 @@ def main(argv: list[str] | None = None) -> None:
         "pairs": total_pairs,
         "pairs_per_second": round(stats.pairs_per_second, 1),
         "parse_errors": stats.pipeline.errors,
-        "loader": f"native, {args.workers} workers" if args.workers else "native",
+        "loader": "native",
         "device": str(device),
         "out": args.out,
     }

@@ -74,9 +74,8 @@ def _tokenize_queries(featurizer: Featurizer, queries: list[str], max_len: int) 
 
 def featurize_raw(raw: dict, featurizer: Featurizer, layout: str, label_lut=None) -> dict[str, np.ndarray]:
     """Native-parser output -> the featurized arrays of a model layout (the
-    fields of the per-example ``Featurizer`` path, unsliced): the unit of work
-    a loader worker ships back whole (``multiworker.py``);
-    ``assemble_batches`` slices it. ``layout`` is the featurizer layout
+    fields of the per-example ``Featurizer`` path, unsliced), one per byte
+    span; ``rebatch`` slices it. ``layout`` is the featurizer layout
     (``imagebert_c`` is ``imagebert_b``'s, its rewrite the featurizer's flag).
     ``label_lut`` is ``build_label_lut(featurizer)``, built here if not given
     (a caller that featurizes many spans builds it once)."""

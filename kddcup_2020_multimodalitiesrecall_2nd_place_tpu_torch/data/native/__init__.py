@@ -6,7 +6,7 @@ compiler's version and the host's machine type, so an edited source, or a
 ``build/`` directory carried to another host, is rebuilt and a stale library
 is never loaded. Each process that builds it compiles to a name of its own and
 moves the result in place with ``os.replace``: processes that build at once
-(test workers, loader workers) each see either no library or a whole one.
+(the test suite's workers) each see either no library or a whole one.
 
 The flags leave out ``-march=native``: a checkout's ``build/`` directory may be
 copied to another host with another CPU, where a library tuned for the first

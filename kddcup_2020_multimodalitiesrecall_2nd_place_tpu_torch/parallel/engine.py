@@ -2,9 +2,9 @@
 
 Fixed batch shape (the tail padded, with a ``valid`` mask), parameters
 resident on the device, and one batch in flight: batch N+1 is launched
-before batch N's scores are read back, so the host loader (behind a
-prefetch thread: the native parser inline, N loader processes, or the
-per-example Python path) overlaps the device. On CUDA, ``score_stream``
+before batch N's scores are read back, so the host loader (the native
+parser on a prefetch thread, or the per-example Python path) overlaps the
+device. On CUDA, ``score_stream``
 also takes the copies off the compute stream, through a ring of two slots
 (``_Slot``): each batch is staged into a slot's pinned host buffers while
 the device runs the previous forward, copied to the slot's device buffers
@@ -40,7 +40,6 @@ import torch
 from ..checkpoint.npz import cast_matmul_weights, scoring_params, tree_to
 from ..data import Featurizer, PipelineStats, PrefetchIterator, batches_from_files
 from ..data.fast_pipeline import native_batches_from_files
-from ..data.multiworker import MultiWorkerLoader
 from ..data.native import get_lib
 from ..models import ModelSpec, Precision, two_tower
 from ..ops import attention
@@ -227,26 +226,20 @@ class ScoringEngine:
 
     def score_files(
         self, paths, featurizer: Featurizer, batch_size: int, stats: ScoringStats | None = None,
-        use_native: bool = True, num_workers: int = 0,
+        use_native: bool = True,
     ) -> dict[str, dict[str, float]]:
         """Full scorer run: files -> {query_id: {product_id: score}}.
 
-        The host loader, each behind a prefetch thread, yields the same batches
-        bit for bit: ``num_workers > 0`` parses and featurizes in that many
-        worker processes (``data/multiworker.py``); otherwise ``use_native``
-        (the default) parses with the native library inline, byte span by
-        byte span on a pool of threads (``data/fast_pipeline.py``), and
-        ``use_native=False`` runs the
-        per-example Python path. A native library that cannot be built raises;
-        no loader is swapped for another."""
+        The two host loaders yield the same batches bit for bit: ``use_native``
+        (the default) parses with the native library, byte span by byte span
+        on a pool of threads (``data/fast_pipeline.py``), behind a prefetch
+        thread; ``use_native=False`` runs the per-example Python path, the
+        reference. A native library that cannot be built raises; no loader is
+        swapped for another."""
         stats = stats if stats is not None else ScoringStats()
         with span("score.files"):
             layout = self.model.featurizer_layout
-            if num_workers:
-                loader = MultiWorkerLoader(paths, featurizer, layout, batch_size, num_workers=num_workers,
-                                           stats=stats.pipeline, use_native=use_native)
-                batches = PrefetchIterator(iter(loader), prefetch=4)
-            elif use_native:
+            if use_native:
                 get_lib()  # built here, so a failure raises before the prefetch thread starts
                 batches = PrefetchIterator(native_batches_from_files(paths, featurizer, layout, batch_size,
                                                                      stats=stats.pipeline), prefetch=4)

@@ -214,18 +214,6 @@ class FullTokenizer:
             pieces.extend(self.wordpiece.tokenize(token))
         return tuple(pieces)
 
-    def __getstate__(self):
-        # the lru_cache wrapper is unpicklable; drop it so tokenizers (and
-        # the Featurizer holding one) can ship to multiprocessing workers
-        # (data/multiworker.py), and rebuild it cold on the other side
-        d = dict(self.__dict__)
-        d.pop("_tokenize_cached", None)
-        return d
-
-    def __setstate__(self, d):
-        self.__dict__.update(d)
-        self._tokenize_cached = lru_cache(maxsize=1 << 16)(self._tokenize_uncached)
-
     def tokenize(self, text: str) -> list[str]:
         # Queries and box-label strings repeat heavily across the 29k test
         # pairs; an LRU cache makes host-side preprocessing essentially free.

@@ -98,13 +98,13 @@ class Meter:
 _METER = Meter()
 _LOCK = threading.Lock()  # the counters' read-modify-write: ``count`` may run on any thread
 _THREAD = threading.local()  # each thread's open spans' rows and its OS thread id
-_profiler = None  # torch.autograd.profiler, once this process has imported torch (a loader worker never does)
+_profiler = None  # torch.autograd.profiler, once this process has imported torch
 
 
 def _torch_profiler():
     """torch's profiler module where this process has imported torch, the
     record's restart hooked onto the start of its sessions (at the first call
-    that finds it: this module imports no torch, so loader workers stay
+    that finds it: this module imports no torch, so the data package stays
     free of it); None where torch is not imported."""
     global _profiler
     mod = sys.modules.get("torch.autograd.profiler")

@@ -1069,8 +1069,8 @@ def test_cuda_blocks_take_a_full_bias(cuda, f, t):
     assert kernels.attn_core_cross.launches == before + 1
 
 
-# The host loaders feeding a scoring engine on the card: the native parser inline, two worker
-# processes and the per-example Python path give the same batches, so the kernels give the same scores
+# The host loaders feeding a scoring engine on the card: the native span loader and the per-example
+# Python path give the same batches, so the kernels give the same scores
 CARD_TINY = {"hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2, "intermediate_size": 256}
 
 
@@ -1089,13 +1089,13 @@ def test_cuda_loaders_feed_the_engine_bit_equal(cuda, tmp_path):
     engine = ScoringEngine(spec, spec.init_params(1), device=cuda)
     assert engine.attention_backend == "pallas_packed"
     results = {}
-    for name, kw in (("native", {}), ("workers", {"num_workers": 2}), ("python", {"use_native": False})):
+    for name, kw in (("native", {}), ("python", {"use_native": False})):
         stats = ScoringStats()
         before = kernels.attn_core.launches
         results[name] = engine.score_files([p], fz, 16, stats=stats, **kw)
         assert (stats.pairs, stats.pipeline.errors) == (70, 1)
         assert kernels.attn_core.launches - before == 2 * stats.batches  # 2 layers a batch
-    assert results["workers"] == results["native"] == results["python"]
+    assert results["native"] == results["python"]
 
 
 def test_cuda_device_fusion_equals_dict_path(cuda):

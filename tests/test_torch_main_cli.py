@@ -1,4 +1,4 @@
-"""The port's loaders through the scoring CLI, and its one-shot run
+"""The port's scoring CLI, and its one-shot run
 (``cli/main.py``: four scorers, then ``cli/submission.py``) against the JAX
 package's ``scripts/main.py`` on the same npz checkpoints (f32 on the CPU, a
 tiny width through ``KMR_CONFIG_OVERRIDES``): each score file within 1e-4 of
@@ -35,24 +35,21 @@ def _report(capsys) -> dict:
 
 
 def test_score_cli_loaders_write_the_same_file(tmp_path, monkeypatch, capsys):
-    """--workers 2 writes --workers 0's file byte for byte (a malformed row
-    counted, not scored), and the report names the loader; ImageBERT-C as a
-    delta of B's file through the workers equals a full C run."""
+    """The native loader scores every pair (a malformed row counted, not
+    scored), and the report names the loader; ImageBERT-C as a delta of B's
+    file equals a full C run."""
     monkeypatch.setenv("KMR_CONFIG_OVERRIDES", json.dumps(TINY))
     data = _write_data(tmp_path, 40, seed=3, malformed=1)
     common = [*data, "--batch-size", "16", "--device", "cpu"]
-    files = {}
-    for name, extra in (("inline", []), ("workers", ["--workers", "2"])):
-        files[name] = tmp_path / f"b_{name}.tsv"
-        port_score.main(["--model", "imagebert_b", *common, *extra, "--out", str(files[name])])
-        rep = _report(capsys)
-        assert (rep["pairs"], rep["parse_errors"]) == (40, 1)
-        assert rep["loader"] == {"inline": "native", "workers": "native, 2 workers"}[name]
-    assert files["workers"].read_bytes() == files["inline"].read_bytes()
+    b_file = tmp_path / "b_inline.tsv"
+    port_score.main(["--model", "imagebert_b", *common, "--out", str(b_file)])
+    rep = _report(capsys)
+    assert (rep["pairs"], rep["parse_errors"], rep["loader"]) == (40, 1, "native")
+    assert len(b_file.read_text().splitlines()) == 40
 
     port_score.main(["--model", "imagebert_c", *common, "--out", str(tmp_path / "c_full.tsv")])
     capsys.readouterr()
-    port_score.main(["--model", "imagebert_c", *common, "--workers", "2", "--delta-from", str(files["workers"]),
+    port_score.main(["--model", "imagebert_c", *common, "--delta-from", str(b_file),
                      "--expect-pairs", "40", "--out", str(tmp_path / "c_delta.tsv")])
     rep = _report(capsys)
     assert 0 < rep["scored_pairs"] < 40
@@ -87,7 +84,7 @@ def test_main_cli_matches_jax_script(tmp_path, monkeypatch, capsys):
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
     assert ref.returncode == 0, ref.stderr[-3000:]
 
-    port_main.main([*common, "--device", "cpu", "--workers", "2", "--workdir", str(tmp_path / "port")])
+    port_main.main([*common, "--device", "cpu", "--workdir", str(tmp_path / "port")])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(summary["breakdown"]) == {"imagebert_a", "imagebert_b", "imagebert_c", "lxmert", "fusion"}
     assert summary["breakdown"]["imagebert_c"]["scored_pairs"] < n == summary["breakdown"]["imagebert_a"]["scored_pairs"]

@@ -3,8 +3,10 @@ and its vectorised pipeline against the JAX package's and against the port's
 per-example ``Featurizer``: arrays and batches bit for bit (both parsers run
 the same C++ on the same bytes; the per-example path computes the box
 geometry in numpy, which rounds to the same f32 values on these rows).
-Also: where the library is built, two processes building it at once, and a
-failed build raising rather than falling back to the Python path."""
+The byte spans equal the JAX package's, and a scoring engine gives the same
+scores through either loader. Also: where the library is built, two processes
+building it at once, a failed build raising rather than falling back to the
+Python path, and a data package that imports no torch."""
 
 import os
 import subprocess
@@ -125,6 +127,44 @@ def test_files_batch_as_one_stream(spans, tmp_path, monkeypatch):
     assert (slow_stats.parsed, slow_stats.errors, slow_stats.batches) == (11, 1, 3)
     one = native.parse_pairs_native(paths[1].read_bytes())
     assert len(list(assemble_batches(one, fz, "imagebert_a", 4))) == 2
+
+
+def test_chunk_spans_match_jax(tmp_path):
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu.data.multiworker import chunk_spans as jax_chunk_spans
+
+    paths = []
+    for i, n in enumerate((23, 14)):
+        paths.append(tmp_path / f"part{i}.tsv")
+        paths[-1].write_text("\n".join(make_testb_tsv(n, seed=40 + i, pairs_per_query=5)) + "\n")
+    for chunk in (150_000, 1 << 20, 1 << 30):  # ~2-3 rows a span, then a span or one a file
+        spans = fast_pipeline.chunk_spans(paths, chunk)
+        assert spans == jax_chunk_spans(paths, chunk)
+        assert spans[0][1] == 0 and sum(e - s for _, s, e in spans) == sum(p.stat().st_size for p in paths)
+    assert len(fast_pipeline.chunk_spans(paths, 150_000)) > 10
+
+
+@pytest.mark.parametrize("spans", list(SPANS))
+def test_score_files_loaders_agree(spans, tmp_path, monkeypatch):
+    """A scoring engine gives the same scores, pair for pair, through the native loader at each span size
+    as through the per-example Python path, and counts the same pairs, rows and parse errors."""
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.models import get_model
+    from kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.parallel import ScoringEngine, ScoringStats
+    from torch_parity import TINY
+
+    p = tmp_path / "pairs.tsv"
+    p.write_text("\n".join(make_testb_tsv(45, seed=12, pairs_per_query=7)) + "\n")  # one malformed row
+    fz = Featurizer(FullTokenizer.google_style(VOCAB_PATH), SYNTHETIC_LABELS)
+    spec = get_model("imagebert_a", overrides=TINY)
+    engine = ScoringEngine(spec, spec.init_params(2), device="cpu")
+    monkeypatch.setattr(fast_pipeline, "SPAN_BYTES", SPANS[spans])
+    results, counts = {}, {}
+    for name, use_native in (("native", True), ("python", False)):
+        stats = ScoringStats()
+        results[name] = engine.score_files([p], fz, 8, stats=stats, use_native=use_native)
+        counts[name] = (stats.pairs, stats.pipeline.parsed, stats.pipeline.errors)
+    assert counts["native"] == counts["python"] == (45, 45, 1)
+    assert sum(len(row) for row in results["python"].values()) == 45
+    assert results["native"] == results["python"]
 
 
 @pytest.fixture
@@ -271,3 +311,15 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(native.NativeUnavailable):
         engine.score_files([p], fz, 4)
     assert len(engine.score_files([p], fz, 4, use_native=False)) > 0  # the caller's choice
+
+
+def test_data_package_imports_no_torch():
+    code = (
+        "import sys\n"
+        "import kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data\n"
+        "import kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.fast_pipeline\n"
+        "import kddcup_2020_multimodalitiesrecall_2nd_place_tpu_torch.data.native\n"
+        "assert 'torch' not in sys.modules and 'jax' not in sys.modules\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
