@@ -31,7 +31,11 @@
    ``KMR_FUSED_LAYER=1``, and ImageBERT-C (B with the sen2forest query
    rewrite). Every launch counter is set to 0 just before each of the seven
    runs and read just after it, and must show exactly the launches that path
-   makes. ImageBERT-A's scores are held against the plain path on the card
+   makes from the host (each pass's four batches: every ring slot's eager
+   batch and its CUDA graph's capture; a replay launches on the device
+   alone). ImageBERT-A's run is traced: its kernels on the device must be
+   PER_BATCH's for every batch, replays included, and the engine's counters
+   two captures and a replay of each. ImageBERT-A's scores are held against the plain path on the card
    (max |d score| <= SCORE_BAND). LXMERT's and ImageBERT-B's, whose heads make
    them more sensitive, are held against the f32 truth on the card (plain
    blocks in f32): both bf16 paths (kernels, plain) within SCORE_BAND of it
@@ -149,7 +153,8 @@
    the sen2forest trigger in a tenth of the queries, one malformed row that
    must count as a parse error): ImageBERT-A at full width scores it through
    each host loader (the per-example Python path and the native span loader),
-   with the launch counters set to 0 before each run and read after it; each
+   with the launch counters set to 0 before each run and read after it (the
+   host's launches of four of its batches, the rest replayed); each
    loader's rows/s alone (no model), its end-to-end pairs/s, and the device's
    pairs/s on the same batches staged; the scores of both runs equal bit for
    bit. Then ``cli/main.py`` as a subprocess on the card (bf16, A's weights
@@ -516,14 +521,15 @@ def launch_counters() -> tuple:
     return (*k.WRAPPERS, *blocks, *train)
 
 
-ROUTE_FLAGS = ("KMR_DUAL_CROSS", "KMR_FUSED_LAYER")
-
-
 @contextlib.contextmanager
 def route(**flags: bool):
-    """Each of ROUTE_FLAGS set to 1 inside the block if named true, unset
-    inside otherwise, and unset after it either way."""
-    for name in ROUTE_FLAGS:
+    """Each route switch of ``models/core.py`` (ROUTE_SWITCHES) set to 1
+    inside the block if named true, unset inside otherwise, and unset after
+    it either way."""
+    from importlib import import_module
+
+    switches = import_module(f"{PKG}.models.core").ROUTE_SWITCHES
+    for name in switches:
         if flags.get(name):
             os.environ[name] = "1"
         else:
@@ -531,7 +537,7 @@ def route(**flags: bool):
     try:
         yield
     finally:
-        for name in ROUTE_FLAGS:
+        for name in switches:
             os.environ.pop(name, None)
 
 
@@ -1239,6 +1245,7 @@ class Smoke:
         models = import_module(f"{PKG}.models")
         imagebert_a = import_module(f"{PKG}.models.imagebert_a")
         engine_mod = import_module(f"{PKG}.parallel.engine")
+        observability = import_module(f"{PKG}.utils.observability")
         tok = import_module(f"{PKG}.tokenization")
 
         work = pkg.BUILD_DIR / "smoke"
@@ -1267,14 +1274,29 @@ class Smoke:
         for w in counted:
             w.launches = 0
         stats = engine_mod.ScoringStats()
-        result = engine.score_files([tsv], featurizer, MAIN_B, stats=stats)
-        torch.cuda.synchronize()
+        # traced: the wrappers count the host's launches, which a graph's replay makes none of, so the device's
+        # launches come from the trace of the same run, and the engine's graph counters from its record
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            result = engine.score_files([tsv], featurizer, MAIN_B, stats=stats)
+            torch.cuda.synchronize()
         launches = {w.__name__: w.launches for w in counted}
+        graphs = {k: v for k, v in observability.recorded()["counters"].items() if k.startswith("engine.graph_")}
+        on_device = device_launches(prof)
         log(f"main path: {stats.pairs} pairs in {stats.batches} batches, {stats.seconds:.3f} s, "
-            f"{stats.pairs_per_second:.1f} pairs/s end to end (host parse + featurize included)")
+            f"{stats.pairs_per_second:.1f} pairs/s end to end, traced (host parse + featurize included)")
         log(f"launches: {json.dumps(launches)}")
+        log(f"main path on the device: {json.dumps({'device_launches': on_device, **graphs})}")
         if stats.pairs != N_ROWS:
             raise RuntimeError(f"main path scored {stats.pairs} pairs, expected {N_ROWS}")
+        phases = ring_phases(stats.batches)
+        want = {"engine.graph_captures": phases["capture"],
+                "engine.graph_replays": phases["capture"] + phases["replay"]}
+        if {k: v for k, v in want.items() if v} != graphs:
+            raise RuntimeError(f"main path graph counters {graphs}, expected {want}")
+        want = {name: stats.batches * PER_BATCH["imagebert_a"][name] for name in DEVICE_KERNELS}
+        if on_device != want:
+            raise RuntimeError(f"main path device launches {on_device}, expected {want}")
 
         # device time of the model alone on staged batches, and the plain path on the card
         staged = [engine.to_device(bt) for bt in batches]
@@ -4519,7 +4541,10 @@ def gemm_site_launches() -> dict[str, int]:
 
 def kernel_line(times: dict, launches: dict[str, dict], errors: dict) -> dict:
     """``launches``: path -> counter name -> launches in that path's run;
-    each kernel's ``launches`` is its sum over the paths."""
+    each kernel's ``launches`` is its sum over the paths. The counters count
+    the host's launches: a CUDA graph's replay in a ``score_files`` pass
+    launches on the device alone (the main path's ``device_launches`` reads
+    the device's from its trace)."""
     out = []
     for name, source, replaces, rows, per in KERNELS:
         rs = [times[r] for r in rows]
@@ -4637,6 +4662,43 @@ def counted_run(torch, runs: dict, path: str, expected: dict, fn):
 def expected_launches(n: int, per_batch: dict) -> dict:
     """Every counter's expected launches over n batches; unnamed counters 0."""
     return {w.__name__: n * per_batch.get(w.__name__, 0) for w in launch_counters()}
+
+
+def ring_phases(n: int) -> dict:
+    """How many of a ``score_stream`` of n batches of one layout on CUDA (a ``score_files`` pass) run
+    "eager", "capture" and "replay", by the engine's rule (``parallel/engine.py:graph_phase``) over its two
+    ring slots in turn."""
+    from importlib import import_module
+
+    graph_phase = import_module(f"{PKG}.parallel.engine").graph_phase
+    runs, out = [0, 0], {"eager": 0, "capture": 0, "replay": 0}
+    for i in range(n):
+        phase, runs[i % 2] = graph_phase("layout" if runs[i % 2] else None, "layout", runs[i % 2])
+        out[phase] += 1
+    return out
+
+
+def host_launched_batches(n: int) -> int:
+    """Of such a pass of n batches, those whose kernels the host launches one by one (and the wrappers'
+    counters count): each slot's eager batch and its capture; a replay launches on the device alone."""
+    phases = ring_phases(n)
+    return phases["eager"] + phases["capture"]
+
+
+# the device kernel that each scoring wrapper of ImageBERT-A's main path launches, by the wrapper's name
+DEVICE_KERNELS = {"gemm": "gemm_bf16_kernel", "attn_core": "attn_core_kernel", "layernorm": "layernorm_kernel"}
+
+
+def device_launches(prof) -> dict:
+    """The device's launches of each DEVICE_KERNELS kernel in a finished torch.profiler session, the graphs'
+    replays included, under its wrapper's name."""
+    out = dict.fromkeys(DEVICE_KERNELS, 0)
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):  # e.g. "void (anonymous namespace)::gemm_bf16_kernel<3, false>(...)"
+            for wrapper, kernel in DEVICE_KERNELS.items():
+                if f"::{kernel}<" in e.key or f"::{kernel}(" in e.key:
+                    out[wrapper] += e.count
+    return out
 
 
 # launches per scored batch: 12 layers of ImageBERT-A; LXMERT's 9 + 5 self-attention
@@ -4988,7 +5050,7 @@ def main(argv: list[str] | None = None) -> int:
             raise RuntimeError(f"gemm_bf16 disagrees with gemm_plain at a site: {smoke.failures}")
         log(json.dumps({"gemm_enqueue_us": smoke.gemm_enqueue_us()}))
         launches, n_batches, rates = smoke.score_main_path()
-        expected = expected_launches(n_batches, PER_BATCH["imagebert_a"])
+        expected = expected_launches(host_launched_batches(n_batches), PER_BATCH["imagebert_a"])
         if launches != expected or n_batches == 0:
             raise RuntimeError(f"main path launches {launches}, expected {expected}")
         log(json.dumps({"end_to_end": rates}))
@@ -5048,7 +5110,7 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"train_lxmert": lx_train_rates}))
         ot_launches, ot_batches, ot_rates = smoke.one_shot()
         for path, counts in ot_launches.items():
-            expected = expected_launches(ot_batches, PER_BATCH["imagebert_a"])
+            expected = expected_launches(host_launched_batches(ot_batches), PER_BATCH["imagebert_a"])
             if counts != expected or ot_batches == 0:
                 raise RuntimeError(f"{path} launches {counts}, expected {expected}")
         log(json.dumps({"one_shot": ot_rates}))

@@ -158,6 +158,23 @@ TRAIN_PLAIN_BLOCKS = TrainBlocks(attention_block_train_plain, ffn_block_train_pl
 GELU_APPROXIMATE = {"gelu": True, "gelu_erf": False}
 GELU = {"gelu": gelu_tanh, "gelu_erf": gelu_erf}
 
+# the environment switches that pick an inference forward's route beyond its inputs and attention backend,
+# each on when set to "1"; the route reads them through ``route_switch`` alone
+ROUTE_SWITCHES = ("KMR_FUSED_LAYER", "KMR_DUAL_CROSS")
+
+
+def route_switch(name: str) -> bool:
+    """True iff the route switch ``name`` is set to 1; a name not in ROUTE_SWITCHES raises ``KeyError``."""
+    if name not in ROUTE_SWITCHES:
+        raise KeyError(f"{name} is not one of the route switches {ROUTE_SWITCHES}")
+    return os.environ.get(name, "0") == "1"
+
+
+def route_key() -> tuple[tuple[str, bool], ...]:
+    """Each route switch and whether it is on now: what a forward's route depends on besides its inputs and
+    the attention backend (``parallel/engine.py:layout_key`` keys a replayed forward by it)."""
+    return tuple((name, route_switch(name)) for name in ROUTE_SWITCHES)
+
 
 # --------------------------------------------------------------------------
 # initialisers
@@ -364,7 +381,7 @@ def dual_cross_attention_blocks(p: Params, l, v, lang_bias, visn_bias, cfg: Bert
     if seeds is not None:
         return (cross_attention_block(p, l, v, visn_bias, cfg, prec, blocks, seed=seeds[0]),
                 cross_attention_block(p, v, l, lang_bias, cfg, prec, blocks, seed=seeds[1]))
-    if (packed_attention_active() and os.environ.get("KMR_DUAL_CROSS", "0") == "1" and "kernel" in p["qkv"]
+    if (packed_attention_active() and route_switch("KMR_DUAL_CROSS") and "kernel" in p["qkv"]
             and is_compact(lang_bias) and is_compact(visn_bias) and (lang_bias is None) == (visn_bias is None)):
         out = p["output"]
         bqkv, bo, gamma, beta = _vectors(p["qkv"]["bias"], out["dense"]["bias"], out["LayerNorm"]["gamma"],
@@ -424,7 +441,7 @@ def fused_layer_route(bias, act_name: str) -> bool:
     and the layer qualifies for the fused launch: a compact key mask ([B, S]
     rows or [B, 1, 1, S]) or none, and a GELU the kernel has (the gating of
     the JAX package's ``models/core.py`` :570-582)."""
-    return (os.environ.get("KMR_FUSED_LAYER", "0") == "1" and packed_attention_active() and is_compact(bias)
+    return (route_switch("KMR_FUSED_LAYER") and packed_attention_active() and is_compact(bias)
             and act_name in GELU_APPROXIMATE)
 
 

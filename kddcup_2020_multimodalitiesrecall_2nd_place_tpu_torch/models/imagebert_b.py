@@ -195,8 +195,10 @@ def embed(p: Params, batch: dict, cfg: BertConfig, prec: Precision, blocks: Bloc
     text = F.embedding(batch["input_ids"].long(), emb["word_embeddings"])
     x = torch.cat([text.float(), img.float()], dim=1)
     x = x + token_type_embed(emb["token_type_embeddings"], batch["segment_ids"])
-    positions = torch.cat([torch.arange(TEXT_LEN), torch.full((MAX_BOXES,), BOX_POSITION_ID)])
-    x = x + emb["position_embeddings"][positions.to(x.device)][None]
+    # made on the device: a copy from pageable host memory cannot be captured into a CUDA graph
+    positions = torch.cat([torch.arange(TEXT_LEN, device=x.device),
+                           torch.full((MAX_BOXES,), BOX_POSITION_ID, device=x.device)])
+    x = x + emb["position_embeddings"][positions][None]
     return dropout(layer_norm(emb["LayerNorm"], x), cfg.hidden_dropout_prob, gen)
 
 

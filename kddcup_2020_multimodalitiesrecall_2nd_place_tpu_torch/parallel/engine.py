@@ -11,8 +11,18 @@ the device runs the previous forward, copied to the slot's device buffers
 on a side stream that the forward waits for, and its scores are copied
 into pinned memory right after its own forward, ahead of the next one. So
 batch N+1's copy runs beside batch N's forward, and reading N's scores
-waits for N's forward alone. A CPU engine, and ``score_batch`` (one call,
-nothing to overlap), copy as before.
+waits for N's forward alone. Each slot also replays the forward as one CUDA
+graph that reads its device buffers, so the host enqueues a batch in one
+launch rather than a hundred (``graph_phase``): a layout's first batch in a
+slot runs eagerly, which warms the kernels' builds and lazy state, its
+second is captured and then replayed, and every later one is replayed. A
+new layout in the slot (shapes, dtypes, the attention backend or a route
+switch the forward reads), or new weights (``update_params``), starts the
+slot over. The graphs live for one ``score_stream``, so one ``score_files``
+pass: when the stream ends they are dropped and the memory pool they shared
+is given back to the device, so that a training run does not hold it
+between its valid passes. A CPU engine, and ``score_batch`` (one call,
+nothing to overlap), copy and run as before.
 
 Device policy: the engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit ``cpu`` it raises, and it
@@ -42,6 +52,7 @@ from ..data import Featurizer, PipelineStats, PrefetchIterator, batches_from_fil
 from ..data.fast_pipeline import native_batches_from_files
 from ..data.native import get_lib
 from ..models import ModelSpec, Precision, two_tower
+from ..models.core import route_key
 from ..ops import attention
 from ..utils.observability import count, span, tracing
 
@@ -80,10 +91,25 @@ class ScoringStats:
         return self.pairs / self.seconds if self.seconds > 0 else 0.0
 
 
+def layout_key(inputs: dict[str, torch.Tensor], attention_backend: str) -> tuple:
+    """What a ring slot's buffers and graph are made for: each input's key, shape and dtype, then the
+    attention backend and the route switches as the forward would read them now (``models/core.py:route_key``)."""
+    return (*((k, t.shape, t.dtype) for k, t in inputs.items()), ("attention_backend", attention_backend),
+            *route_key())
+
+
+def graph_phase(held: tuple | None, layout: tuple, runs: int) -> tuple[str, int]:
+    """The capture rule of a ring slot that holds layout ``held`` and has run ``runs`` batches of it, for a
+    batch of ``layout`` -> ("eager", "capture" or "replay", the slot's batches of ``layout`` with this one).
+    Eager where ``layout`` is new to the slot, capture on its second batch, replay from the third."""
+    runs = runs + 1 if layout == held else 1
+    return ("eager", "capture", "replay")[min(runs, 3) - 1], runs
+
+
 class _Slot:
     """One slot of ``score_stream``'s ring on CUDA: pinned host and device buffers for a batch's inputs (made
-    for one ``layout`` of keys, shapes and dtypes, and made again when it changes), a pinned buffer for its
-    scores, and the events that order their reuse."""
+    for one ``layout_key``, and made again when it changes), a pinned buffer for its scores, the events that
+    order their reuse, and the CUDA graph of the forward on its device buffers."""
 
     def __init__(self):
         self.layout = None
@@ -93,13 +119,21 @@ class _Slot:
         self.copied_in = torch.cuda.Event()  # the H2D from ``host`` into ``device`` is done
         self.consumed = torch.cuda.Event()  # the forward that read ``device`` is done
         self.copied_out = torch.cuda.Event()  # the scores are in ``scores``
+        self.drop_graph()
+
+    def drop_graph(self) -> None:
+        """Forget the graph (its inputs or weights are gone) and start the layout's count over."""
+        self.runs = 0  # batches of ``layout`` run since it came or the graph was dropped
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: torch.Tensor | None = None  # the graph's scores, in the pool the slots' graphs share
 
 
 class ScoringEngine:
     """Pairwise scorer for one model on one device. Spans (``utils/observability.py``):
     ``score.files``, ``loader.wait``, ``engine.h2d``, ``engine.forward``, ``engine.d2h``, each
     once a batch; counters ``h2d.bytes`` (the batches' input tensors) and, on CUDA in
-    ``score_stream``, ``h2d.pinned_bytes`` (those of them staged through the pinned ring)."""
+    ``score_stream``, ``h2d.pinned_bytes`` (those of them staged through the pinned ring),
+    ``engine.graph_captures`` and ``engine.graph_replays`` (the slots' graphs)."""
 
     def __init__(self, model: ModelSpec, params, device=None, precision: Precision | None = None,
                  attention_backend: str | None = None):
@@ -114,15 +148,28 @@ class ScoringEngine:
         self.attention_backend = attention_backend
         self._copy_stream = None  # CUDA: the side stream of score_stream's H2D, and its two slots
         self._slots: tuple[_Slot, _Slot] | None = None
+        self._capture_stream = None  # CUDA: the stream the slots' graphs are captured on, and their memory pool
+        self._graph_pool = None
         self.update_params(params)
 
     @torch.no_grad()
     def update_params(self, params) -> None:
         """Swap in new weights (a training run's valid pass), prepared as at
         construction: the MLM head left out, the matmul kernels cast to the
-        compute dtype, the tree on the engine's device."""
+        compute dtype, the tree on the engine's device. The ring's graphs,
+        which read the old weights, are dropped."""
+        self._drop_graphs()
         self.params = tree_to(cast_matmul_weights(scoring_params(params), self.precision.compute_dtype,
                                                   self.model.matmul_kernels), self.device)
+
+    def _drop_graphs(self) -> None:
+        """Forget both slots' graphs and give the memory pool they shared back to the device."""
+        held = any(slot.graph is not None for slot in self._slots or ())
+        for slot in self._slots or ():
+            slot.drop_graph()
+        if held:
+            # a pool no graph holds is freed only by the allocator's release of its unused blocks
+            torch.cuda.empty_cache()
 
     def to_device(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         with span("engine.h2d"):
@@ -131,28 +178,59 @@ class ScoringEngine:
             count("h2d.bytes", sum(t.nbytes for t in out.values()))
         return out
 
+    def _apply(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
+        with attention.attention_backend(self.attention_backend):
+            return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
+
     @torch.inference_mode()
     def _forward(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
-        with span("engine.forward"), attention.attention_backend(self.attention_backend):
-            return self.model.apply(self.params, feats, self.model.config, self.precision)["score"]
+        with span("engine.forward"):
+            return self._apply(feats)
+
+    @torch.inference_mode()
+    def _replay(self, slot: _Slot, feats: dict[str, torch.Tensor], capture: bool) -> torch.Tensor:
+        """The forward as ``slot``'s graph, on the compute stream; with ``capture`` the graph is captured
+        first, on the capture stream into the pool the slots share (a new pool where no graph holds the
+        last). The kernels' wrappers count the launches the capture records, and none of a replay's. -> the
+        graph's scores, which the next replay of either slot's graph may overwrite."""
+        with span("engine.forward"):
+            if capture:
+                if all(s.graph is None for s in self._slots):
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(self._capture_stream):
+                    # thread-local: another thread of the caller's may call CUDA meanwhile
+                    graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+                    try:
+                        out = self._apply(feats)
+                    finally:
+                        graph.capture_end()
+                slot.graph, slot.out = graph, out
+                count("engine.graph_captures")
+            slot.graph.replay()
+            count("engine.graph_replays")
+            return slot.out
 
     @torch.inference_mode()
     def score_batch(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
         """-> f32 scores [B] on the device (not yet synchronised)."""
         return self._forward(self.to_device(batch))
 
-    def _stage(self, slot: _Slot, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    def _stage(self, slot: _Slot, batch: dict[str, np.ndarray]) -> tuple[dict[str, torch.Tensor], str, int]:
         """The batch's inputs into ``slot``: copied into its pinned buffers on the host (torch's intra-op
         threads; done on return, so the caller may reuse its arrays), then issued to its device buffers on
-        the copy stream, which the compute stream waits for. -> the device buffers."""
+        the copy stream, which the compute stream waits for. -> the device buffers, and ``graph_phase``'s
+        phase and count for the batch."""
         compute, copy = torch.cuda.current_stream(self.device), self._copy_stream
         with span("engine.h2d"):
             src = {k: torch.from_numpy(np.ascontiguousarray(batch[k])) for k in self.model.input_keys}
             slot.copied_in.synchronize()  # the slot's last H2D has read its pinned buffers
-            layout = tuple((k, t.shape, t.dtype) for k, t in src.items())
+            layout = layout_key(src, self.attention_backend)
+            phase, runs = graph_phase(slot.layout, layout, slot.runs)
             if layout != slot.layout:
                 # a fresh device buffer may be memory that work queued on the compute stream still uses
                 copy.wait_stream(compute)
+                slot.drop_graph()
                 slot.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for k, t in src.items()}
                 slot.device = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device) for k, t in src.items()}
                 slot.layout = layout
@@ -168,13 +246,16 @@ class ScoringEngine:
             copied = sum(t.nbytes for t in slot.device.values())
             count("h2d.bytes", copied)
             count("h2d.pinned_bytes", copied)
-        return slot.device
+        return slot.device, phase, runs
 
     def _score_pinned(self, slot: _Slot, batch: dict[str, np.ndarray]) -> tuple:
-        """Stage, forward and queue the scores' copy into ``slot``'s pinned buffer, ahead of the next
-        forward. -> ``_finish``'s pending tuple, the ids and mask copied so the caller may reuse its arrays."""
+        """Stage, forward (eagerly, or as the slot's graph) and queue the scores' copy into ``slot``'s pinned
+        buffer, ahead of the next forward. -> ``_finish``'s pending tuple, the ids and mask copied so the
+        caller may reuse its arrays."""
         compute = torch.cuda.current_stream(self.device)
-        scores = self._forward(self._stage(slot, batch))
+        feats, phase, runs = self._stage(slot, batch)
+        scores = self._forward(feats) if phase == "eager" else self._replay(slot, feats, phase == "capture")
+        slot.runs = runs  # counted once issued: after a capture that raised, the next batch captures again
         slot.consumed.record(compute)
         if slot.scores is None or slot.scores.shape != scores.shape or slot.scores.dtype != scores.dtype:
             slot.scores = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
@@ -189,29 +270,35 @@ class ScoringEngine:
         """-> (query_ids, product_ids, scores) per batch, valid rows only;
         span ``loader.wait`` is the time blocked on ``batches`` for each.
         On CUDA each batch goes through the next slot of the two-slot ring
-        (``_score_pinned``); on the CPU through ``score_batch``."""
+        (``_score_pinned``), replayed as the slot's graph once its layout
+        has come twice in this stream; on the CPU through ``score_batch``.
+        The graphs are dropped when the stream ends, however it ends."""
         stats = stats if stats is not None else ScoringStats()
         if self.device.type == "cuda" and self._slots is None:
             self._copy_stream = torch.cuda.Stream(self.device)
+            self._capture_stream = torch.cuda.Stream(self.device)
             self._slots = (_Slot(), _Slot())
         pending = None  # _finish's (qid, pid, valid, scores, event the scores' copy records or None)
         batches = iter(batches)
         n = 0
-        while True:
-            with span("loader.wait"):
-                batch = next(batches, None)
-            if batch is None:
-                break
-            if self.device.type == "cuda":
-                current = self._score_pinned(self._slots[n % 2], batch)
-            else:
-                current = (batch["query_id"], batch["product_id"], batch["valid"], self.score_batch(batch), None)
-            n += 1
+        try:
+            while True:
+                with span("loader.wait"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                if self.device.type == "cuda":
+                    current = self._score_pinned(self._slots[n % 2], batch)
+                else:
+                    current = (batch["query_id"], batch["product_id"], batch["valid"], self.score_batch(batch), None)
+                n += 1
+                if pending is not None:
+                    yield self._finish(pending, stats)
+                pending = current
             if pending is not None:
                 yield self._finish(pending, stats)
-            pending = current
-        if pending is not None:
-            yield self._finish(pending, stats)
+        finally:
+            self._drop_graphs()
 
     @staticmethod
     def _finish(pending, stats: ScoringStats):

@@ -13,10 +13,11 @@ main thread's wait on it (``loader.wait``), the packed gather
 ``engine.d2h``, ``train.h2d``), the model step (``engine.forward``,
 ``train.forward_backward``, ``train.optimizer`` and its ``optim.*``) and the
 blocks (``block.*``); ``count(name, n)`` adds to a named counter (the scoring
-engine's ``h2d.bytes``, and ``h2d.pinned_bytes`` for those through its pinned
-ring). The switch is a running ``torch.profiler`` session
-(the benchmark's traced window, ``device_profile``, an operator's own
-profiler): with none running, a span or a count reads one flag and does
+engine's ``h2d.bytes``, ``h2d.pinned_bytes`` for those through its pinned
+ring, and ``engine.graph_captures`` and ``engine.graph_replays`` for the ring
+slots' CUDA graphs, whose replays run inside ``engine.forward``). The switch
+is a running ``torch.profiler`` session (the benchmark's traced window,
+``device_profile``, an operator's own profiler): with none running, a span or a count reads one flag and does
 nothing else (no clock, no range, no record). With one running, a span
 records its name, thread, start and end (``time.perf_counter_ns``) and the
 index of its parent span on the same thread into one process-wide ``Meter``,
